@@ -1,0 +1,41 @@
+"""PyTorch + CUDA port of `llama3_quantization_tpu` for NVIDIA Hopper.
+
+Imports torch and numpy only: never JAX, never the JAX package. Entry
+points that create tensors take `device` (default "cuda") and raise when
+CUDA is missing unless the caller asks for the CPU. On CPU tensors every
+kernel wrapper runs its plain PyTorch version; on CUDA tensors it launches
+its hand-written kernel (`csrc/`, built with nvcc at first use).
+"""
+
+from .convert import params_from_numpy
+from .device import resolve_device
+from .models.configs import LLAMA3_8B, TINY_LLAMA, ModelConfig
+from .models.params import init_params, linear_names, quantize_model_rtn
+from .models.synthetic import init_quantized_params
+from .models.transformer import (
+    decode_step,
+    forward_hidden,
+    forward_logits,
+    greedy_generate,
+    init_kv_cache,
+)
+from .ops import launches
+from .ops.decode_attention import flash_decode_gqa_s8, flash_decode_gqa_s8_stacked
+from .ops.flash_attention import flash_attention
+from .ops.fused_qmatmul import fused_dequant_matmul
+from .ops.kvcache import kv_quantize
+from .ops.matmul import qlinear, qmatmul
+from .quant.pack import pack_factor, pack_subbyte, unpack_subbyte
+from .quant.qtensor import QuantizedTensor, dequantize, from_codes, quantize_rtn
+from .quant.quantizer import QuantSpec, fake_quant, minmax_scale_zp
+
+__all__ = [
+    "LLAMA3_8B", "TINY_LLAMA", "ModelConfig", "QuantSpec", "QuantizedTensor",
+    "decode_step", "dequantize", "fake_quant", "flash_attention",
+    "flash_decode_gqa_s8", "flash_decode_gqa_s8_stacked", "forward_hidden",
+    "forward_logits", "from_codes", "fused_dequant_matmul", "greedy_generate",
+    "init_kv_cache", "init_params", "init_quantized_params", "kv_quantize",
+    "launches", "linear_names", "minmax_scale_zp", "pack_factor", "pack_subbyte",
+    "params_from_numpy", "qlinear", "qmatmul", "quantize_model_rtn", "quantize_rtn",
+    "resolve_device", "unpack_subbyte",
+]

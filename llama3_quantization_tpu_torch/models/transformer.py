@@ -1,0 +1,298 @@
+"""Llama decoder forward and int8-KV decode (port of the llama parts of
+`llama3_quantization_tpu/models/transformer.py`).
+
+Plain functions over the parameter tree of `models/params.py`. The layer
+stack is a Python loop over the stacked `[L, ...]` tensors (views, no
+copies). Routing follows the JAX package:
+
+- full-sequence attention takes kernel B7 (`ops/flash_attention.py`) when
+  S >= 128 and the eager path below that (`transformer.py:203-204`);
+- a single-token decode step on the int8 cache takes kernel B5
+  (`ops/decode_attention.py`) with `block_t = 1024 if T % 1024 == 0 else
+  512` (`:496`). The TPU's "auto" mode sends int8 caches to XLA dots
+  instead (a libtpu DMA cap); the port always uses its kernel, as JAX's
+  `set_decode_attn("kernel")` does;
+- a prefill into the cache (S > 1) reads the dequantized cache through the
+  eager attention (`:566,603-607`).
+
+Only the int8 cache and no runtime activation quantization (`NO_QUANT`)
+are ported. The KV cache is updated IN PLACE.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.decode_attention import NEG, block_size, flash_decode_gqa_s8_stacked
+from ..ops.flash_attention import causal_mask, flash_attention
+from ..ops.kvcache import (
+    CACHE_KEYS,
+    cache_read,
+    cache_update_stacked,
+    init_quantized_kv_cache,
+    layer_view,
+)
+from ..ops.matmul import qlinear
+from ..quant.qtensor import QuantizedTensor
+from .configs import ModelConfig
+
+Params = Dict[str, Any]
+
+#: full-sequence attention takes the flash kernel from this length on
+FLASH_MIN_SEQ = 128
+
+
+def rms_norm(
+    x: torch.Tensor, weight: torch.Tensor, eps: float, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def rope_cos_sin(
+    positions: torch.Tensor, head_dim: int, theta: float, dtype, scaling=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [*, S] -> cos/sin [*, S, head_dim] (HF llama convention,
+    with HF's "linear" and "llama3" `rope_scaling`)."""
+    dev = positions.device
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim))
+    if scaling is not None:
+        kind, factor, low_ff, high_ff, old_max = scaling
+        if kind == "linear":
+            inv_freq = inv_freq / factor
+        elif kind == "llama3":
+            wavelen = 2 * math.pi / inv_freq
+            low_wl, high_wl = old_max / low_ff, old_max / high_ff
+            scaled = torch.where(wavelen > low_wl, inv_freq / factor, inv_freq)
+            smooth = (old_max / wavelen - low_ff) / (high_ff - low_ff)
+            smoothed = (1 - smooth) * scaled / factor + smooth * scaled
+            medium = (wavelen >= high_wl) & (wavelen <= low_wl)
+            inv_freq = torch.where(medium, smoothed, scaled)
+        else:
+            raise ValueError(f"unsupported rope scaling type {kind!r}")
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; cos/sin: [B or 1, S, D]."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return x * cos[..., None, :] + rotated * sin[..., None, :]
+
+
+def _attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, T, G, D], or [B, G, T, D] with kv_heads_major
+    v: torch.Tensor,
+    mask: torch.Tensor,  # [S, T] additive fp32
+    kv_heads_major: bool = False,
+) -> torch.Tensor:
+    """Eager GQA attention: fp32 scores and softmax, probabilities cast to
+    q's dtype before PV (`transformer.py:184-227` with NO_QUANT)."""
+    b, s, h, d = q.shape
+    g = k.shape[1] if kv_heads_major else k.shape[2]
+    qg = q.reshape(b, s, g, h // g, d)
+    kd = "bgtd" if kv_heads_major else "btgd"
+    scores = torch.einsum(f"bsgrd,{kd}->bgrst", qg.float(), k.float()) / math.sqrt(d) + mask
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum(f"bgrst,{kd}->bsgrd", probs.float(), v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _kernel_mask(mask: torch.Tensor, b: int, t: int) -> torch.Tensor:
+    """[1, T] additive mask -> finite contiguous [B, T] for the decode kernel."""
+    return mask[-1:].float().expand(b, t).clamp(min=NEG).contiguous()
+
+
+def _layer_params(layers: Params, i: int) -> Params:
+    """Layer `i` of the stacked layer tree (views, no copies)."""
+    out = {}
+    for name, entry in layers.items():
+        out[name] = {
+            key: (val.layer(i) if isinstance(val, QuantizedTensor) else val[i])
+            for key, val in entry.items()
+        }
+    return out
+
+
+def _attn_block(
+    p: Params,
+    h: torch.Tensor,
+    cfg: ModelConfig,
+    cos_sin,
+    mask: Optional[torch.Tensor],
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    b, s, _ = h.shape
+    hd = cfg.head_dim_
+    q = qlinear(h, p["q"]["w"], p["q"].get("b")).reshape(b, s, cfg.num_heads, hd)
+    k = qlinear(h, p["k"]["w"], p["k"].get("b")).reshape(b, s, cfg.num_kv_heads, hd)
+    v = qlinear(h, p["v"]["w"], p["v"].get("b")).reshape(b, s, cfg.num_kv_heads, hd)
+    if cos_sin is not None:
+        cos, sin = cos_sin
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if cache is None:
+        if s >= FLASH_MIN_SEQ:
+            attn = flash_attention(q, k, v)
+        else:
+            attn = _attention(q, k, v, mask)
+    else:
+        cache_update_stacked(cache, layer, k, v, cache_pos)
+        t = cache["k_q"].shape[3]
+        block_t = 1024 if t % 1024 == 0 else 512
+        if s == 1 and t % block_size(t, block_t) == 0:
+            attn = flash_decode_gqa_s8_stacked(
+                q, *(cache[key] for key in CACHE_KEYS), _kernel_mask(mask, b, t), layer,
+                out_dtype=h.dtype, block_t=block_t,
+            )
+        else:
+            k_all, v_all = cache_read(layer_view(cache, layer), h.dtype)
+            attn = _attention(q, k_all, v_all, mask, kv_heads_major=True)
+    return qlinear(attn.reshape(b, s, cfg.num_heads * hd), p["o"]["w"], p["o"].get("b"))
+
+
+def _mlp_block(p: Params, h: torch.Tensor) -> torch.Tensor:
+    gate = qlinear(h, p["gate"]["w"], p["gate"].get("b"))
+    up = qlinear(h, p["up"]["w"], p["up"].get("b"))
+    return qlinear(F.silu(gate) * up, p["down"]["w"], p["down"].get("b"))
+
+
+def decoder_layer(
+    p: Params, h: torch.Tensor, cfg: ModelConfig, cos_sin, mask,
+    cache=None, cache_pos=None, layer=None,
+) -> torch.Tensor:
+    """Pre-norm residual llama layer. With `cache`, `layer` indexes the
+    layer-stacked int8 cache, which is written in place."""
+    attn_in = rms_norm(h, p["ln1"]["w"], cfg.rms_norm_eps, p["ln1"].get("b"))
+    h = h + _attn_block(p, attn_in, cfg, cos_sin, mask, cache, cache_pos, layer)
+    mlp_in = rms_norm(h, p["ln2"]["w"], cfg.rms_norm_eps, p["ln2"].get("b"))
+    return h + _mlp_block(p, mlp_in)
+
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding; out-of-range ids clip to the table (JAX mode="clip")."""
+    table = params["embed"]
+    return table[tokens.clamp(0, table.shape[0] - 1)]
+
+
+def final_norm(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rms_norm(h, params["norm"]["w"], cfg.rms_norm_eps, params["norm"].get("b"))
+
+
+def lm_head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    return qlinear(h, w)
+
+
+def _check_arch(cfg: ModelConfig) -> None:
+    if cfg.arch != "llama":
+        raise NotImplementedError(f"arch {cfg.arch!r} is not ported yet")
+
+
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence causal forward to final hidden states `[B, S, d]`."""
+    _check_arch(cfg)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    h = embed(params, tokens)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
+    mask = causal_mask(s, device=tokens.device)
+    for i in range(cfg.num_layers):
+        h = decoder_layer(_layer_params(params["layers"], i), h, cfg, cos_sin, mask)
+    return final_norm(params, h, cfg)
+
+
+def forward_logits(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits `[B, S, V]` of the full-sequence forward (prefill / eval)."""
+    return lm_head(params, forward_hidden(params, tokens, cfg), cfg)
+
+
+def init_kv_cache(
+    cfg: ModelConfig, batch: int, max_len: int, quantized=8, device="cuda"
+) -> Dict[str, torch.Tensor]:
+    """Preallocated heads-major int8 cache `[L, B, Hkv, max_len, *]`."""
+    if quantized not in (True, 8):
+        raise NotImplementedError("only the int8 KV cache is ported")
+    return init_quantized_kv_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def _ring_write_and_mask(pos: int, s: int, max_len: int, sink: int, device):
+    """Write slot and additive mask [s, max_len] for the sink+ring layout:
+    slots [0, sink) pin the first positions, [sink, max_len) hold a ring of
+    the most recent ones (`transformer.py:866-891`, scalar `pos`)."""
+    w = max_len - sink
+    if s == 1:
+        write_slot = pos if pos < max_len else sink + (pos - sink) % w
+    else:
+        if pos + s > max_len:
+            raise ValueError(f"prefill of {s} tokens at {pos} does not fit max_len={max_len}")
+        write_slot = pos
+    last = pos if s == 1 else pos + s - 1
+    slots = torch.arange(max_len, device=device)[None, :]
+    qi = pos + torch.arange(s, device=device)[:, None]
+    abs_ring = last - torch.remainder(last - slots, w)
+    ring_valid = (slots >= sink) & (abs_ring >= sink) & (abs_ring <= qi)
+    sink_valid = (slots < sink) & (slots <= qi)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    mask = torch.where(ring_valid | sink_valid, zero, torch.full_like(zero, -math.inf))
+    return write_slot, mask
+
+
+def decode_step(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,  # [B, S] (S = 1 decode, > 1 prefill)
+    pos: int,
+    cfg: ModelConfig,
+    sink_tokens: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One prefill/decode step against the int8 cache, which is updated IN
+    PLACE. Returns (logits [B, S, V], cache)."""
+    _check_arch(cfg)
+    b, s = tokens.shape
+    pos = int(pos)
+    max_len = cache["k_q"].shape[3]
+    positions = pos + torch.arange(s, device=tokens.device)[None, :]
+    h = embed(params, tokens)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
+    write_slot, mask = _ring_write_and_mask(pos, s, max_len, sink_tokens, tokens.device)
+    for i in range(cfg.num_layers):
+        h = decoder_layer(
+            _layer_params(params["layers"], i), h, cfg, cos_sin, mask, cache, write_slot, i
+        )
+    h = final_norm(params, h, cfg)
+    return lm_head(params, h, cfg), cache
+
+
+def greedy_generate(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    first_token: torch.Tensor,  # [B, 1]
+    pos0: int,
+    n_steps: int,
+    cfg: ModelConfig,
+    sink_tokens: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Greedy decode, one `decode_step` per token (`transformer.py:1051-1064`).
+    Returns (tokens [B, n_steps], cache)."""
+    tok = first_token.to(torch.long)
+    out = []
+    for i in range(n_steps):
+        logits, cache = decode_step(params, cache, tok, pos0 + i, cfg, sink_tokens)
+        tok = logits[:, -1, :].argmax(dim=-1)[:, None]
+        out.append(tok[:, 0])
+    return torch.stack(out, dim=1), cache

@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `cuda` and skips without an NVIDIA GPU (the
+kernels have no CPU mode). The file imports neither JAX nor the JAX
+package, so it also runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+The plain versions themselves are held against the JAX package by the
+other `tests/test_torch_*.py` files.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import llama3_quantization_tpu_torch as P
+from llama3_quantization_tpu_torch.ops import decode_attention as da
+from llama3_quantization_tpu_torch.ops import flash_attention as fa
+from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+from llama3_quantization_tpu_torch.ops import launches
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("bits,pack", [(4, True), (2, True), (8, False)])
+@pytest.mark.parametrize("m", [1, 8, 65])
+def test_qmatmul_kernels_match_plain(cuda_device, bits, pack, m):
+    """B1 (M <= 64) and B2 (M > 64); fp32 output, so only the fp32
+    summation order differs: atol 1e-4 * max|ref|."""
+    rng = np.random.default_rng(bits + m)
+    w = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32))
+    qt = P.quantize_rtn(w.to(cuda_device), P.QuantSpec(n_bits=bits, group_size=64), pack=pack)
+    x = torch.from_numpy(rng.standard_normal((m, 256)).astype(np.float32)).to(cuda_device)
+    got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32)
+    plain = fq.qmm_gemv_plain if m <= fq.GEMV_MAX_M else fq.qmm_gemm_plain
+    ref = plain(x, qt, torch.float32)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(cuda_device, out_dtype):
+    """B5 over two T blocks with masked slots. 2e-3 * max|out| in fp32 (a
+    1-ulp exp difference can move one probability code), 1e-2 in bf16."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    L, B, G, REP, D, BT = 2, 2, 2, 4, 64, 32
+    kq, ks = P.kv_quantize(torch.randn((L, B, G, 2 * BT, D), generator=gen, device=cuda_device))
+    vq, vs = P.kv_quantize(torch.randn((L, B, G, 2 * BT, D), generator=gen, device=cuda_device))
+    q = torch.randn((B, 1, G * REP, D), generator=gen, device=cuda_device)
+    mask = torch.zeros((B, 2 * BT), device=cuda_device)
+    mask[0, -11:] = da.NEG
+    mask[1, :5] = da.NEG
+    got = da.flash_decode_gqa_s8_stacked(q, kq, ks, vq, vs, mask, 1, out_dtype, BT)
+    ref = da.decode_s8_plain(q, kq[1], ks[1], vq[1], vs[1], mask, out_dtype, BT)
+    tol = 2e-3 if out_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=tol * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("s", [128, 160])
+def test_flash_kernel_matches_plain(cuda_device, s):
+    """B7, bf16: 2e-2 * max|ref| (the kernel rounds unnormalized
+    probabilities to bf16 for PV, the plain version normalized ones)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    q = torch.randn((1, s, 4, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    k = torch.randn((1, s, 2, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    v = torch.randn((1, s, 2, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = fa.flash_attention(q, k, v)
+    ref = fa.attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=2e-2 * float(ref.float().abs().max()))
+
+
+def test_tiny_model_on_card_matches_cpu(cuda_device):
+    """TINY_LLAMA W4 g32 (fp32 activations): the card's prefill and decode
+    logits track the CPU's (plain versions) and every kernel but B7 (S < 128)
+    launched."""
+    cfg = P.TINY_LLAMA
+    params = P.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                           device="cpu")
+    params = P.quantize_model_rtn(params, cfg, P.QuantSpec(n_bits=4, group_size=32), pack=True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 80), generator=torch.Generator().manual_seed(1))
+
+    def run(device):
+        p = _to(params, device)
+        cache = P.init_kv_cache(cfg, 2, 128, device=device)
+        pre, cache = P.decode_step(p, cache, toks.to(device), 0, cfg)
+        step, _ = P.decode_step(p, cache, toks[:, -1:].to(device), 80, cfg)
+        return pre.cpu(), step.cpu()
+
+    cpu_pre, cpu_step = run("cpu")
+    launches.reset()
+    gpu_pre, gpu_step = run(cuda_device)
+    counts = launches.snapshot()
+    assert counts["B1"] > 0 and counts["B2"] > 0 and counts["B5"] > 0
+    for got, ref in ((gpu_pre, cpu_pre), (gpu_step, cpu_step)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, P.QuantizedTensor):
+        return dataclasses.replace(
+            tree, data=tree.data.to(device), scale=tree.scale.to(device),
+            zero=None if tree.zero is None else tree.zero.to(device))
+    return tree.to(device)

@@ -1,0 +1,73 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+an entry point called without `device` on a machine without CUDA raises
+instead of running on the CPU."""
+
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "llama3_quantization_tpu_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|llama3_quantization_tpu)\b", re.M)
+
+
+def test_no_jax_import_in_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f.relative_to(ROOT)) for f in files if FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+
+
+def test_port_runs_with_jax_blocked():
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["llama3_quantization_tpu"] = None
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+
+        cfg = P.TINY_LLAMA
+        gen = torch.Generator().manual_seed(0)
+        params = P.init_params(cfg, gen, dtype=torch.float32, device="cpu")
+        params = P.quantize_model_rtn(params, cfg, P.QuantSpec(n_bits=4, group_size=32), pack=True)
+        toks = torch.randint(0, cfg.vocab_size, (1, 12), generator=gen)
+        logits = P.forward_logits(params, toks, cfg)
+        assert logits.shape == (1, 12, cfg.vocab_size) and bool(logits.isfinite().all())
+        assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+
+        # without CUDA, an entry point left at its default device raises
+        torch.cuda.is_available = lambda: False
+        for call in (lambda: P.init_kv_cache(cfg, 1, 8),
+                     lambda: P.init_quantized_params(cfg, P.QuantSpec(n_bits=4, group_size=32)),
+                     lambda: P.init_params(cfg, gen),
+                     lambda: P.params_from_numpy({})):
+            try:
+                call()
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e)
+            else:
+                raise AssertionError("entry point ran without CUDA")
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("name", ["qmatmul", "decode_attention", "flash_attention"])
+def test_kernel_sources_ship(name):
+    """Every kernel source the build names is in the package (and in the
+    wheel's package data)."""
+    from llama3_quantization_tpu_torch.ops import _build
+
+    assert name in _build.SOURCES
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    assert 'extern "C"' in src and "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "llama3_quantization_tpu_torch" in (ROOT / "pyproject.toml").read_text()
