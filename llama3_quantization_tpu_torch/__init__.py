@@ -14,28 +14,33 @@ from .models.params import init_params, linear_names, quantize_model_rtn
 from .models.synthetic import init_quantized_params
 from .models.transformer import (
     decode_step,
+    decode_step_multi,
     forward_hidden,
     forward_logits,
     greedy_generate,
     init_kv_cache,
+    sample_logits,
 )
+from .models.windowed import decode_window, merge_window_into_cache, set_windowed_decode, windowed_ok
 from .ops import launches
 from .ops.decode_attention import flash_decode_gqa_s8, flash_decode_gqa_s8_stacked
 from .ops.flash_attention import flash_attention
 from .ops.fused_qmatmul import fused_dequant_matmul
-from .ops.kvcache import kv_quantize
+from .ops.kvcache import kv4_codes, kv4_pack, kv4_quantize, kv4_unpack_codes, kv_quantize
 from .ops.matmul import qlinear, qmatmul
 from .quant.pack import pack_factor, pack_subbyte, unpack_subbyte
 from .quant.qtensor import QuantizedTensor, dequantize, from_codes, quantize_rtn
 from .quant.quantizer import QuantSpec, fake_quant, minmax_scale_zp
+from .serving import ServingEngine
 
 __all__ = [
-    "LLAMA3_8B", "TINY_LLAMA", "ModelConfig", "QuantSpec", "QuantizedTensor",
-    "decode_step", "dequantize", "fake_quant", "flash_attention",
-    "flash_decode_gqa_s8", "flash_decode_gqa_s8_stacked", "forward_hidden",
+    "LLAMA3_8B", "TINY_LLAMA", "ModelConfig", "QuantSpec", "QuantizedTensor", "ServingEngine",
+    "decode_step", "decode_step_multi", "decode_window", "dequantize", "fake_quant",
+    "flash_attention", "flash_decode_gqa_s8", "flash_decode_gqa_s8_stacked", "forward_hidden",
     "forward_logits", "from_codes", "fused_dequant_matmul", "greedy_generate",
-    "init_kv_cache", "init_params", "init_quantized_params", "kv_quantize",
-    "launches", "linear_names", "minmax_scale_zp", "pack_factor", "pack_subbyte",
+    "init_kv_cache", "init_params", "init_quantized_params", "kv4_codes", "kv4_pack",
+    "kv4_quantize", "kv4_unpack_codes", "kv_quantize", "launches", "linear_names",
+    "merge_window_into_cache", "minmax_scale_zp", "pack_factor", "pack_subbyte",
     "params_from_numpy", "qlinear", "qmatmul", "quantize_model_rtn", "quantize_rtn",
-    "resolve_device", "unpack_subbyte",
+    "resolve_device", "sample_logits", "set_windowed_decode", "unpack_subbyte", "windowed_ok",
 ]

@@ -1,28 +1,33 @@
-"""Llama decoder forward and int8-KV decode (port of the llama parts of
-`llama3_quantization_tpu/models/transformer.py`).
+"""Llama decoder forward and quantized-KV decode (port of the llama parts
+of `llama3_quantization_tpu/models/transformer.py`).
 
 Plain functions over the parameter tree of `models/params.py`. The layer
 stack is a Python loop over the stacked `[L, ...]` tensors (views, no
-copies). Routing follows the JAX package:
+copies). Routing depends on shapes alone and follows the JAX package as it
+runs with `set_decode_kernel("interpret")`:
 
 - full-sequence attention takes kernel B7 (`ops/flash_attention.py`) when
   S >= 128 and the eager path below that (`transformer.py:203-204`);
-- a single-token decode step on the int8 cache takes kernel B5
+- a single-token decode step on the int8 or int4 cache takes kernel B4/B5
   (`ops/decode_attention.py`) with `block_t = 1024 if T % 1024 == 0 else
-  512` (`:496`). The TPU's "auto" mode sends int8 caches to XLA dots
-  instead (a libtpu DMA cap); the port always uses its kernel, as JAX's
-  `set_decode_attn("kernel")` does;
+  512` (`:496`): the layer-stacked B5 for a scalar position, B4 on the
+  layer view with a `[B, T]` mask for per-row positions
+  (`decode_step_multi`, `:532-565`). The TPU's "auto" mode sends int8
+  caches to XLA dots instead (a libtpu DMA cap); the port always uses its
+  kernel, as JAX's `set_decode_attn("kernel")` does;
 - a prefill into the cache (S > 1) reads the dequantized cache through the
-  eager attention (`:566,603-607`).
+  eager attention (`:566,603-607`);
+- `greedy_generate` on an int4 cache takes the windowed decode
+  (`models/windowed.py`) while the dispatch stays inside the ring.
 
-Only the int8 cache and no runtime activation quantization (`NO_QUANT`)
-are ported. The KV cache is updated IN PLACE.
+The fp cache and runtime activation quantization (`NO_QUANT` only) are not
+ported. The KV cache is updated IN PLACE.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +41,7 @@ from ..ops.kvcache import (
     cache_update_stacked,
     init_quantized_kv_cache,
     layer_view,
+    true_div,
 )
 from ..ops.matmul import qlinear
 from ..quant.qtensor import QuantizedTensor
@@ -104,15 +110,18 @@ def _attention(
     g = k.shape[1] if kv_heads_major else k.shape[2]
     qg = q.reshape(b, s, g, h // g, d)
     kd = "bgtd" if kv_heads_major else "btgd"
-    scores = torch.einsum(f"bsgrd,{kd}->bgrst", qg.float(), k.float()) / math.sqrt(d) + mask
+    scores = true_div(torch.einsum(f"bsgrd,{kd}->bgrst", qg.float(), k.float()), math.sqrt(d))
+    scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum(f"bgrst,{kd}->bsgrd", probs.float(), v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
 def _kernel_mask(mask: torch.Tensor, b: int, t: int) -> torch.Tensor:
-    """[1, T] additive mask -> finite contiguous [B, T] for the decode kernel."""
-    return mask[-1:].float().expand(b, t).clamp(min=NEG).contiguous()
+    """[s=1, T] or per-row [B, 1, T] additive mask -> finite contiguous
+    [B, T] for the decode kernel (row b keeps its own mask)."""
+    m = mask[:, 0] if mask.dim() == 3 else mask[-1:].expand(b, t)
+    return m.float().clamp(min=NEG).contiguous()
 
 
 def _layer_params(layers: Params, i: int) -> Params:
@@ -133,7 +142,7 @@ def _attn_block(
     cos_sin,
     mask: Optional[torch.Tensor],
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    cache_pos: Optional[int] = None,
+    cache_pos: Union[int, torch.Tensor, None] = None,
     layer: Optional[int] = None,
 ) -> torch.Tensor:
     b, s, _ = h.shape
@@ -152,7 +161,7 @@ def _attn_block(
             attn = _attention(q, k, v, mask)
     else:
         cache_update_stacked(cache, layer, k, v, cache_pos)
-        t = cache["k_q"].shape[3]
+        t = cache["k_s"].shape[3]  # logical tokens (int4 rows hold two)
         block_t = 1024 if t % 1024 == 0 else 512
         if s == 1 and t % block_size(t, block_t) == 0:
             attn = flash_decode_gqa_s8_stacked(
@@ -176,7 +185,8 @@ def decoder_layer(
     cache=None, cache_pos=None, layer=None,
 ) -> torch.Tensor:
     """Pre-norm residual llama layer. With `cache`, `layer` indexes the
-    layer-stacked int8 cache, which is written in place."""
+    layer-stacked quantized cache, which is written in place at `cache_pos`
+    (an int, or per-row slots `[B]`)."""
     attn_in = rms_norm(h, p["ln1"]["w"], cfg.rms_norm_eps, p["ln1"].get("b"))
     h = h + _attn_block(p, attn_in, cfg, cos_sin, mask, cache, cache_pos, layer)
     mlp_in = rms_norm(h, p["ln2"]["w"], cfg.rms_norm_eps, p["ln2"].get("b"))
@@ -221,35 +231,83 @@ def forward_logits(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> to
     return lm_head(params, forward_hidden(params, tokens, cfg), cfg)
 
 
+
+
 def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int, quantized=8, device="cuda"
 ) -> Dict[str, torch.Tensor]:
-    """Preallocated heads-major int8 cache `[L, B, Hkv, max_len, *]`."""
-    if quantized not in (True, 8):
-        raise NotImplementedError("only the int8 KV cache is ported")
-    return init_quantized_kv_cache(cfg, batch, max_len, resolve_device(device))
-
-
-def _ring_write_and_mask(pos: int, s: int, max_len: int, sink: int, device):
-    """Write slot and additive mask [s, max_len] for the sink+ring layout:
-    slots [0, sink) pin the first positions, [sink, max_len) hold a ring of
-    the most recent ones (`transformer.py:866-891`, scalar `pos`)."""
-    w = max_len - sink
-    if s == 1:
-        write_slot = pos if pos < max_len else sink + (pos - sink) % w
+    """Preallocated heads-major quantized cache `[L, B, Hkv, max_len, *]`:
+    `quantized=8` (or True) int8 codes, `quantized=4` the int4 T-pair pack
+    (`ops/kvcache.py`)."""
+    if quantized is True or quantized == 8:
+        bits = 8
+    elif quantized == 4:
+        bits = 4
     else:
-        if pos + s > max_len:
-            raise ValueError(f"prefill of {s} tokens at {pos} does not fit max_len={max_len}")
-        write_slot = pos
-    last = pos if s == 1 else pos + s - 1
+        raise NotImplementedError("only the int8 and int4 KV caches are ported")
+    return init_quantized_kv_cache(cfg, batch, max_len, resolve_device(device), bits=bits)
+
+
+def _ring_write_and_mask(pos, s: int, max_len: int, sink: int, device):
+    """Write slot(s) and additive mask for the sink+ring layout: slots
+    [0, sink) pin the first positions, [sink, max_len) hold a ring of the
+    most recent ones (`transformer.py:866-891`). `pos` is an int (mask
+    [s, max_len]) or, for single-token steps, a per-row tensor [B] (write
+    slots [B], mask [B, 1, max_len])."""
+    w = max_len - sink
     slots = torch.arange(max_len, device=device)[None, :]
-    qi = pos + torch.arange(s, device=device)[:, None]
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        if s != 1:
+            raise ValueError("per-row positions take single-token steps")
+        write_slot = torch.where(pos < max_len, pos, sink + torch.remainder(pos - sink, w))
+        last = qi = pos[:, None]
+    else:
+        if s == 1:
+            write_slot = pos if pos < max_len else sink + (pos - sink) % w
+        else:
+            if pos + s > max_len:
+                raise ValueError(f"prefill of {s} tokens at {pos} does not fit max_len={max_len}")
+            write_slot = pos
+        last = pos if s == 1 else pos + s - 1
+        qi = pos + torch.arange(s, device=device)[:, None]
     abs_ring = last - torch.remainder(last - slots, w)
     ring_valid = (slots >= sink) & (abs_ring >= sink) & (abs_ring <= qi)
     sink_valid = (slots < sink) & (slots <= qi)
     zero = torch.zeros((), dtype=torch.float32, device=device)
     mask = torch.where(ring_valid | sink_valid, zero, torch.full_like(zero, -math.inf))
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        mask = mask[:, None, :]
     return write_slot, mask
+
+
+def _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg) -> torch.Tensor:
+    """The layer stack against the cache (written in place): final hidden."""
+    h = embed(params, tokens)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
+    for i in range(cfg.num_layers):
+        h = decoder_layer(
+            _layer_params(params["layers"], i), h, cfg, cos_sin, mask, cache, write_slot, i
+        )
+    return final_norm(params, h, cfg)
+
+
+def decode_hidden(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,  # [B, S] (S = 1 decode, > 1 prefill)
+    pos: int,
+    cfg: ModelConfig,
+    sink_tokens: int = 0,
+) -> torch.Tensor:
+    """`decode_step` up to the final norm: hidden states `[B, S, d]`. The
+    serving engine takes the lm_head of the rows it needs only."""
+    _check_arch(cfg)
+    b, s = tokens.shape
+    pos = int(pos)
+    max_len = cache["k_s"].shape[3]  # logical tokens (int4 rows hold two)
+    positions = pos + torch.arange(s, device=tokens.device)[None, :]
+    write_slot, mask = _ring_write_and_mask(pos, s, max_len, sink_tokens, tokens.device)
+    return _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg)
 
 
 def decode_step(
@@ -260,22 +318,72 @@ def decode_step(
     cfg: ModelConfig,
     sink_tokens: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One prefill/decode step against the int8 cache, which is updated IN
-    PLACE. Returns (logits [B, S, V], cache)."""
+    """One prefill/decode step against the quantized cache, which is updated
+    IN PLACE. Returns (logits [B, S, V], cache)."""
+    h = decode_hidden(params, cache, tokens, pos, cfg, sink_tokens)
+    return lm_head(params, h, cfg), cache
+
+
+def decode_step_multi(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,  # [B, 1] one token per slot
+    pos: torch.Tensor,  # [B] per-slot absolute positions
+    cfg: ModelConfig,
+    sink_tokens: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step for a batch of independent sequences at their own
+    positions, the step of continuous batching (`transformer.py:984-1021`):
+    each row writes its own sink+ring slot, then B4 reads each layer view
+    under its own `[B, T]` mask. Returns (logits [B, 1, V], cache)."""
     _check_arch(cfg)
     b, s = tokens.shape
-    pos = int(pos)
-    max_len = cache["k_q"].shape[3]
-    positions = pos + torch.arange(s, device=tokens.device)[None, :]
-    h = embed(params, tokens)
-    cos_sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
-    write_slot, mask = _ring_write_and_mask(pos, s, max_len, sink_tokens, tokens.device)
-    for i in range(cfg.num_layers):
-        h = decoder_layer(
-            _layer_params(params["layers"], i), h, cfg, cos_sin, mask, cache, write_slot, i
-        )
-    h = final_norm(params, h, cfg)
+    if s != 1 or tuple(pos.shape) != (b,):
+        raise ValueError(f"multi-slot decode takes tokens [B, 1] and pos [B]; got {tuple(tokens.shape)}, {tuple(pos.shape)}")
+    max_len = cache["k_s"].shape[3]
+    write_slot, mask = _ring_write_and_mask(pos, 1, max_len, sink_tokens, tokens.device)
+    h = _decode_hidden(params, cache, tokens, pos[:, None], write_slot, mask, cfg)
     return lm_head(params, h, cfg), cache
+
+
+def sampling_logits(
+    logits: torch.Tensor, temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0
+) -> torch.Tensor:
+    """Temperature-scaled fp32 logits [B, V] with the top-k and nucleus
+    (top-p) masks applied as -inf fills (`transformer.py:1198-1211`)."""
+    scaled = logits.float() / temperature
+    if top_k and top_k > 0:
+        kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
+        scaled = torch.where(scaled < kth, -math.inf, scaled)
+    if top_p < 1.0:
+        sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep the smallest prefix with cumulative prob >= top_p (the
+        # argmax always survives: cum is shifted by its own prob)
+        keep_sorted = cum - probs < top_p
+        thresh = torch.where(keep_sorted, sorted_desc, math.inf).amin(dim=-1, keepdim=True)
+        scaled = torch.where(scaled < thresh, -math.inf, scaled)
+    return scaled
+
+
+def sample_logits(
+    logits: torch.Tensor,  # [B, V]
+    generator: Optional[torch.Generator] = None,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+) -> torch.Tensor:
+    """One sampling step: temperature, top-k mask, nucleus mask, then a
+    categorical draw by the Gumbel-max rule from `generator` (on the
+    logits' device). temperature <= 0 is greedy. Draws are the generator's
+    own, not JAX's random stream. Returns int64 tokens [B]."""
+    if temperature is None or temperature <= 0.0:
+        return logits.argmax(dim=-1)
+    scaled = sampling_logits(logits, temperature, top_k, top_p)
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    return (scaled + gumbel).argmax(dim=-1)
 
 
 def greedy_generate(
@@ -287,8 +395,25 @@ def greedy_generate(
     cfg: ModelConfig,
     sink_tokens: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Greedy decode, one `decode_step` per token (`transformer.py:1051-1064`).
-    Returns (tokens [B, n_steps], cache)."""
+    """Greedy decode (`transformer.py:1024-1101`). Returns (tokens
+    [B, n_steps], cache).
+
+    An int4 cache takes the windowed decode (`models/windowed.py`) when the
+    window fits the ring width (`n_steps < T - sink`) and nothing is
+    evicted during it (`pos0 + n_steps <= T`); everything else runs one
+    `decode_step` per token."""
+    from .windowed import decode_window, windowed_ok
+
+    pos0 = int(pos0)
+    t_logical = cache["k_s"].shape[3]
+    if (
+        cache["k_q"].dtype == torch.uint8
+        and n_steps < t_logical - sink_tokens
+        and windowed_ok(cfg, cache, sink_tokens)
+        and pos0 + n_steps <= t_logical
+    ):
+        return decode_window(params, cache, first_token, pos0, n_steps, cfg,
+                             sink_tokens=sink_tokens)
     tok = first_token.to(torch.long)
     out = []
     for i in range(n_steps):

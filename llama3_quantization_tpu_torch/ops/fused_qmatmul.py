@@ -155,7 +155,9 @@ def qmm_gemm(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     m = x2d.shape[0]
     xb = x2d.to(torch.bfloat16).contiguous()
     out = torch.empty((m, qt.n), dtype=out_dtype, device=x2d.device)
-    tiles = -(-qt.n // 64) * -(-m // 128)
+    # the K split follows (K, N) alone, so a row's result does not depend
+    # on how many rows share the call (batch-invariant prefills)
+    tiles = -(-qt.n // 64)
     ksplit = 1 if 2 * tiles >= _TARGET_BLOCKS else min(-(-_TARGET_BLOCKS // tiles), qt.k // 32)
     part = _scratch(ksplit, m, qt.n, x2d.device)
     err = _lib().l3q_qmm_gemm(

@@ -69,6 +69,86 @@ def test_decode_kernel_matches_plain(cuda_device, out_dtype):
                                atol=tol * float(ref.float().abs().max()))
 
 
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("stats", [False, True])
+def test_decode_kernel_forms_match_plain(cuda_device, int4, stats):
+    """B5 on the int8 and int4 caches, with and without the m/l statistics,
+    fp32 out, two T blocks, one all-masked row. o within 2e-3 * max|o|, m
+    within 1e-6 * |m|, l within 1e-5 * l; the all-masked row ends at
+    m = -1e30, l = T."""
+    gen = torch.Generator(device=cuda_device).manual_seed(int4 + 2 * stats)
+    L, B, G, REP, D, BT = 2, 3, 2, 4, 64, 32
+    quantize = P.kv4_quantize if int4 else P.kv_quantize
+    kq, ks = quantize(torch.randn((L, B, G, 2 * BT, D), generator=gen, device=cuda_device))
+    vq, vs = quantize(torch.randn((L, B, G, 2 * BT, D), generator=gen, device=cuda_device))
+    q = torch.randn((B, 1, G * REP, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    mask = torch.zeros((B, 2 * BT), device=cuda_device)
+    mask[0, -11:] = da.NEG
+    mask[2, :] = da.NEG
+    key = da.launch_key(int4, stats)
+    before = launches.snapshot()[key]
+    got = da.flash_decode_gqa_s8_stacked(q, kq, ks, vq, vs, mask, 1, torch.float32, BT, stats)
+    ref = da.decode_s8_plain(q, kq[1], ks[1], vq[1], vs[1], mask, torch.float32, BT, stats)
+    assert launches.snapshot()[key] == before + 1
+    if not stats:
+        got, ref = (got,), (ref,)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=2e-3 * float(ref[0].abs().max()))
+    if stats:
+        torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=0)
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=0)
+        assert bool((got[1][2] == da.NEG).all()) and bool((got[2][2] == 2 * BT).all())
+
+
+def test_tiny_engine_on_card_matches_cpu(cuda_device):
+    """TINY_LLAMA W4 g32 (fp32 activations) served by `run_pipelined` on the
+    int8 and int4 caches: the card's streams equal the CPU's, through B1,
+    B2 and B5 with stats."""
+    cfg = P.TINY_LLAMA
+    params = P.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                           device="cpu")
+    params = P.quantize_model_rtn(params, cfg, P.QuantSpec(n_bits=4, group_size=32), pack=True)
+    reqs = [([1, 2, 3, 4], 9), ([9, 8, 7], 5), ([5] * 20, 7), ([2, 4, 6], 12)]
+
+    def run(device, bits):
+        # 4 slots x bucket 32 = 128 prefill rows: B2
+        eng = P.ServingEngine(_to(params, device), cfg, max_slots=4, max_len=64,
+                              quantized_cache=bits, schedule="ljf", device=device)
+        for p, n in reqs:
+            eng.submit(p, n)
+        eng.run_pipelined(4)
+        return {rid: r.generated for rid, r in eng.requests.items()}
+
+    for bits in (8, 4):
+        cpu = run("cpu", bits)
+        launches.reset()
+        gpu = run(cuda_device, bits)
+        counts = launches.snapshot()
+        assert counts["B1"] > 0 and counts["B2"] > 0 and counts[da.launch_key(bits == 4, True)] > 0
+        assert gpu == cpu
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_decode_window_makes_no_device_sync(cuda_device, bits):
+    """A window of the windowed decode, its merge included, enqueues its
+    work without waiting for the card: PyTorch's sync debug mode raises on
+    the synchronizing calls it detects (a prototype that, by its own
+    warning, does not detect all of them)."""
+    cfg = P.TINY_LLAMA
+    params = P.init_quantized_params(cfg, P.QuantSpec(n_bits=4, group_size=32), device=cuda_device,
+                                     dtype=torch.float32)
+    cache = P.init_kv_cache(cfg, 2, 64, quantized=bits, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda_device)
+    _, cache = P.decode_step(params, cache, toks, 0, cfg)
+    pos0 = torch.tensor([8, 5], device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = P.decode_window(params, cache, toks[:, -1:], pos0, 6, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tuple(out.shape) == (2, 6)
+
+
 @pytest.mark.parametrize("s", [128, 160])
 def test_flash_kernel_matches_plain(cuda_device, s):
     """B7, bf16: 2e-2 * max|ref| (the kernel rounds unnormalized

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-an entry point called without `device` on a machine without CUDA raises
+"""The port stands alone: it imports neither JAX nor the JAX package (a
+forward and a two-request serving engine run with both blocked), and an
+entry point called without `device` on a machine without CUDA raises
 instead of running on the CPU."""
 
 import re
@@ -38,12 +39,22 @@ def test_port_runs_with_jax_blocked():
         toks = torch.randint(0, cfg.vocab_size, (1, 12), generator=gen)
         logits = P.forward_logits(params, toks, cfg)
         assert logits.shape == (1, 12, cfg.vocab_size) and bool(logits.isfinite().all())
+        from llama3_quantization_tpu_torch.models import windowed
+        from llama3_quantization_tpu_torch.serving import ServingEngine
+        eng = ServingEngine(params, cfg, max_slots=2, max_len=64, quantized_cache=4, device="cpu")
+        eng.submit([1, 2, 3], 6)
+        eng.submit([4, 5], 9)
+        eng.run_pipelined(4)
+        assert sorted(len(r.generated) for r in eng.requests.values()) == [6, 9]
+        assert eng.dispatches["windowed"] > 0 and windowed.windowed_ok(cfg, eng.cache)
         assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
 
         # without CUDA, an entry point left at its default device raises
         torch.cuda.is_available = lambda: False
         for call in (lambda: P.init_kv_cache(cfg, 1, 8),
+                     lambda: P.init_kv_cache(cfg, 1, 8, quantized=4),
+                     lambda: ServingEngine(params, cfg),
                      lambda: P.init_quantized_params(cfg, P.QuantSpec(n_bits=4, group_size=32)),
                      lambda: P.init_params(cfg, gen),
                      lambda: P.params_from_numpy({})):

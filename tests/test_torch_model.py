@@ -10,7 +10,9 @@ plain versions).
   tests/test_pallas.py (rtol 2e-2), and against the JAX default fp32
   dequant path within 2e-2 of the logit scale (the port rounds x to bf16);
 - `greedy_generate` (8 steps, int8 cache) against JAX on its kernel route
-  with the interpreted decode kernel: identical tokens.
+  with the interpreted decode kernel: identical tokens;
+- `sample_logits`: the tokens it can draw are the ones JAX's top-k / top-p
+  masks keep, greedy and top_k=1 are argmax, a seeded generator repeats.
 """
 
 import dataclasses
@@ -169,3 +171,33 @@ def test_greedy_generate_identical_tokens(models, jax_kernel_route):
     ttoks, tcache = TT.greedy_generate(tparams, tcache, tfirst, s, n_steps, tcfg.TINY_LLAMA)
     assert ttoks.shape == (b, n_steps)
     np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [(1.0, 0, 0.8), (0.7, 5, 1.0), (1.3, 6, 0.9)])
+def test_sample_logits_kept_set_matches(temperature, top_k, top_p):
+    """The port draws from its own `torch.Generator` and does not reproduce
+    JAX's random stream, so the draws are compared as sets: 2048 JAX draws
+    and 2048 port draws each hit exactly the tokens the port's top-k /
+    top-p masks keep (every kept token has probability >= 2%)."""
+    logits = np.array([[2.0, 1.5, 1.4, 1.0, 0.9, 0.5, 0.2, 0.1, -1.0, -3.0, -3.5, -6.0]], np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(0), 2048)
+    jdraws = jax.vmap(lambda k: JT.sample_logits(jnp.asarray(logits), k, temperature, top_k, top_p))(keys)
+    kept = TT.sampling_logits(torch.from_numpy(logits), temperature, top_k, top_p)
+    kept_set = set(np.flatnonzero(np.isfinite(kept.numpy()[0])).tolist())
+    probs = torch.softmax(kept, dim=-1)[0]
+    assert float(probs[sorted(kept_set)].min()) >= 0.02 and len(kept_set) < logits.shape[1]
+    assert set(np.asarray(jdraws).ravel().tolist()) == kept_set
+    gen = torch.Generator().manual_seed(0)
+    tdraws = TT.sample_logits(torch.from_numpy(logits).expand(2048, -1), gen, temperature, top_k, top_p)
+    assert set(tdraws.tolist()) == kept_set
+
+
+def test_sample_logits_greedy_and_seeded():
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    argmax = logits.argmax(dim=-1)
+    assert torch.equal(TT.sample_logits(logits, None, temperature=0.0), argmax)
+    assert torch.equal(TT.sample_logits(logits, torch.Generator().manual_seed(3), 2.0, top_k=1), argmax)
+    draw = lambda seed: TT.sample_logits(logits, torch.Generator().manual_seed(seed), 1.0)  # noqa: E731
+    assert torch.equal(draw(7), draw(7))
+    assert any(not torch.equal(draw(7), draw(s)) for s in range(8, 12))
