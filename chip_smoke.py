@@ -4,9 +4,9 @@ NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
-    python3 chip_smoke.py --profile       # also profile decode steps and a serving window
+    python3 chip_smoke.py --profile       # also profile decode steps and serving windows
     python3 chip_smoke.py --prefill-bench # only time B2 and forward_logits at M up to 2048
-    python3 chip_smoke.py --decode-drift  # only the full-depth B5 kernel-vs-plain decode
+    python3 chip_smoke.py --decode-drift  # only the full-depth B5 and B3 kernel-vs-plain decodes
 
 Phases, in order; any failure exits non-zero:
   1. require CUDA and print the card's name and power limit;
@@ -14,29 +14,45 @@ Phases, in order; any failure exits non-zero:
      per source, in parallel);
   3. hold each kernel form against its plain PyTorch version on the card at
      the main paths' shapes, with the tolerances stated below: B1 at M = 1
-     and 8, B2 at M = 128 and 512, B5 on
-     the int8 cache with and without m/l statistics and on the int4 cache
-     with and without them (one all-masked row), B7; then the window-merge
-     op (B5 with stats merged with the exact window attention) against
-     eager attention over the dequantized main and window keys;
+     and 8, B2 at M = 128 and 512, B2 on 3-bit planes at M = 128 and 512,
+     B3 (v3 on packed W4 g128, s4, per-column s8) at M = 1, 8 and 128 on
+     the W·A8 paths' o, qkv, gate-up and down and the s8 and s4 heads at
+     M = 1 and 8, B5 on the int8 cache with and without m/l statistics and
+     on the int4 cache with and without them (one all-masked row), B7; then
+     the window-merge op (B5 with stats merged with the exact window
+     attention) against eager attention over the dequantized main and
+     window keys;
   4. drive the first main path at full Llama-3-8B width and depth (W4 g128
-     packed synthetic weights, bf16, 32 layers): `forward_logits` on
-     [1, 128] tokens, a 128-token prefill into an int8 cache of 512 slots
-     and `greedy_generate` for 32 steps; check finite logits, and decode
-     against the teacher-forced forward (max relative logit error < 0.15);
+     packed synthetic weights, bf16, 32 layers, the pallas backend):
+     `forward_logits` on [1, 128] tokens, a 128-token prefill into an int8
+     cache of 512 slots and `greedy_generate` for 32 steps; check finite
+     logits, and decode against the teacher-forced forward (max relative
+     logit error < 0.15);
   5. drive the serving path on the same model: `ServingEngine` with 8
      slots, max_len 512, `ljf`, int8 cache, `run_pipelined(16)` on 16
      requests of the serve bench's mix, which must give exactly the streams
      of the sequential `step_n(16)` loop; then the int4 cache: the engine on
      8 requests, a per-step `run()`, and `greedy_generate` of 32 steps after
      a 128-token prefill (the windowed route). Served tok/s beside the card;
-  6. repeat the serving comparison on input-dependent weights (seeded
+     then the JAX package's v3 route (`L3Q_QMM_V=3`): a 128-token prefill
+     and 8 greedy steps through B3 on the packed weights;
+  6. the W·A8 paths and the 3-bit form: `forward_logits` on [1, 128] of
+     RTN W3 g128 weights through 3-bit B2 (4 of 32 layers), against B2's
+     plain version (< W3_LIMIT); the s4 decode headline (synthetic W4 g128
+     with an s4 head, fused, backend s4: 128-token prefill, 32 greedy steps,
+     decode vs forward < 0.15); fused a8 serving (synthetic per-column s8
+     with an s8 head, `fuse=True`, backend a8: `run_pipelined(16)` equal to
+     `step_n(16)`);
+  7. repeat the serving comparisons on input-dependent weights (seeded
      random-normal, RTN W4 g128 packed: the synthetic codes' logits barely
-     depend on the input), requiring varied streams, and check teacher-forced
-     decode against the forward (int8 < 0.15, int4 reported) and the
-     decode through the B5 kernel forms against their plain versions
-     (< DRIFT_LIMIT); these checks' launches are not counted as a path's;
-  7. time each kernel form, its plain version and a library yardstick, with
+     depend on the input), requiring varied streams: the pallas int8 engine,
+     then the same model recoded per column (`recode_model_s8`, head
+     included) under fused a8; check teacher-forced decode against the
+     forward (int8 < 0.15, int4 reported), the decode through the B5 kernel
+     forms against their plain versions (< DRIFT_LIMIT) and the s4 decode
+     through B3 against B3's plain version (< B3_DRIFT_LIMIT); these
+     checks' launches are not counted as a path's;
+  8. time each kernel form, its plain version and a library yardstick, with
      the least time the card could take for the same work (its bound).
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -166,6 +182,98 @@ def check_qmatmul(P, gen, results):
             err = compare(f"{kid} {label} M={m} bf16-out", kern(x, qt, torch.bfloat16),
                           plain(x, qt, torch.bfloat16), 1e-2)
             results.setdefault(kid, {})[f"{label} M={m}"] = err
+
+
+#: (K, N) of the linears the W·A8 paths run, q/k/v and gate/up fused as
+#: `fuse_for_decode` makes them, and of the lm_head
+B3_SHAPES = {"o": (4096, 4096), "qkv": (4096, 6144), "gateup": (4096, 28672),
+             "down": (14336, 4096)}
+HEAD_SHAPE = (4096, 128256)
+#: M of B3's paths: batch-1 decode, the 8-slot serving step, a 128-token prefill
+B3_MS = (1, 8, 128)
+
+
+def b3_forms(P, k, n, copies, gen):
+    """B3's three weight forms of a [K, N] linear as the paths hold them,
+    `copies` of each: packed W4 g128 with its fp32 zero (v3), the same
+    prepared for the s4 backend (signed nibbles, int8 zero8), and per-column
+    s8 containers (a8). Each entry is (data, layout, scale, zero, group size)."""
+    from llama3_quantization_tpu_torch.models.synthetic import _rand_qtensor
+
+    spec = P.QuantSpec(n_bits=4, group_size=GS)
+    w4 = _rand_qtensor(gen, k, n, spec, copies, "cuda")
+    s4 = P.prepare_s4(w4)
+    s8 = _rand_qtensor(gen, k, n, spec, copies, "cuda", percol_s8=True)
+    return {
+        "B3.v3": [(w.data, "u4", w.scale, w.zero, GS) for w in map(w4.layer, range(copies))],
+        "B3.s4": [(w.data4, "s4", w.scale, w.zero8, GS) for w in map(s4.layer, range(copies))],
+        "B3.s8": [(w.data, "s8", w.scale, None, k) for w in map(s8.layer, range(copies))],
+    }
+
+
+def head_forms(P, gen):
+    """The s8 and s4 lm_head recodes of a random-normal [4096, 128256] head."""
+    import torch
+
+    w = torch.randn(HEAD_SHAPE, generator=gen, device="cuda") * 0.02
+    s8, s4 = P.recode_head_s8(w), P.prepare_s4(P.recode_head_s4(w))
+    return {"B3.s8": (s8.data, "s8", s8.scale, None, HEAD_SHAPE[0]),
+            "B3.s4": (s4.data4, "s4", s4.scale, None, HEAD_SHAPE[0])}
+
+
+def b3_call(key, w, xq, s_x, out_dtype):
+    """B3's GEMV form (M <= 64, counted under `key`) or tiled form."""
+    from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
+
+    if xq.shape[0] <= qa.GEMV_MAX_M:
+        return qa.a8_gemv(xq, s_x, *w, out_dtype, key)
+    return qa.a8_gemm(xq, s_x, *w, out_dtype)
+
+
+def check_b3(P, gen, results):
+    """Every B3 form against its plain version at the paths' shapes: v3, s4
+    and per-column s8 at M = 1, 8 and 128 on o, qkv, gate-up and down, the
+    s8 and s4 heads at M = 1 and 8. Tolerances: fp32 out 1e-5 * max|ref|
+    (exact s32 partials, the fp32 order only), bf16 out 1e-2."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
+
+    def one(key, label, w, m, k):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        xq, s_x = qa.quantize_activations_s8(x)
+        rkey = key if m <= qa.GEMV_MAX_M else "B3.gemm"
+        name = f"{rkey} {label} {w[1]} M={m}"
+        compare(f"{name} fp32-out", b3_call(key, w, xq, s_x, torch.float32),
+                qa.a8_plain(xq, s_x, *w, torch.float32), 1e-5)
+        err = compare(f"{name} bf16-out", b3_call(key, w, xq, s_x, torch.bfloat16),
+                      qa.a8_plain(xq, s_x, *w, torch.bfloat16), 1e-2)
+        results.setdefault(rkey, {})[f"{label} {w[1]} M={m}"] = err
+
+    for label, (k, n) in B3_SHAPES.items():
+        for key, ws in b3_forms(P, k, n, 1, gen).items():
+            for m in B3_MS:
+                one(key, label, ws[0], m, k)
+    for key, w in head_forms(P, gen).items():
+        for m in (1, 8):
+            one(key, "head", w, m, HEAD_SHAPE[0])
+
+
+def check_b2_w3(P, gen, results):
+    """B2 on 3-bit planes (RTN W3 g128 of random normals) at M = 128 and 512
+    on every decoder linear shape: fp32 out 1e-4 * max|ref|, bf16 1e-2."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    for label, (k, n) in LINEAR_SHAPES.items():
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        qt = P.quantize_rtn(w, P.QuantSpec(n_bits=3, group_size=GS), pack=True)
+        for m in (128, 512):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            compare(f"B2.w3 {label} M={m} fp32-out", fq.qmm_gemm(x, qt, torch.float32),
+                    fq.qmm_gemm_plain(x, qt, torch.float32), 1e-4)
+            err = compare(f"B2.w3 {label} M={m} bf16-out", fq.qmm_gemm(x, qt, torch.bfloat16),
+                          fq.qmm_gemm_plain(x, qt, torch.bfloat16), 1e-2)
+            results.setdefault("B2.w3", {})[f"{label} M={m}"] = err
 
 
 def rand_cache(P, b, g, t, d, layers, gen, int4=False):
@@ -393,7 +501,6 @@ def decode_vs_forward(P, params, cfg, prompt, cont, bits):
 def drive_main_path(P, params, card, profile=False):
     """Full-width, full-depth Llama-3-8B W4 g128 main path on the card."""
     import torch
-    from llama3_quantization_tpu_torch.ops import launches
 
     cfg = P.LLAMA3_8B
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -426,9 +533,7 @@ def drive_main_path(P, params, card, profile=False):
     _, t_decode_warm = timed(
         lambda: P.greedy_generate(params, cache, gen_toks[:, -1:], 128 + n_steps, n_steps, cfg))
 
-    total = {k: sum(c[k] for c in counts.values()) for k in launches.COUNTS}
-    for path, c in counts.items():
-        log(f"launches in {path}: {json.dumps(c)}")
+    total = sum_counts(counts)
     for what, t in (("first call", t_prefill), ("second call", t_prefill_warm)):
         log(f"prefill: {128 / t:.1f} tok/s (128 tokens in {t * 1e3:.2f} ms, {what}, "
             f"host clock)  [{card}]")
@@ -512,32 +617,9 @@ def drive_serving(P, params, card, profile=False):
         f"16 requests of the serve bench's mix (the bench serves 48: cut to 16 to keep this "
         f"script inside its time limit), {sum(n for _, n in reqs)} tokens to generate")
 
-    eng = P.ServingEngine(params, cfg, max_slots=slots, max_len=max_len, quantized_cache=8,
-                          schedule="ljf")
-    pipelined_streams(eng, [(reqs[0][0][:20], 2 * k)], k)  # warm-up: first calls, allocations
-    warm_steps = eng.dispatches["steps"]
-    pipe, dt = run_counted(counts, "serve int8 run_pipelined",
-                           lambda: timed(lambda: pipelined_streams(eng, reqs, k)),
-                           must=("B1", "B2", "B5.stats"))
-    check_streams("int8 run_pipelined", pipe, reqs, cfg.vocab_size)
-    produced = sum(map(len, pipe))
-    log(f"served (int8 KV): {produced / dt:.1f} tok/s ({produced} tokens of 16 requests in "
-        f"{dt:.2f} s, {1e3 * dt / (eng.dispatches['steps'] - warm_steps):.1f} ms per 8-slot "
-        f"decode step, run_pipelined({k}), host clock; windows by route "
-        f"{json.dumps(eng.dispatches)} with the warm-up)  [{card}]")
-    seq, dt_seq = run_counted(counts, "serve int8 step_n loop",
-                              lambda: timed(lambda: sequential_streams(eng, reqs, k)),
-                              must=("B1", "B2", "B5.stats"))
-    log(f"sequential step_n({k}) loop: {produced / dt_seq:.1f} tok/s ({dt_seq:.2f} s, host clock)"
-        f"  [{card}]")
-    if seq != pipe:
-        diff = sum(a != b for a, b in zip(seq, pipe))
-        raise AssertionError(f"run_pipelined and step_n streams differ ({diff} of 16 differ in "
-                             f"sorted order)")
-    log("run_pipelined streams == sequential step_n streams for all 16 requests")
+    serve_and_compare(P, params, cfg, card, "serve int8", counts, PALLAS_MUST)
     if profile:
         profile_serving(P, params, cfg, reqs, k, card)
-    del eng
     torch.cuda.empty_cache()
 
     reqs4 = reqs[:8]
@@ -575,11 +657,9 @@ def drive_serving(P, params, card, profile=False):
                                must=("B1", "B5.int4.stats"))
     if tuple(toks4.shape) != (1, 32) or not bool(((toks4 >= 0) & (toks4 < cfg.vocab_size)).all()):
         raise AssertionError("int4 greedy_generate: bad tokens")
-    for path, c in counts.items():
-        log(f"launches in {path}: {json.dumps(c)}")
     del cache
     torch.cuda.empty_cache()
-    return {key: sum(c[key] for c in counts.values()) for key in next(iter(counts.values()))}
+    return sum_counts(counts)
 
 
 def build_rtn_params(P):
@@ -611,31 +691,12 @@ def drive_rtn_checks(P, params, card):
     `decode_drift`."""
     import torch
 
-    cfg, k, counts = P.LLAMA3_8B, 16, {}
+    cfg, counts = P.LLAMA3_8B, {}
     reqs = serve_requests(16, cfg.vocab_size)
-    eng = P.ServingEngine(params, cfg, max_slots=8, max_len=512, quantized_cache=8,
-                          schedule="ljf")
-    pipe, dt = run_counted(counts, "RTN serve int8 run_pipelined",
-                           lambda: timed(lambda: pipelined_streams(eng, reqs, k)),
-                           must=("B1", "B2", "B5.stats"))
-    check_streams("RTN int8 run_pipelined", pipe, reqs, cfg.vocab_size)
-    distinct = len({t for s in pipe for t in s})
-    log(f"RTN weights: served {sum(map(len, pipe)) / dt:.1f} tok/s (first run, host clock); "
-        f"{distinct} distinct tokens in the 16 streams  [{card}]")
-    if distinct < 64:
-        raise AssertionError(f"RTN streams hold only {distinct} distinct tokens")
-    seq = run_counted(counts, "RTN serve int8 step_n loop",
-                      lambda: sequential_streams(eng, reqs, k), must=("B1", "B2", "B5.stats"))
-    if seq != pipe:
-        diff = sum(a != b for a, b in zip(seq, pipe))
-        raise AssertionError(f"RTN: run_pipelined and step_n streams differ ({diff} of 16 "
-                             f"differ in sorted order)")
-    log("RTN weights: run_pipelined streams == sequential step_n streams for all 16 requests")
-    del eng
+    pipe = serve_and_compare(P, params, cfg, card, "RTN serve int8", counts, PALLAS_MUST,
+                             min_distinct=64)
     torch.cuda.empty_cache()
-    for path, c in counts.items():
-        log(f"launches in {path}: {json.dumps(c)}")
-    total = {key: sum(c[key] for c in counts.values()) for key in next(iter(counts.values()))}
+    total = sum_counts(counts)
 
     # checks, not paths: their launches stay out of the kernels line
     checks = {}
@@ -693,16 +754,264 @@ def decode_drift(P, params, cfg, card):
             raise AssertionError(f"RTN int{bits}: kernel and plain decode differ, rel err {rel}")
 
 
-def profile_serving(P, params, cfg, reqs, k, card):
+def sum_counts(counts):
+    """Launches by kernel form summed over the runs in `counts`."""
+    from llama3_quantization_tpu_torch.ops import launches
+
+    for path, c in counts.items():
+        log(f"launches in {path}: {json.dumps(c)}")
+    return {key: sum(c[key] for c in counts.values()) for key in launches.COUNTS}
+
+
+def drive_v3_path(P, params, card):
+    """The JAX package's own route to its v3 kernel, `L3Q_QMM_V=3` under the
+    pallas backend, on the synthetic W4 g128 model: a 128-token prefill
+    (B3's tiled form on the packed weights) and 8 greedy steps (B3.v3)."""
+    import os
+
+    import torch
+
+    cfg, counts = P.LLAMA3_8B, {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+    cache = P.init_kv_cache(cfg, 1, 512)
+    os.environ["L3Q_QMM_V"] = "3"
+    try:
+        lg, _ = run_counted(counts, "v3 prefill 128 (L3Q_QMM_V=3)",
+                            lambda: P.decode_step(params, cache, prompt, 0, cfg), must=("B3.gemm",))
+        tok = lg[:, -1].argmax(dim=-1)[:, None]
+        (toks, _), dt = run_counted(
+            counts, "v3 greedy_generate 8 steps (L3Q_QMM_V=3)",
+            lambda: timed(lambda: P.greedy_generate(params, cache, tok, 128, 8, cfg)),
+            must=("B3.v3", "B5"))
+    finally:
+        del os.environ["L3Q_QMM_V"]
+    if not (bool(lg.isfinite().all()) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+        raise AssertionError("v3 path: non-finite logits or tokens out of range")
+    log(f"v3 decode (L3Q_QMM_V=3): {8 / dt:.2f} tok/s (8 steps, batch 1, first call, host clock)"
+        f"  [{card}]")
+    del cache
+    return sum_counts(counts)
+
+
+#: depth of the W3 forward (of Llama-3-8B's 32 layers), cut for time
+W3_LAYERS = 4
+
+
+def drive_w3_forward(P, card):
+    """`forward_logits` on [1, 128] through 3-bit B2 at full Llama-3-8B width,
+    W3_LAYERS layers deep: seeded random-normal weights RTN W3 g128 packed
+    in bit planes. Then, as a check whose launches are not counted, the same
+    forward through B2's plain version."""
+    import dataclasses
+
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    cfg, counts = dataclasses.replace(P.LLAMA3_8B, num_layers=W3_LAYERS), {}
+    fp = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 8))
+    params = P.quantize_model_rtn(fp, cfg, P.QuantSpec(n_bits=3, group_size=GS), pack=True)
+    del fp
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+    logits = run_counted(counts, f"W3 forward_logits [1,128] ({W3_LAYERS} layers)",
+                         lambda: P.forward_logits(params, prompt, cfg), must=("B2.w3", "B7"))
+    if tuple(logits.shape) != (1, 128, cfg.vocab_size) or not bool(logits.isfinite().all()):
+        raise AssertionError("W3 forward_logits: bad shape or non-finite")
+    orig, fq.qmm_gemm = fq.qmm_gemm, fq.qmm_gemm_plain
+    try:
+        ref = P.forward_logits(params, prompt, cfg)
+    finally:
+        fq.qmm_gemm = orig
+    rel = float((logits.float() - ref.float()).abs().max() / ref.float().abs().max())
+    log(f"W3 g128 forward ({W3_LAYERS} layers): logits through 3-bit B2 vs its plain version: max "
+        f"rel err {rel:.3e} (limit {W3_LIMIT:g})  [{card}]")
+    if not rel < W3_LIMIT:
+        raise AssertionError(f"W3 forward: kernel and plain differ, rel err {rel}")
+    del params
+    torch.cuda.empty_cache()
+    return sum_counts(counts)
+
+
+#: limit on the W3 forward's logits through 3-bit B2 against B2's plain
+#: version (max relative error; bf16 activations between layers)
+W3_LIMIT = 2e-2
+
+
+def drive_s4_decode(P, card, profile=False):
+    """The s4 decode headline (bench.py:532-580) at full Llama-3-8B width and
+    depth: synthetic W4 g128 packed with an s4 head, `fuse_for_decode`, the
+    s4 backend; a 128-token prefill into an int8 cache of 512 slots, then
+    `greedy_generate` of 32 steps at batch 1; teacher-forced decode against
+    `forward_logits` (max relative logit error < 0.15, bench.py:584-613)."""
+    import torch
+
+    cfg, counts = P.LLAMA3_8B, {}
+    t0 = time.time()
+    params = P.init_quantized_params(cfg, P.QuantSpec(n_bits=4, group_size=GS), seed=SEED,
+                                     head_s4=True)
+    params = P.fuse_for_decode(params, cfg)
+    torch.cuda.synchronize()
+    log(f"s4 params (W4 g128 packed, s4 head, fused) built in {time.time() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+    with P.backend("s4"):
+        prepared, t_prep = timed(lambda: P.prepare_decode_params(params))
+        log(f"prepare_decode_params (s4): {t_prep * 1e3:.1f} ms host clock, once per "
+            f"greedy_generate call  [{card}]")
+        cache = P.init_kv_cache(cfg, 1, 512)
+        (lg, _), t_pre = run_counted(
+            counts, "s4 prefill 128 into int8 cache",
+            lambda: timed(lambda: P.decode_step(params, cache, prompt, 0, cfg)), must=("B3.gemm",))
+        tok = lg[:, -1].argmax(dim=-1)[:, None]
+        (toks, _), t_dec = run_counted(
+            counts, "s4 greedy_generate 32 steps",
+            lambda: timed(lambda: P.greedy_generate(params, cache, tok, 128, 32, cfg)),
+            must=("B3.s4", "B5"))
+        _, t_dec2 = timed(lambda: P.greedy_generate(params, cache, toks[:, -1:], 160, 32, cfg))
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError("s4 greedy_generate: tokens out of range")
+        log(f"s4 prefill: {128 / t_pre:.1f} tok/s (128 tokens, first call, host clock)  [{card}]")
+        for what, t in (("first call", t_dec), ("second call", t_dec2)):
+            log(f"s4 decode: {32 / t:.2f} tok/s ({t / 32 * 1e3:.3f} ms/token over 32 steps, batch 1,"
+                f" int8 KV of 512 slots, {what}, prepare included, host clock)  [{card}]")
+        rel = decode_vs_forward(P, prepared, cfg, prompt, torch.cat([tok, toks[:, :8]], 1), 8)
+        if profile:
+            profile_decode(P, params, cache, toks[:, -1:], 192, cfg, card)
+    log(f"s4 decode-vs-forward: max rel logit error {rel:.3e} over 8 steps (limit 0.15)")
+    if not rel < 0.15:
+        raise AssertionError(f"s4 decode/forward divergence: rel err {rel:.4f}")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, prepared, cache
+    torch.cuda.empty_cache()
+    return sum_counts(counts)
+
+
+def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min_distinct=0):
+    """`ServingEngine(8 slots, max_len 512, ljf, int8 cache, fuse)`:
+    `run_pipelined(16)` on the 16 requests of the serve mix (after a warm-up
+    request) against the sequential `step_n(16)` loop, both counted runs
+    that must launch the kernel forms `must`. Returns the pipelined streams."""
+    k, reqs = 16, serve_requests(16, cfg.vocab_size)
+    eng = P.ServingEngine(params, cfg, max_slots=8, max_len=512, quantized_cache=8,
+                          schedule="ljf", fuse=fuse)
+    pipelined_streams(eng, [(reqs[0][0][:20], 2 * k)], k)  # warm-up: first calls, allocations
+    warm_steps = eng.dispatches["steps"]
+    pipe, dt = run_counted(counts, f"{label} run_pipelined",
+                           lambda: timed(lambda: pipelined_streams(eng, reqs, k)), must=must)
+    check_streams(f"{label} run_pipelined", pipe, reqs, cfg.vocab_size)
+    produced, distinct = sum(map(len, pipe)), len({t for st in pipe for t in st})
+    log(f"served ({label}): {produced / dt:.1f} tok/s ({produced} tokens of 16 requests in "
+        f"{dt:.2f} s, {1e3 * dt / (eng.dispatches['steps'] - warm_steps):.1f} ms per 8-slot "
+        f"decode step, run_pipelined({k}), host clock; windows by route "
+        f"{json.dumps(eng.dispatches)} with the warm-up); {distinct} distinct tokens  [{card}]")
+    if distinct < min_distinct:
+        raise AssertionError(f"{label}: streams hold only {distinct} distinct tokens")
+    seq, dt_seq = run_counted(counts, f"{label} step_n loop",
+                              lambda: timed(lambda: sequential_streams(eng, reqs, k)), must=must)
+    log(f"{label} sequential step_n({k}) loop: {produced / dt_seq:.1f} tok/s ({dt_seq:.2f} s, "
+        f"host clock)  [{card}]")
+    if seq != pipe:
+        diff = sum(a != b for a, b in zip(seq, pipe))
+        raise AssertionError(f"{label}: run_pipelined and step_n streams differ ({diff} of 16)")
+    log(f"{label}: run_pipelined streams == sequential step_n streams for all 16 requests")
+    return pipe
+
+
+#: kernel forms a pallas serving run must launch (B1 decode, B2 prefills,
+#: B5 with stats in the windowed steps) and a fused a8 one (B3's GEMV and
+#: tiled forms in their place)
+PALLAS_MUST = ("B1", "B2", "B5.stats")
+A8_MUST = ("B3.s8", "B3.gemm", "B5.stats")
+
+
+def drive_a8_serving(P, card, profile=False):
+    """Fused a8 serving (bench.py serving_bench, :259-392): synthetic
+    per-column s8 weights with an s8 head under the a8 backend."""
+    import torch
+
+    cfg, counts = P.LLAMA3_8B, {}
+    t0 = time.time()
+    params = P.init_quantized_params(cfg, P.QuantSpec(n_bits=4, group_size=GS), seed=SEED,
+                                     pack=False, percol_s8=True, head_s8=True)
+    torch.cuda.synchronize()
+    log(f"a8 params (per-column s8, s8 head) built in {time.time() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    with P.backend("a8"):
+        serve_and_compare(P, params, cfg, card, "a8 fused serve", counts, A8_MUST, fuse=True)
+        if profile:
+            profile_serving(P, params, cfg, serve_requests(16, cfg.vocab_size), 16, card,
+                            bits=(8,), fuse=True)
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return sum_counts(counts)
+
+
+def drive_rtn_a8(P, params, card):
+    """Fused a8 serving on input-dependent weights: the RTN W4 g128 model
+    recoded per column with `recode_model_s8(include_head=True)`; then, as a
+    check, the s4 decode drift through B3 (`decode_drift_b3`)."""
+    import torch
+
+    cfg, counts = P.LLAMA3_8B, {}
+    rec, t_rec = timed(lambda: P.recode_model_s8(params, cfg, include_head=True))
+    log(f"recode_model_s8 of the RTN model (head included): {t_rec:.2f} s host clock  [{card}]")
+    with P.backend("a8"):
+        serve_and_compare(P, rec, cfg, card, "RTN a8 fused serve", counts, A8_MUST, fuse=True,
+                          min_distinct=64)
+    del rec
+    torch.cuda.empty_cache()
+    total = sum_counts(counts)
+    decode_drift_b3(P, params, cfg, card)
+    return total
+
+
+#: limit on the full-depth s4 decode through B3 against the same decode
+#: through B3's plain version (max relative logit error)
+B3_DRIFT_LIMIT = 1e-6
+
+
+def decode_drift_b3(P, params, cfg, card):
+    """Teacher-forced decode under the s4 backend (48-token prefill, then 9
+    seeded tokens) at full width and depth through B3 against the same
+    decode through B3's plain version. Both compute the same s32 integers
+    and the same fp32 epilogue in the same order."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    toks = torch.randint(0, cfg.vocab_size, (1, 57), generator=gen, device="cuda")
+    prompt, cont = toks[:, :48], toks[:, 48:]
+    with P.backend("s4"):
+        prepared = P.prepare_decode_params(params)
+        kern = teacher_forced(P, prepared, cfg, prompt, cont, 8)
+        orig = qa.a8_gemv, qa.a8_gemm
+        qa.a8_gemv = lambda xq, s_x, *w: qa.a8_plain(xq, s_x, *w[:-1])  # drop the launch key
+        qa.a8_gemm = qa.a8_plain
+        try:
+            plain = teacher_forced(P, prepared, cfg, prompt, cont, 8)
+        finally:
+            qa.a8_gemv, qa.a8_gemm = orig
+    rel = float((kern - plain).abs().max() / plain.abs().max())
+    log(f"RTN weights, s4 backend, int8 KV: decode logits through B3 vs its plain version: max "
+        f"rel err {rel:.3e} over {cont.shape[1]} steps (limit {B3_DRIFT_LIMIT:g})  [{card}]")
+    if not (bool(kern.isfinite().all()) and rel < B3_DRIFT_LIMIT):
+        raise AssertionError(f"RTN s4: B3 and its plain version differ, rel err {rel}")
+
+
+def profile_serving(P, params, cfg, reqs, k, card, bits=(8, 4), fuse=False):
     """Device time by kernel over one full serving window (8 active slots,
-    `step_n(k)`) on the int8 and the int4 cache, the device's busy share of
-    it, and the host time per step without the profiler."""
+    `step_n(k)`) on each cache of `bits` (int8, int4), the device's busy
+    share of it, and the host time per step without the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for bits in (8, 4):
-        eng = P.ServingEngine(params, cfg, max_slots=8, max_len=512, quantized_cache=bits)
+    for nbits in bits:
+        eng = P.ServingEngine(params, cfg, max_slots=8, max_len=512, quantized_cache=nbits,
+                              fuse=fuse)
         eng.add_requests([(p, 10 * k, None) for p, _ in reqs[:8]])
         eng.step_n(k)  # warm
         _, plain_s = timed(lambda: eng.step_n(k))
@@ -713,7 +1022,8 @@ def profile_serving(P, params, cfg, reqs, k, card):
         if busy_us <= 0:
             log("profile: the profiler saw no device time")
             return
-        log(f"profile of one serving window ({k} steps x 8 slots, int{bits} KV): "
+        log(f"profile of one serving window ({k} steps x 8 slots, int{nbits} KV"
+            f"{', fused, backend ' + P.get_backend() if fuse else ''}): "
             f"{1e3 * plain_s / k:.3f} ms/step unprofiled; profiled wall {1e3 * wall_s / k:.3f} "
             f"ms/step, device busy {busy_us / k / 1e3:.3f} ms/step "
             f"({100 * busy_us / (wall_s * 1e6):.1f}% of profiled wall, "
@@ -847,12 +1157,118 @@ def time_kernels(P, card, launches_total, errs):
                            "llama3_quantization_tpu/models/transformer.py:168",
                            f"B=1 S={s} H=32 G=8 D=128 bf16 causal", ms, plain_ms, nbytes, ops,
                            BF16_FLOPS, lib_ms, errs["B7"][f"S={s}"]))
+    b3_rows = time_b3(P, gen, add, errs)
+    w3_rows = time_b2_w3(P, gen, add, errs)
     # one row per kernel form in the summary line (B1 at both of its path
     # instantiations, M=1 and M=8), at the main path's heaviest shape
-    # (B1/B2: gate/up) or its own length (B5 forms: T=512, B7: S=128); the
-    # lines above hold the other shapes. The B1 rows share B1's one count.
+    # (B1/B2: gate/up; B3: fused gate-up) or its own length (B5 forms:
+    # T=512, B7: S=128); the lines above hold the other shapes. The B1 rows
+    # share B1's one count.
     return ([rows_[2] for rows_ in qmm_rows.values()] + [rows_[0] for rows_ in form_rows.values()]
-            + [b7_rows[0]])
+            + [b7_rows[0]] + b3_rows + w3_rows)
+
+
+def b3_dequant_bf16(w, k):
+    """A B3 weight form dequantized to bf16 [K, N] (the library yardstick's
+    pre-dequantized weight)."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
+
+    data, layout, scale, zero, gs = w
+    g = k // gs
+    c = qa.codes_of(data, layout, k, gs).float().reshape(g, gs, -1)
+    if zero is not None:
+        c = c - zero.float()[:, None, :]
+    return (c * scale[:, None, :]).reshape(k, -1).to(torch.bfloat16)
+
+
+def b3_bytes(w, m, k):
+    """Bytes B3 must move: codes, scale and zero, s8 activations and their
+    scales, bf16 output."""
+    data, _, scale, zero, _ = w
+    zb = 0 if zero is None else zero.numel() * zero.element_size()
+    return data.numel() + 4 * scale.numel() + zb + m * k + 4 * m + 2 * m * data.shape[-1]
+
+
+#: (form, M) of the B3 timings: the decode forms at batch 1 and the serving
+#: step's 8 slots, the tiled form at a 128-token prefill
+B3_TIMED = (("B3.v3", 1), ("B3.v3", 8), ("B3.s4", 1), ("B3.s4", 8), ("B3.s8", 1), ("B3.s8", 8),
+            ("B3.s4", 128), ("B3.s8", 128))
+#: the form and M of each B3 row in the kernels line (shape: fused gate-up)
+B3_ROWS = {("B3.v3", 1): "B3.v3", ("B3.s4", 1): "B3.s4", ("B3.s8", 8): "B3.s8",
+           ("B3.s4", 128): "B3.gemm"}
+
+
+def time_b3(P, gen, add, errs):
+    """B3's forms on every W·A8 linear shape and the heads: device ms beside
+    the plain version, the bound (bytes, or 2MKN int8 operations) and the
+    library yardstick: `torch._int_mm` on the s8 codes where it runs (M > 16),
+    else `torch.matmul` against a pre-dequantized bf16 weight. Four weight
+    copies cycle through the 50 MB L2."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
+
+    rows = []
+    src = "llama3_quantization_tpu_torch/csrc/qmatmul_a8.cu"
+    tpu = "llama3_quantization_tpu/ops/pallas_qmatmul.py:268"
+    for label, (k, n) in list(B3_SHAPES.items()) + [("head", HEAD_SHAPE)]:
+        forms = (head_forms(P, gen) if label == "head" else b3_forms(P, k, n, 4, gen))
+        forms = {key: (ws if isinstance(ws, list) else [ws]) for key, ws in forms.items()}
+        wd = {key: [b3_dequant_bf16(w, k) for w in ws] for key, ws in forms.items()}
+        for key, m in B3_TIMED:
+            if key not in forms or (label == "head" and m > 8):
+                continue
+            ws, nw = forms[key], len(forms[key])
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            xq, s_x = qa.quantize_activations_s8(x)
+            ms = time_ms(lambda i: b3_call(key, ws[i % nw], xq, s_x, torch.bfloat16), 100)
+            plain_ms = time_ms(lambda i: qa.a8_plain(xq, s_x, *ws[i % nw], torch.bfloat16), 5)
+            lib_ms, lib = None, "torch.matmul bf16"
+            if ws[0][1] == "s8" and m > 16:
+                try:  # the s32 dot alone, where cuBLASLt's shape rules allow
+                    lib_ms = time_ms(lambda i: torch._int_mm(xq, ws[i % nw][0]), 100)
+                    lib = "torch._int_mm"
+                except RuntimeError as e:
+                    log(f"  torch._int_mm does not take x[{m},{k}] @ [{k},{n}]: {e}")
+            if lib_ms is None:
+                lib_ms = time_ms(lambda i: torch.matmul(x, wd[key][i % nw]), 100)
+            rkey = key if m <= qa.GEMV_MAX_M else "B3.gemm"
+            layout = ws[0][1]
+            row = add(rkey, f"a8_{'gemv' if m <= qa.GEMV_MAX_M else 'gemm'} {layout}", src, tpu,
+                      f"{label} x[{m},{k}] {layout}[{k},{n}] (library: {lib})", ms, plain_ms,
+                      b3_bytes(ws[0], m, k), 2.0 * m * k * n, INT8_OPS, lib_ms,
+                      errs[rkey][f"{label} {layout} M={m}"])
+            if label == "gateup" and (key, m) in B3_ROWS:
+                rows.append(row)
+        del forms, wd
+    return rows
+
+
+def time_b2_w3(P, gen, add, errs):
+    """3-bit B2 at M = 128 on every decoder linear shape (RTN W3 g128, four
+    copies); the kernels line takes gate/up."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    rows = []
+    for label, (k, n) in LINEAR_SHAPES.items():
+        qts = [P.quantize_rtn(torch.randn((k, n), generator=gen, device="cuda"),
+                              P.QuantSpec(n_bits=3, group_size=GS), pack=True) for _ in range(4)]
+        wd = [fq.dequant_bf16(qt) for qt in qts]
+        m = 128
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        ms = time_ms(lambda i: fq.qmm_gemm(x, qts[i % 4], torch.bfloat16), 50)
+        plain_ms = time_ms(lambda i: fq.qmm_gemm_plain(x, qts[i % 4], torch.bfloat16), 5)
+        lib_ms = time_ms(lambda i: torch.matmul(x, wd[i % 4]), 50)
+        nbytes = 3 * k * n // 8 + 2 * (k // GS) * n * 4 + m * k * 2 + m * n * 2
+        row = add("B2.w3", "qmm_gemm w3", "llama3_quantization_tpu_torch/csrc/qmatmul.cu",
+                  "llama3_quantization_tpu/ops/pallas_qmatmul.py:54",
+                  f"{label} x[{m},{k}] W3g128[{k},{n}] bit planes", ms, plain_ms, nbytes,
+                  2.0 * m * k * n, BF16_FLOPS, lib_ms, errs["B2.w3"][f"{label} M={m}"])
+        if label == "gate/up":
+            rows.append(row)
+        del qts, wd
+    return rows
 
 
 def main() -> int:
@@ -865,8 +1281,8 @@ def main() -> int:
                     help="only time B2 at M = 128, 512, 2048 and forward_logits at S = 512, "
                          "2048 (run it from two checkouts in one call to compare them)")
     ap.add_argument("--decode-drift", action="store_true",
-                    help="only run the full-depth decode through the B5 kernel forms "
-                         "against their plain versions")
+                    help="only run the full-depth decode through the B5 kernel forms and "
+                         "through B3 (s4 backend) against their plain versions")
     args = ap.parse_args()
 
     import torch
@@ -899,13 +1315,17 @@ def main() -> int:
         prefill_bench(P, card)
         return 0
     if args.decode_drift:
-        decode_drift(P, build_rtn_params(P), P.LLAMA3_8B, card)
+        params = build_rtn_params(P)
+        decode_drift(P, params, P.LLAMA3_8B, card)
+        decode_drift_b3(P, params, P.LLAMA3_8B, card)
         return 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {}
     log("kernel checks against the plain versions on the card:")
     check_qmatmul(P, gen, errs)
+    check_b2_w3(P, gen, errs)
+    check_b3(P, gen, errs)
     check_decode_forms(P, gen, errs)
     check_flash(P, gen, errs)
     check_window_merge(P, gen)
@@ -915,16 +1335,21 @@ def main() -> int:
         return 0
 
     params = build_params(P)
-    total = drive_main_path(P, params, card, profile=args.profile)
-    serving = drive_serving(P, params, card, profile=args.profile)
+    paths = [drive_main_path(P, params, card, profile=args.profile),
+             drive_serving(P, params, card, profile=args.profile),
+             drive_v3_path(P, params, card)]
     del params
     torch.cuda.empty_cache()
+    paths.append(drive_w3_forward(P, card))
+    paths.append(drive_s4_decode(P, card, profile=args.profile))
+    paths.append(drive_a8_serving(P, card, profile=args.profile))
     params = build_rtn_params(P)
-    rtn = drive_rtn_checks(P, params, card)
+    paths.append(drive_rtn_checks(P, params, card))
+    paths.append(drive_rtn_a8(P, params, card))
     del params
     torch.cuda.empty_cache()
-    total = {key: total[key] + serving[key] + rtn[key] for key in total}
-    log(f"launches over both paths: {json.dumps(total)}")
+    total = {key: sum(p[key] for p in paths) for key in paths[0]}
+    log(f"launches over all paths: {json.dumps(total)}")
     rows = time_kernels(P, card, total, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     # the run drives one card, whatever the machine holds

@@ -7,8 +7,10 @@
 // Weight layout (quant/pack.py): codes [K, N] with groups of `gs` rows along
 // K. Packed 4/2-bit storage is group-local: byte row j of group g holds rows
 // g*gs + s*(gs/f) + j in bit field s*bits, so adjacent rows never share a
-// byte. Unpacked storage is one int8 or uint8 code per byte. scale and zero
-// are fp32 [G, N].
+// byte. Packed 3-bit storage is three bit planes [3, K/8, N]: byte row r of
+// plane b holds bit b of rows 8r..8r+7, row 8r+i in bit i (B2 only, as the
+// TPU wrapper sends 3-bit weights to v1 at every M). Unpacked storage is one
+// int8 or uint8 code per byte. scale and zero are fp32 [G, N].
 //
 // What bounds them on the H100:
 // B1 at M = 1 is a GEMV that must stream K*N/f weight bytes plus 8 bytes of
@@ -159,13 +161,18 @@ constexpr int GEMM_THREADS = 256;
 // B2: y = bf16(x) @ W with W = bf16((bf16(code) - bf16(zero)) * bf16(scale))
 // (pallas_qmatmul.py:84-103), fp32 accumulation. Needs K % 32 == 0 and
 // gs % 32 == 0, so that a k tile lies inside one group.
+// F: values per byte of the nibble layouts (4, 2, 1), or PLANES3 for the
+// 3-bit bit planes, whose codes are assembled from three bytes.
+constexpr int PLANES3 = 3;
+
 template <int F, bool SIGNED>
 __global__ void __launch_bounds__(GEMM_THREADS) qmm_gemm_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
     const float* __restrict__ scale, const float* __restrict__ zero,
     float* __restrict__ part, void* __restrict__ out, int out_bf16, int M, int K, int N,
     int gs, int tiles_per_split) {
-  constexpr int BITS = 8 / F;
+  constexpr bool PLANES = F == PLANES3;
+  constexpr int BITS = PLANES ? 3 : 8 / F;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
   __shared__ __align__(16) __nv_bfloat16 As[BM][LDS];
   __shared__ __align__(16) __nv_bfloat16 Bs[BN][LDS];
@@ -173,7 +180,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) qmm_gemm_kernel(
   const int gid = lane >> 2, tig = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int bm0 = blockIdx.y * BM, bn0 = blockIdx.x * BN;
-  const int sub = gs / F;
+  const int sub = PLANES ? 0 : gs / F;
   const int kt0 = blockIdx.z * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, K / BK);
 
@@ -212,6 +219,18 @@ __global__ void __launch_bounds__(GEMM_THREADS) qmm_gemm_kernel(
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int k = k0 + 2 * (kp + 4 * (e >> 1)) + (e & 1);
+      if (PLANES) {  // code bit b = bit (k % 8) of plane b's byte row k / 8
+        uint32_t code = 0;
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const size_t byte_row = (size_t)b * (K / 8) + (k >> 3);
+          const uint32_t byte = n_ok ? __ldg(data + byte_row * N + n) : 0u;
+          code |= ((byte >> (k & 7)) & 1u) << b;
+        }
+        braw[e] = (uint8_t)code;
+        bshift[e] = 0;
+        continue;
+      }
       const int r = k - g * gs;
       const int s = F == 1 ? 0 : r / sub;
       const size_t byte_row = F == 1 ? (size_t)k : (size_t)g * sub + (r - s * sub);
@@ -356,14 +375,16 @@ extern "C" int l3q_qmm_gemv(const void* x, const void* data, const void* scale,
   return reduce_splits(part, out, out_bf16, M, N, ksplit, st);
 }
 
-// B2: needs K % 32 == 0 and gs % 32 == 0; ksplit blocks along K.
+// B2: needs K % 32 == 0 and gs % 32 == 0; ksplit blocks along K. f as for
+// B1, or 3 for the 3-bit bit planes [3, K/8, N].
 extern "C" int l3q_qmm_gemm(const void* x, const void* data, const void* scale,
                             const void* zero, void* out, void* part, int M, int K, int N,
                             int gs, int f, int is_signed, int out_bf16, int ksplit,
                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int err;
-  if (f == 4) err = launch_gemm<4, false>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, st);
+  if (f == PLANES3) err = launch_gemm<PLANES3, false>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, st);
+  else if (f == 4) err = launch_gemm<4, false>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, st);
   else if (f == 2) err = launch_gemm<2, false>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, st);
   else if (is_signed) err = launch_gemm<1, true>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, st);
   else err = launch_gemm<1, false>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, st);

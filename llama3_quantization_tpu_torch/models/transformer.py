@@ -43,7 +43,8 @@ from ..ops.kvcache import (
     layer_view,
     true_div,
 )
-from ..ops.matmul import qlinear
+from ..ops.matmul import prepare_decode_params, qlinear
+from ..ops.s4_matmul import S4Weight
 from ..quant.qtensor import QuantizedTensor
 from .configs import ModelConfig
 
@@ -129,10 +130,26 @@ def _layer_params(layers: Params, i: int) -> Params:
     out = {}
     for name, entry in layers.items():
         out[name] = {
-            key: (val.layer(i) if isinstance(val, QuantizedTensor) else val[i])
+            key: (val.layer(i) if isinstance(val, (QuantizedTensor, S4Weight)) else val[i])
             for key, val in entry.items()
         }
     return out
+
+
+def qkv_proj(p: Params, h: torch.Tensor, cfg: ModelConfig):
+    """q [B, S, H, D], k and v [B, S, Hkv, D]: one dot on the fused `qkv`
+    entry (`quant/serving.fuse_for_decode`, `transformer.py:456-462`), or
+    three."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim_
+    if "qkv" in p:
+        nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        qkv = qlinear(h, p["qkv"]["w"], p["qkv"].get("b"))
+        q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
+    else:
+        q, k, v = (qlinear(h, p[n]["w"], p[n].get("b")) for n in ("q", "k", "v"))
+    return (q.reshape(b, s, cfg.num_heads, hd), k.reshape(b, s, cfg.num_kv_heads, hd),
+            v.reshape(b, s, cfg.num_kv_heads, hd))
 
 
 def _attn_block(
@@ -147,9 +164,7 @@ def _attn_block(
 ) -> torch.Tensor:
     b, s, _ = h.shape
     hd = cfg.head_dim_
-    q = qlinear(h, p["q"]["w"], p["q"].get("b")).reshape(b, s, cfg.num_heads, hd)
-    k = qlinear(h, p["k"]["w"], p["k"].get("b")).reshape(b, s, cfg.num_kv_heads, hd)
-    v = qlinear(h, p["v"]["w"], p["v"].get("b")).reshape(b, s, cfg.num_kv_heads, hd)
+    q, k, v = qkv_proj(p, h, cfg)
     if cos_sin is not None:
         cos, sin = cos_sin
         q = apply_rope(q, cos, sin)
@@ -175,8 +190,13 @@ def _attn_block(
 
 
 def _mlp_block(p: Params, h: torch.Tensor) -> torch.Tensor:
-    gate = qlinear(h, p["gate"]["w"], p["gate"].get("b"))
-    up = qlinear(h, p["up"]["w"], p["up"].get("b"))
+    if "gateup" in p:  # fused gate|up (`transformer.py:712-714`)
+        gu = qlinear(h, p["gateup"]["w"], p["gateup"].get("b"))
+        half = gu.shape[-1] // 2
+        gate, up = gu[..., :half], gu[..., half:]
+    else:
+        gate = qlinear(h, p["gate"]["w"], p["gate"].get("b"))
+        up = qlinear(h, p["up"]["w"], p["up"].get("b"))
     return qlinear(F.silu(gate) * up, p["down"]["w"], p["down"].get("b"))
 
 
@@ -401,9 +421,11 @@ def greedy_generate(
     An int4 cache takes the windowed decode (`models/windowed.py`) when the
     window fits the ring width (`n_steps < T - sink`) and nothing is
     evicted during it (`pos0 + n_steps <= T`); everything else runs one
-    `decode_step` per token."""
+    `decode_step` per token. Under the "s4" backend the weights are
+    prepared once per call, outside the step loop (`transformer.py:1052`)."""
     from .windowed import decode_window, windowed_ok
 
+    params = prepare_decode_params(params)
     pos0 = int(pos0)
     t_logical = cache["k_s"].shape[3]
     if (

@@ -33,7 +33,7 @@ import torch
 
 from ..ops.decode_attention import NEG, block_size, flash_decode_gqa_s8_stacked
 from ..ops.kvcache import CACHE_KEYS, kv4_codes, kv_quantize, true_div
-from ..ops.matmul import qlinear
+from ..ops.matmul import prepare_decode_params, qlinear
 from .configs import ModelConfig
 from .transformer import (
     _check_arch,
@@ -45,6 +45,7 @@ from .transformer import (
     embed,
     final_norm,
     lm_head,
+    qkv_proj,
     rms_norm,
     rope_cos_sin,
     sample_logits,
@@ -115,9 +116,7 @@ def _attn_block_windowed(p, x, cfg, cos_sin, main_mask, cache, w_bufs, widx, lay
     `widx` of the layer's window buffers."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    q = qlinear(x, p["q"]["w"], p["q"].get("b")).reshape(b, s, cfg.num_heads, hd)
-    k = qlinear(x, p["k"]["w"], p["k"].get("b")).reshape(b, s, cfg.num_kv_heads, hd)
-    v = qlinear(x, p["v"]["w"], p["v"].get("b")).reshape(b, s, cfg.num_kv_heads, hd)
+    q, k, v = qkv_proj(p, x, cfg)  # fused qkv as `windowed.py:172-177`
     cos, sin = cos_sin
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -236,8 +235,11 @@ def decode_window(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """`n_steps` greedy (or sampled, from `generator`) tokens with
     write-combined cache updates, on the cache's device. Returns (tokens
-    [B, n_steps], the cache, merged in place)."""
+    [B, n_steps], the cache, merged in place). Under the "s4" backend the
+    weights are prepared once per window (`windowed.py:458`); already
+    prepared params pass through unchanged."""
     _check_arch(cfg)
+    params = prepare_decode_params(params)
     dev = cache["k_s"].device
     if tok0.device != dev:
         raise ValueError(f"tokens on {tok0.device}, cache on {dev}")

@@ -22,11 +22,17 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("qmatmul", "decode_attention", "flash_attention")
+SOURCES = ("qmatmul", "qmatmul_a8", "decode_attention", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: the matmul kernels' GEMV forms serve M <= 64, their tiled forms above
+#: (the TPU kernel's decode/prefill switch, pallas_qmatmul.py:399-403)
+GEMV_MAX_M = 64
+#: blocks a matmul launch wants in flight (two per H100 SM)
+TARGET_BLOCKS = 264
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -95,6 +101,15 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def out_flag(out_dtype) -> int:
+    """The kernels' `out_bf16` flag: 1 for bfloat16 output, 0 for float32."""
+    import torch
+
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"output dtype must be bfloat16 or float32, got {out_dtype}")
+    return int(out_dtype == torch.bfloat16)
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

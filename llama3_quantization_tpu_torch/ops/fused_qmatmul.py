@@ -1,10 +1,14 @@
-"""Fused dequant-matmul `y = x @ dequant(W)`: kernels B1 and B2.
+"""Fused dequant-matmul `y = x @ dequant(W)`: kernels B1, B2 and B3.
 
 Port of `llama3_quantization_tpu/ops/pallas_qmatmul.fused_dequant_matmul`.
 B1 (`csrc/qmatmul.cu` `qmm_gemv_kernel`, the TPU `_qmm_v2_kernel`) serves
 M <= 64 and applies scale and zero after the dot; B2 (`qmm_gemm_kernel`,
 the TPU `_qmm_kernel` v1) serves M > 64 and dequantizes each weight tile
 to bf16 before a bf16 MMA. Both cast x to bf16 and accumulate in fp32.
+3-bit bit-plane weights always take B2, as the TPU wrapper sends them to v1.
+`version=3` (or `L3Q_QMM_V=3`, read as JAX reads it) takes B3, the W·A8
+integer kernel of `ops/qmatmul_a8.py`, on the packed weight and its fp32
+zero point.
 
 Each kernel has a plain PyTorch version here with the same rounding points
 (`qmm_gemv_plain`, `qmm_gemm_plain`). The wrapper uses it for tensors on
@@ -14,18 +18,16 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from ..quant.pack import pack_factor, unpack_subbyte
 from ..quant.qtensor import QuantizedTensor
 from . import _build
+from ._build import GEMV_MAX_M, TARGET_BLOCKS
 from .launches import COUNTS
-
-#: the TPU kernel's decode/prefill switch (pallas_qmatmul.py:399-403)
-GEMV_MAX_M = 64
-#: blocks wanted in flight (two per H100 SM)
-_TARGET_BLOCKS = 264
+from .qmatmul_a8 import w_a8_matmul
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,17 +81,27 @@ def qmm_gemm_plain(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.T
     return torch.matmul(x2d.to(torch.bfloat16).float(), w).to(out_dtype)
 
 
+#: the kernels' layout code of 3-bit bit planes `[3, K/8, N]`
+PLANES3 = 3
+
+
+def _is_planes(qt: QuantizedTensor) -> bool:
+    return qt.packed and qt.bits == 3
+
+
 def _check_weight(qt: QuantizedTensor, device) -> int:
-    """Validate a weight for the kernels; return its values per byte."""
+    """Validate a weight for the kernels; return its layout code: values per
+    byte (4, 2, 1), or PLANES3 for 3-bit bit planes."""
     f = pack_factor(qt.bits) if qt.packed else 1
     gs = qt.group_size or qt.k
     g = qt.k // gs
-    if qt.packed and qt.bits not in (2, 4):
-        raise NotImplementedError(f"{qt.bits}-bit packed weights have no CUDA kernel yet")
+    if qt.packed and qt.bits not in (2, 3, 4):
+        raise NotImplementedError(f"{qt.bits}-bit packed weights have no CUDA kernel")
     if qt.data.dtype not in (torch.uint8, torch.int8) or (qt.packed and qt.data.dtype != torch.uint8):
         raise TypeError(f"weight codes must be uint8 (packed) or int8/uint8, got {qt.data.dtype}")
-    if tuple(qt.data.shape) != (qt.k // f, qt.n):
-        raise ValueError(f"codes shape {tuple(qt.data.shape)} != {(qt.k // f, qt.n)}")
+    rows = 3 * qt.k // 8 if _is_planes(qt) else qt.k // f
+    if tuple(qt.data.shape) != (rows, qt.n) or (_is_planes(qt) and qt.k % 8):
+        raise ValueError(f"codes shape {tuple(qt.data.shape)} != {(rows, qt.n)}")
     for name, t in (("scale", qt.scale), ("zero", qt.zero)):
         if t.dtype != torch.float32 or tuple(t.shape) != (g, qt.n):
             raise ValueError(f"{name} must be float32 [{g}, {qt.n}]")
@@ -99,13 +111,7 @@ def _check_weight(qt: QuantizedTensor, device) -> int:
         raise ValueError(f"codes must be contiguous on {device}")
     if qt.k % gs or gs % f:
         raise ValueError(f"K={qt.k}, group_size={gs} and pack factor {f} do not tile")
-    return f
-
-
-def _out_flag(out_dtype) -> int:
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"output dtype must be bfloat16 or float32, got {out_dtype}")
-    return int(out_dtype == torch.bfloat16)
+    return PLANES3 if _is_planes(qt) else f
 
 
 def _scratch(ksplit: int, m: int, n: int, device):
@@ -118,9 +124,11 @@ def _scratch(ksplit: int, m: int, n: int, device):
 def qmm_gemv(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     """Kernel B1 on the card (M <= 64)."""
     f = _check_weight(qt, x2d.device)
+    if f == PLANES3:
+        raise NotImplementedError("B1 has no 3-bit plane form; 3-bit weights take B2")
     if qt.n % 16:
         raise ValueError(f"B1 needs N % 16 == 0, got N={qt.n}")
-    out_bf16 = _out_flag(out_dtype)
+    out_bf16 = _build.out_flag(out_dtype)
     m = x2d.shape[0]
     xb = x2d.to(torch.bfloat16).contiguous()
     out = torch.empty((m, qt.n), dtype=out_dtype, device=x2d.device)
@@ -131,7 +139,7 @@ def qmm_gemv(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     # group and still gives the card enough blocks
     col_tiles = -(-qt.n // 512) * -(-m // mt)
     rcs = [r for r in (16, 8, 4, 2, 1) if sub % r == 0]
-    rc = next((r for r in rcs if col_tiles * -(-rows // (8 * r)) >= _TARGET_BLOCKS), rcs[-1])
+    rc = next((r for r in rcs if col_tiles * -(-rows // (8 * r)) >= TARGET_BLOCKS), rcs[-1])
     ksplit = -(-rows // (8 * rc))
     part = _scratch(ksplit, m, qt.n, x2d.device)
     err = _lib().l3q_qmm_gemv(
@@ -151,14 +159,14 @@ def qmm_gemm(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     gs = qt.group_size or qt.k
     if qt.k % 32 or gs % 32:
         raise ValueError(f"B2 needs K and group_size multiples of 32, got {qt.k}, {gs}")
-    out_bf16 = _out_flag(out_dtype)
+    out_bf16 = _build.out_flag(out_dtype)
     m = x2d.shape[0]
     xb = x2d.to(torch.bfloat16).contiguous()
     out = torch.empty((m, qt.n), dtype=out_dtype, device=x2d.device)
     # the K split follows (K, N) alone, so a row's result does not depend
     # on how many rows share the call (batch-invariant prefills)
     tiles = -(-qt.n // 64)
-    ksplit = 1 if 2 * tiles >= _TARGET_BLOCKS else min(-(-_TARGET_BLOCKS // tiles), qt.k // 32)
+    ksplit = 1 if 2 * tiles >= TARGET_BLOCKS else min(-(-TARGET_BLOCKS // tiles), qt.k // 32)
     part = _scratch(ksplit, m, qt.n, x2d.device)
     err = _lib().l3q_qmm_gemm(
         xb.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), qt.zero.data_ptr(),
@@ -166,24 +174,51 @@ def qmm_gemm(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
         int(qt.data.dtype == torch.int8), out_bf16, ksplit, _build.stream_ptr(x2d.device),
     )
     _build.check(err, "qmm_gemm (B2)")
-    COUNTS["B2"] += 1
+    COUNTS["B2.w3" if f == PLANES3 else "B2"] += 1
     return out
 
 
-def fused_dequant_matmul(x: torch.Tensor, qt: QuantizedTensor, out_dtype=None) -> torch.Tensor:
-    """`x @ dequant(qt)` for x of any leading shape: B1 for M <= 64, B2 above.
+def qmm_v3(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
+    """The v3 route (`pallas_qmatmul.py:405-417`): x quantized per token to
+    s8, B3 on the packed codes (or int8 containers) with the fp32 zero."""
+    if qt.packed:
+        layout = {4: "u4", 2: "u2"}.get(qt.bits)
+        if layout is None:
+            raise NotImplementedError(f"v3 takes 4/2-bit packed weights, got {qt.bits}-bit")
+    elif qt.data.dtype == torch.int8:
+        layout = "s8"
+    else:
+        raise NotImplementedError("v3 takes int8 containers, not unpacked uint8 codes")
+    return w_a8_matmul(x2d, qt.data, layout, qt.scale, qt.zero, qt.group_size or qt.k,
+                       out_dtype, "B3.v3")
 
-    CPU tensors take the plain versions; CUDA tensors take the kernels."""
+
+def fused_dequant_matmul(
+    x: torch.Tensor, qt: QuantizedTensor, out_dtype=None, version: int = 0
+) -> torch.Tensor:
+    """`x @ dequant(qt)` for x of any leading shape.
+
+    version 0 picks as JAX does: `L3Q_QMM_V` if set, else B1 for M <= 64
+    and B2 above; 1 is B2, 2 is B1, 3 is B3 (W·A8). 3-bit plane weights
+    always take B2. CPU tensors take the plain versions; CUDA tensors take
+    the kernels."""
     if qt.zero is None:
         raise NotImplementedError("the fused kernels require zero-point storage")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     x2d = x.reshape(-1, qt.k)
-    gemv = x2d.shape[0] <= GEMV_MAX_M and not (qt.packed and qt.bits == 3)
-    if x.device.type == "cpu":
-        fn = qmm_gemv_plain if gemv else qmm_gemm_plain
-    elif x.device.type == "cuda":
-        fn = qmm_gemv if gemv else qmm_gemm
+    if _is_planes(qt):
+        version = 1  # v2's per-bitfield dots assume the nibble layout
+    if version == 0:
+        env = os.environ.get("L3Q_QMM_V")
+        version = int(env) if env else (2 if x2d.shape[0] <= GEMV_MAX_M else 1)
+    cpu = x.device.type == "cpu"
+    if version == 3:
+        fn = qmm_v3
+    elif version == 2:
+        fn = qmm_gemv_plain if cpu else qmm_gemv
     else:
-        raise ValueError(f"unsupported device {x.device}")
+        fn = qmm_gemm_plain if cpu else qmm_gemm
     return fn(x2d, qt, out_dtype).reshape(*lead, qt.n)

@@ -21,9 +21,14 @@ collect. Host->device copies go through pinned memory and device->host
 copies are waited on by event, so the per-window Python adds no device
 sync inside a window.
 
-The fp cache (`quantized_cache=False`) and `fuse=True` (horizontal qkv /
-gate-up fusion, `quant/serving.fuse_for_decode`) are not ported and raise.
-Sampled streams come from a `torch.Generator` and do not reproduce JAX's.
+`fuse=True` fuses q/k/v and gate/up horizontally (`quant/serving.fuse_for_decode`).
+The matmul backend (`ops/matmul.set_backend`) is read at every call; under
+"s4" the engine prepares its weights once per backend and keeps them
+(`prepare_decode_params`), where JAX re-prepares inside every compiled
+window: the prepared weights compute the same numbers, and a repack per
+window would cost the port a pass over every weight byte. The fp cache
+(`quantized_cache=False`) is not ported and raises. Sampled streams come
+from a `torch.Generator` and do not reproduce JAX's.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from ..models.transformer import (
     sample_logits,
 )
 from ..models.windowed import decode_window, windowed_ok
+from ..ops.matmul import get_backend, prepare_decode_params
+from ..quant.serving import fuse_for_decode
 
 
 @dataclasses.dataclass
@@ -81,14 +88,17 @@ class ServingEngine:
         schedule: str = "fifo",
         device="cuda",
     ):
-        if fuse:
-            raise NotImplementedError("fuse=True needs quant/serving.fuse_for_decode, not ported yet")
         if quantized_cache is False or quantized_cache is None:
             raise NotImplementedError("the fp KV cache is not ported; use quantized_cache=8 or 4")
         if schedule not in ("fifo", "ljf"):
             raise ValueError(schedule)
         self.device = resolve_device(device)
+        if fuse:
+            # horizontal qkv / gate-up fusion: fewer weight dots per step
+            params = fuse_for_decode(params, cfg)
         self.params = params
+        #: (backend, params prepared for it), built at first use
+        self._prepared: Optional[Tuple[str, dict]] = None
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -120,6 +130,14 @@ class ServingEngine:
         self.dispatches = {"windowed": 0, "per_step": 0, "steps": 0}
 
     # ------------------------------------------------------------------
+    def _params(self):
+        """The parameters for the current backend: `prepare_decode_params`
+        once per backend, kept for later calls."""
+        be = get_backend()
+        if self._prepared is None or self._prepared[0] != be:
+            self._prepared = (be, prepare_decode_params(self.params))
+        return self._prepared[1]
+
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the device, without waiting for the device: the
         copy is staged in pinned memory and enqueued asynchronously."""
@@ -183,10 +201,10 @@ class ServingEngine:
             toks[row, : len(prompt)] = np.asarray(prompt, np.int64)
             last[row] = len(prompt) - 1
         cache = self._batch_cache()
-        h = decode_hidden(self.params, cache, self._to_device(toks), 0, self.cfg,
+        h = decode_hidden(self._params(), cache, self._to_device(toks), 0, self.cfg,
                           self._sink_tokens)
         h_last = h[torch.arange(npad, device=self.device), self._to_device(last)]
-        logits = lm_head(self.params, h_last[:, None], self.cfg)[:, 0]
+        logits = lm_head(self._params(), h_last[:, None], self.cfg)[:, 0]
         return self._pick(logits), cache
 
     def _check_prompts(self, batch) -> None:
@@ -272,7 +290,7 @@ class ServingEngine:
             return {}
         tokens = self._to_device(self.next_tok[:, None])
         pos = self._to_device(self.pos)
-        logits, _ = decode_step_multi(self.params, self.cache, tokens, pos, self.cfg,
+        logits, _ = decode_step_multi(self._params(), self.cache, tokens, pos, self.cfg,
                                       self._sink_tokens)
         nxt = self._pick(logits[:, 0, :]).cpu().numpy()
         out: Dict[int, int] = {}
@@ -326,10 +344,11 @@ class ServingEngine:
         active = list(self._slot_req)
         fits_ring = k < self.max_len and all(self.pos[s] + k <= self.max_len for s in active)
         self.dispatches["steps"] += k
+        params = self._params()
         if fits_ring and windowed_ok(self.cfg, self.cache, self._sink_tokens):
             self.dispatches["windowed"] += 1
             toks, _ = decode_window(
-                self.params, self.cache, tok0, pos0, k, self.cfg, generator=self._gen,
+                params, self.cache, tok0, pos0, k, self.cfg, generator=self._gen,
                 temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
                 sink_tokens=self._sink_tokens,
             )
@@ -338,7 +357,7 @@ class ServingEngine:
         out = []
         tok, pos = tok0, pos0
         for _ in range(k):
-            logits, _ = decode_step_multi(self.params, self.cache, tok, pos, self.cfg,
+            logits, _ = decode_step_multi(params, self.cache, tok, pos, self.cfg,
                                           self._sink_tokens)
             nxt = self._pick(logits[:, 0, :])
             out.append(nxt)

@@ -21,6 +21,7 @@ from llama3_quantization_tpu_torch.ops import decode_attention as da
 from llama3_quantization_tpu_torch.ops import flash_attention as fa
 from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 from llama3_quantization_tpu_torch.ops import launches
+from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
 
 torch.set_num_threads(1)
 
@@ -47,6 +48,85 @@ def test_qmatmul_kernels_match_plain(cuda_device, bits, pack, m):
     got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32)
     plain = fq.qmm_gemv_plain if m <= fq.GEMV_MAX_M else fq.qmm_gemm_plain
     ref = plain(x, qt, torch.float32)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+def _b3_weight(kind, k, n, gs, rng, device):
+    """(data, layout, scale, zero, group size) of one B3 weight form."""
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(device)
+    if kind == "s8_percol":
+        qt = P.recode_head_s8(w)
+        return qt.data, "s8", qt.scale, None, k
+    if kind == "s4_head":
+        s4 = P.prepare_s4(P.recode_head_s4(w))
+        return s4.data4, "s4", s4.scale, s4.zero8, k
+    bits = {"u4": 4, "u2": 2, "s4": 4, "s8": 8}[kind]
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=bits, group_size=gs), pack=kind != "s8")
+    if kind == "s4":
+        s4 = P.prepare_s4(qt)
+        return s4.data4, "s4", s4.scale, s4.zero8, gs
+    return qt.data, kind, qt.scale, qt.zero, gs
+
+
+@pytest.mark.parametrize("kind", ["u4", "u2", "s4", "s8", "s8_percol", "s4_head"])
+@pytest.mark.parametrize("m", [1, 3, 8, 65, 130])
+@pytest.mark.parametrize("k,gs", [(256, 64), (2304, 32)])
+def test_b3_forms_match_plain(cuda_device, kind, m, k, gs):
+    """B3's GEMV form (M <= 64) and tiled form on every weight layout and
+    zero-point kind: exact s32 partials and the same fp32 epilogue order,
+    so fp32 output equals the plain version (atol 1e-5 * max|ref| allows
+    the fp32 order only); bf16 output within 1e-2. 4 groups take the GEMV
+    epilogue's per-output schedule, 72 its per-block one in two passes."""
+    rng = np.random.default_rng(m)
+    n = 192
+    data, layout, scale, zero, g = _b3_weight(kind, k, n, gs, rng, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
+    xq, s_x = qa.quantize_activations_s8(x)
+    key = "B3.gemm" if m > qa.GEMV_MAX_M else "B3.s8"
+    before = launches.snapshot()[key]
+    got = qa.w_a8_matmul(x, data, layout, scale, zero, g, torch.float32, "B3.s8")
+    assert launches.snapshot()[key] == before + 1
+    ref = qa.a8_plain(xq, s_x, data, layout, scale, zero, g, torch.float32)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    got16 = qa.w_a8_matmul(x.to(torch.bfloat16), data, layout, scale, zero, g, torch.bfloat16,
+                           "B3.s8")
+    xq16, s_x16 = qa.quantize_activations_s8(x.to(torch.bfloat16))
+    ref16 = qa.a8_plain(xq16, s_x16, data, layout, scale, zero, g, torch.bfloat16)
+    torch.testing.assert_close(got16.float(), ref16.float(), rtol=0,
+                               atol=1e-2 * float(ref16.float().abs().max()))
+
+
+@pytest.mark.parametrize("m", [1, 65])
+def test_v3_s4_a8_routes_count_their_forms(cuda_device, m):
+    """`fused_dequant_matmul(version=3)`, `s4_matmul` and `a8_matmul` each
+    launch their own B3 form (the tiled form above M = 64)."""
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32)).to(cuda_device)
+    qt4 = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=64), pack=True)
+    qt8 = P.recode_s8_percol(qt4)
+    x = torch.from_numpy(rng.standard_normal((m, 256)).astype(np.float32)).to(cuda_device)
+    for key, call in (("B3.v3", lambda: fq.fused_dequant_matmul(x, qt4, version=3)),
+                      ("B3.s4", lambda: P.s4_matmul(x, qt4)),
+                      ("B3.s8", lambda: P.a8_matmul(x, qt8))):
+        key = "B3.gemm" if m > qa.GEMV_MAX_M else key
+        before = launches.snapshot()[key]
+        y = call()
+        assert launches.snapshot()[key] == before + 1 and bool(y.isfinite().all())
+
+
+@pytest.mark.parametrize("m", [8, 130])
+def test_b2_three_bit_planes_match_plain(cuda_device, m):
+    """B2 on 3-bit bit-plane weights (every M: JAX sends 3-bit to v1):
+    fp32 output within 1e-4 * max|ref| of the plain version."""
+    rng = np.random.default_rng(m)
+    w = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32)).to(cuda_device)
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=3, group_size=64), pack=True)
+    assert qt.packed and tuple(qt.data.shape) == (96, 128)
+    x = torch.from_numpy(rng.standard_normal((m, 256)).astype(np.float32)).to(cuda_device)
+    before = launches.snapshot()["B2.w3"]
+    got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32)
+    assert launches.snapshot()["B2.w3"] == before + 1
+    ref = fq.qmm_gemm_plain(x, qt, torch.float32)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 

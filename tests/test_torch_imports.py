@@ -47,6 +47,18 @@ def test_port_runs_with_jax_blocked():
         eng.run_pipelined(4)
         assert sorted(len(r.generated) for r in eng.requests.values()) == [6, 9]
         assert eng.dispatches["windowed"] > 0 and windowed.windowed_ok(cfg, eng.cache)
+        # the W·A8 backends: s4 decode on fused weights, a8 serving on recodes
+        with P.backend("s4"):
+            fused = P.fuse_for_decode(params, cfg)
+            cache = P.init_kv_cache(cfg, 1, 32, device="cpu")
+            out, _ = P.greedy_generate(fused, cache, toks[:, -1:], 12, 4, cfg)
+            assert out.shape == (1, 4)
+        with P.backend("a8"):
+            rec = P.recode_model_s8(params, cfg, include_head=True)
+            eng = ServingEngine(rec, cfg, max_slots=2, max_len=64, fuse=True, device="cpu")
+            eng.submit([1, 2, 3], 5)
+            eng.run_pipelined(4)
+            assert [len(r.generated) for r in eng.requests.values()] == [5]
         assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
 
@@ -72,7 +84,7 @@ def test_port_runs_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("name", ["qmatmul", "decode_attention", "flash_attention"])
+@pytest.mark.parametrize("name", ["qmatmul", "qmatmul_a8", "decode_attention", "flash_attention"])
 def test_kernel_sources_ship(name):
     """Every kernel source the build names is in the package (and in the
     wheel's package data)."""

@@ -69,3 +69,23 @@ def test_qmatmul_routes_and_leading_shape():
     torch.testing.assert_close(qmatmul(x.to(torch.bfloat16), sym),
                                x.to(torch.bfloat16) @ dequantize(sym))
 
+
+@pytest.mark.parametrize("m", [1, 8, 65, 128])
+def test_three_bit_planes_match_pallas_v1(m):
+    """3-bit bit-plane weights `[3, K/8, N]` take B2 at every M, as the TPU
+    wrapper sends them to v1 (`pallas_qmatmul.py:345-348`): B2's plain
+    version against the v1 kernel in interpret mode."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    jq = quantize_rtn(jnp.asarray(w), QuantSpec(n_bits=3, group_size=GS), pack=True)
+    tree = {"data": np.asarray(jq.data), "scale": np.asarray(jq.scale),
+            "zero": np.asarray(jq.zero), "bits": 3, "group_size": GS, "k": K, "n": N,
+            "packed": True, "sym": jq.sym}
+    tq = params_from_numpy({"w": tree}, device="cpu")["w"]
+    assert tuple(tq.data.shape) == (3 * K // 8, N)
+    x = np.random.default_rng(m).standard_normal((m, K)).astype(np.float32)
+    ref = np.asarray(j_fused(jnp.asarray(x), jq, out_dtype=jnp.float32, interpret=True))
+    got = fq.fused_dequant_matmul(torch.from_numpy(x), tq, out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+    np.testing.assert_array_equal(fq.qmm_gemm_plain(torch.from_numpy(x), tq, torch.float32)
+                                  .numpy(), got)

@@ -104,12 +104,11 @@ def test_step_n_windowed(models, jax_kernel_route, bits):
 
 
 def test_engine_guards():
-    """Full pool, oversized prompt, and the parts that are not ported."""
+    """Full pool, oversized prompt, and the part that is not ported (the fp
+    cache; `fuse=True` is ported, tests/test_torch_a8.py)."""
     params = {}
     with pytest.raises(NotImplementedError):
         TEngine(params, tcfg.TINY_LLAMA, quantized_cache=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TEngine(params, tcfg.TINY_LLAMA, fuse=True, device="cpu")
     with pytest.raises(ValueError):
         TEngine(params, tcfg.TINY_LLAMA, schedule="sjf", device="cpu")
     eng = TEngine(params, tcfg.TINY_LLAMA, max_slots=1, max_len=32, device="cpu")
