@@ -6,7 +6,7 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
     python3 chip_smoke.py --profile       # also profile decode steps and serving windows
     python3 chip_smoke.py --prefill-bench # only time B2 and forward_logits at M up to 2048
-    python3 chip_smoke.py --decode-drift  # only the full-depth B5 and B3 kernel-vs-plain decodes
+    python3 chip_smoke.py --decode-drift  # only the full-depth B5, B6 and B3 kernel-vs-plain decodes
 
 Phases, in order; any failure exits non-zero:
   1. require CUDA and print the card's name and power limit;
@@ -18,10 +18,12 @@ Phases, in order; any failure exits non-zero:
      B3 (v3 on packed W4 g128, s4, per-column s8) at M = 1, 8 and 128 on
      the W·A8 paths' o, qkv, gate-up and down and the s8 and s4 heads at
      M = 1 and 8, B5 on the int8 cache with and without m/l statistics and
-     on the int4 cache with and without them (one all-masked row), B7; then
-     the window-merge op (B5 with stats merged with the exact window
-     attention) against eager attention over the dequantized main and
-     window keys;
+     on the int4 cache with and without them (one all-masked row), B6 on
+     the bf16 fp cache (stacked at B = 1, T = 512 and 2048; per layer at
+     B = 8 with per-row masks and an all-masked row) and on an fp32 cache,
+     B7; then the window-merge op (B5 with stats merged with the exact
+     window attention) against eager attention over the dequantized main
+     and window keys;
   4. drive the first main path at full Llama-3-8B width and depth (W4 g128
      packed synthetic weights, bf16, 32 layers, the pallas backend):
      `forward_logits` on [1, 128] tokens, a 128-token prefill into an int8
@@ -34,8 +36,13 @@ Phases, in order; any failure exits non-zero:
      of the sequential `step_n(16)` loop; then the int4 cache: the engine on
      8 requests, a per-step `run()`, and `greedy_generate` of 32 steps after
      a 128-token prefill (the windowed route). Served tok/s beside the card;
-     then the JAX package's v3 route (`L3Q_QMM_V=3`): a 128-token prefill
-     and 8 greedy steps through B3 on the packed weights;
+     then the fp cache, the JAX package's default: `init_kv_cache(cfg, 1,
+     512)` (bf16), a 128-token prefill and `greedy_generate` of 32 steps
+     (B1 + the stacked B6, decode vs forward < 0.15), and the default
+     `ServingEngine` on the 16 requests (B1 at M = 8 + B6 per layer,
+     pipelined = sequential), neither launching a B5 form; then the JAX
+     package's v3 route (`L3Q_QMM_V=3`): a 128-token prefill and 8 greedy
+     steps through B3 on the packed weights;
   6. the W·A8 paths and the 3-bit form: `forward_logits` on [1, 128] of
      RTN W3 g128 weights through 3-bit B2 (4 of 32 layers), against B2's
      plain version (< W3_LIMIT); the s4 decode headline (synthetic W4 g128
@@ -47,17 +54,24 @@ Phases, in order; any failure exits non-zero:
      random-normal, RTN W4 g128 packed: the synthetic codes' logits barely
      depend on the input), requiring varied streams: the pallas int8 engine,
      then the same model recoded per column (`recode_model_s8`, head
-     included) under fused a8; check teacher-forced decode against the
-     forward (int8 < 0.15, int4 reported), the decode through the B5 kernel
-     forms against their plain versions (< DRIFT_LIMIT) and the s4 decode
-     through B3 against B3's plain version (< B3_DRIFT_LIMIT); these
-     checks' launches are not counted as a path's;
+     included) under fused a8; the fp engine (pipelined = sequential);
+     `sample_generate` (temperature 0 = greedy, a seed repeats its stream at
+     0.8 / top-p 0.9); `speculative_generate` with the model as its own
+     draft (8 rounds of k = 4 after a 128-token prefill; every emitted
+     token the forward's argmax but at near ties, at most one); a greedy
+     decode under KV4 fake quant (`RuntimeQuantConfig(k=4 bits, v=4 bits)`:
+     the eager route, no B6); check teacher-forced decode against the
+     forward (int8 < 0.15, int4 reported, KV4-hooked < 0.15), the decode
+     through the B5 and B6 kernel forms against their plain versions
+     (< DRIFT_LIMIT) and the s4 decode through B3 against B3's plain
+     version (< B3_DRIFT_LIMIT); these checks' launches are not counted as
+     a path's;
   8. time each kernel form, its plain version and a library yardstick, with
      the least time the card could take for the same work (its bound).
 
 Each path runs with the launch counts set to 0 just before it and read
-just after; a kernel form that a path should run and did not fails the
-run. The line before the last is a JSON object of the kernels; the last
+just after; a kernel form that a path should run and did not, or one it
+must not run and did, fails the run. The line before the last is a JSON object of the kernels; the last
 line is `{"ok": true, "device": {...}}`.
 """
 
@@ -392,6 +406,47 @@ def check_window_merge(P, gen):
             raise AssertionError(f"window merge: rel err {rel} not below 2e-2")
 
 
+#: the B5 kernel forms, none of which an fp-cache path may launch
+B5_KEYS = ("B5", "B5.stats", "B5.int4", "B5.int4.stats")
+
+
+def check_fp_decode(P, gen, results):
+    """B6 on the bf16 cache at the paths' shapes, G=8, rep=4, D=128: the
+    stacked form (layer 1 of 2) at B=1, T=512 and 2048 (two T blocks), the
+    per-layer form at B=8, T=512 under per-row masks with row 0 all masked
+    (its output is the mean of v); then an fp32 cache at B=2, T=512.
+    Tolerances: bf16 1e-2 * max|ref| (bf16 out; p's bf16 rounding after an
+    exp one ulp apart), fp32 1e-5 * max|ref| (summation order)."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import decode_attention as da
+
+    g, rep, d = 8, 4, 128
+    for b, t, dtype, stacked in ((1, 512, torch.bfloat16, True), (1, 2048, torch.bfloat16, True),
+                                 (8, 512, torch.bfloat16, False), (2, 512, torch.float32, True)):
+        key = da.fp_launch_key(dtype)
+        k = torch.randn((2, b, g, t, d), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((2, b, g, t, d), generator=gen, device="cuda").to(dtype)
+        q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(dtype)
+        mask = decode_mask(b, t)
+        if b == 8:  # per-row lengths, as the engine's slots have them
+            lens = torch.tensor([0, 17, 100, 255, 256, 301, 400, 512], device="cuda")
+            mask = torch.where(torch.arange(t, device="cuda")[None, :] < lens[:, None], 0.0,
+                               da.NEG).float().contiguous()
+            mask[0] = da.NEG
+        bt = 1024 if t % 1024 == 0 else 512
+        if stacked:
+            got = da.flash_decode_gqa_stacked(q, k, v, mask, 1, bt)
+        else:
+            got = da.flash_decode_gqa(q, k[1], v[1], mask, bt)
+        ref = da.decode_fp_plain(q, k[1], v[1], mask, bt)
+        label = f"{key} {'stacked' if stacked else 'per-layer'} B={b} T={t}"
+        err = compare(label, got, ref, 1e-5 if dtype == torch.float32 else 1e-2)
+        if b == 8:
+            mean_v = v[1, 0].float().mean(dim=1).repeat_interleave(rep, dim=0)
+            compare(f"{label} all-masked row vs mean of v", got[0, 0], mean_v, 1e-2)
+        results.setdefault(key, {})[f"B={b} T={t}"] = err
+
+
 def check_flash(P, gen, results):
     """B7 at B=1, H=32, G=8, D=128 and S in {128, 2048}, bf16."""
     import torch
@@ -445,9 +500,10 @@ def build_params(P):
     return params
 
 
-def run_counted(counts, label, fn, must=()):
+def run_counted(counts, label, fn, must=(), never=()):
     """`fn()` with every launch count set to 0 just before it and read just
-    after; fails if a kernel form in `must` was not launched."""
+    after; fails if a kernel form in `must` was not launched, or one in
+    `never` was."""
     from llama3_quantization_tpu_torch.ops import launches
 
     import torch
@@ -459,6 +515,9 @@ def run_counted(counts, label, fn, must=()):
     missing = [k for k in must if counts[label][k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched: {missing}")
+    stray = [k for k in never if counts[label][k] != 0]
+    if stray:
+        raise AssertionError(f"{label}: kernels launched off this path's route: {stray}")
     return out
 
 
@@ -473,28 +532,32 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def teacher_forced(P, params, cfg, prompt, cont, bits):
+def teacher_forced(P, params, cfg, prompt, cont, bits, rq=None):
     """Logits [n, V] of `decode_step` fed `cont` token by token after a
-    `prompt` prefill, on a `bits` KV cache of 512 slots."""
+    `prompt` prefill, on a KV cache of 512 slots: int8 or int4 (`bits` 8
+    or 4) or the bf16 fp cache (`bits` False), under `rq`."""
     import torch
 
+    rq = rq or P.NO_QUANT
     cache = P.init_kv_cache(cfg, 1, 512, quantized=bits)
-    _, cache = P.decode_step(params, cache, prompt, 0, cfg)
+    _, cache = P.decode_step(params, cache, prompt, 0, cfg, rq)
     s, out = prompt.shape[1], []
     for i in range(cont.shape[1]):
-        lg, _ = P.decode_step(params, cache, cont[:, i : i + 1], s + i, cfg)
+        lg, _ = P.decode_step(params, cache, cont[:, i : i + 1], s + i, cfg, rq)
         out.append(lg[0, 0].float())
     return torch.stack(out)
 
 
-def decode_vs_forward(P, params, cfg, prompt, cont, bits):
+def decode_vs_forward(P, params, cfg, prompt, cont, bits, rq=None):
     """Max relative logit error of teacher-forced decode on a `bits` KV
-    cache against `forward_logits` over prompt + cont (bench.py:584-613)."""
+    cache against `forward_logits` over prompt + cont (bench.py:584-613),
+    both under `rq`."""
     import torch
 
-    full = P.forward_logits(params, torch.cat([prompt, cont], dim=1), cfg)[0].float()
+    full = P.forward_logits(params, torch.cat([prompt, cont], dim=1), cfg, rq or P.NO_QUANT)
+    full = full[0].float()
     s = prompt.shape[1]
-    dec = teacher_forced(P, params, cfg, prompt, cont[:, :-1], bits)
+    dec = teacher_forced(P, params, cfg, prompt, cont[:, :-1], bits, rq)
     return float((dec - full[s : s + dec.shape[0]]).abs().max() / full.abs().max())
 
 
@@ -513,7 +576,7 @@ def drive_main_path(P, params, card, profile=False):
         raise AssertionError(f"forward_logits: bad shape {tuple(logits.shape)} or non-finite")
     log("forward_logits [1, 128]: finite, shape ok")
 
-    cache = P.init_kv_cache(cfg, 1, 512)
+    cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
     (pre_logits, _), t_prefill = run_counted(
         counts, "prefill 128 into int8 cache",
         lambda: timed(lambda: P.decode_step(params, cache, prompt, 0, cfg)), must=("B2",))
@@ -662,6 +725,62 @@ def drive_serving(P, params, card, profile=False):
     return sum_counts(counts)
 
 
+#: kernel forms the fp-cache serving runs must launch: B1 decode, B2
+#: bucket prefills, B6 per layer (the windowed decode takes quantized
+#: caches only)
+FP_MUST = ("B1", "B2", "B6")
+
+
+def drive_fp_paths(P, params, card, profile=False):
+    """The fp cache, the JAX package's default, on the synthetic model:
+    `init_kv_cache(cfg, 1, 512)` (bf16), a 128-token prefill and
+    `greedy_generate` of 32 steps (B1 + the stacked B6, 32 launches per
+    step), decode against the forward; then `ServingEngine(8, 512, ljf)`
+    with its default cache, pipelined against sequential. Neither path may
+    launch a B5 form."""
+    import torch
+
+    cfg, counts, n_steps = P.LLAMA3_8B, {}, 32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+    cache = P.init_kv_cache(cfg, 1, 512)
+    if sorted(cache) != ["k", "v"] or cache["k"].dtype != torch.bfloat16:
+        raise AssertionError("init_kv_cache's default is not the bf16 fp cache")
+    (lg, _), t_pre = run_counted(counts, "fp prefill 128",
+                                 lambda: timed(lambda: P.decode_step(params, cache, prompt, 0, cfg)),
+                                 must=("B2",), never=B5_KEYS)
+    tok = lg[:, -1].argmax(dim=-1)[:, None]
+    label = f"fp greedy_generate {n_steps} steps"
+    (toks, _), t_dec = run_counted(
+        counts, label, lambda: timed(lambda: P.greedy_generate(params, cache, tok, 128, n_steps, cfg)),
+        must=("B1", "B6"), never=B5_KEYS)
+    if counts[label]["B6"] != n_steps * cfg.num_layers:
+        raise AssertionError(f"fp decode: {counts[label]['B6']} B6 launches for {n_steps} steps")
+    _, t_dec2 = timed(lambda: P.greedy_generate(params, cache, toks[:, -1:], 128 + n_steps,
+                                                n_steps, cfg))
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("fp greedy_generate: tokens out of range")
+    log(f"fp prefill: {128 / t_pre:.1f} tok/s (128 tokens, first call, host clock)  [{card}]")
+    for what, t in (("first call", t_dec), ("second call", t_dec2)):
+        log(f"fp decode: {n_steps / t:.2f} tok/s ({t / n_steps * 1e3:.3f} ms/token over {n_steps} "
+            f"steps, batch 1, bf16 KV of 512 slots, {what}, host clock)  [{card}]")
+    rel = decode_vs_forward(P, params, cfg, prompt, torch.cat([tok, toks[:, :8]], 1), False)
+    log(f"fp decode-vs-forward: max rel logit error {rel:.3e} over 8 steps (limit 0.15)")
+    if not rel < 0.15:
+        raise AssertionError(f"fp decode/forward divergence: rel err {rel:.4f}")
+    if profile:
+        profile_decode(P, params, cache, toks[:, -1:], 128 + 2 * n_steps, cfg, card)
+    del cache
+    torch.cuda.empty_cache()
+    serve_and_compare(P, params, cfg, card, "serve fp", counts, FP_MUST, quantized_cache=False,
+                      never=B5_KEYS)
+    if profile:
+        profile_serving(P, params, cfg, serve_requests(16, cfg.vocab_size), 16, card,
+                        bits=(False,))
+    torch.cuda.empty_cache()
+    return sum_counts(counts)
+
+
 def build_rtn_params(P):
     """Llama-3-8B with seeded random-normal weights RTN-quantized to W4 g128
     packed, on the card. The synthetic packed codes (uniform nibbles, zero
@@ -716,6 +835,107 @@ def drive_rtn_checks(P, params, card):
     return total
 
 
+def drive_rtn_fp(P, params, card):
+    """The fp-cache entry points on input-dependent weights: the default
+    engine (pipelined against sequential, varied streams), `sample_generate`,
+    `speculative_generate` and a greedy decode under KV4 fake quant."""
+    import torch
+
+    cfg, counts = P.LLAMA3_8B, {}
+    serve_and_compare(P, params, cfg, card, "RTN serve fp", counts, FP_MUST, min_distinct=64,
+                      quantized_cache=False, never=B5_KEYS)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+
+    def prefilled(rq=None):
+        cache = P.init_kv_cache(cfg, 1, 512)
+        lg, _ = P.decode_step(params, cache, prompt, 0, cfg, rq or P.NO_QUANT)
+        return cache, lg[:, -1].argmax(dim=-1)[:, None]
+
+    # sampling: temperature 0 is greedy; a seed repeats its stream
+    cache, first = prefilled()
+    greedy, _ = P.greedy_generate(params, cache, first, 128, 16, cfg)
+
+    def sample(temperature, seed):
+        c, f = prefilled()
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return P.sample_generate(params, c, f, 128, 16, cfg, g, temperature=temperature,
+                                 top_p=0.9)[0]
+
+    s0 = run_counted(counts, "RTN sample_generate 16 steps, temperature 0",
+                     lambda: sample(0.0, 1), must=("B1", "B6"), never=B5_KEYS)
+    s1, s2 = (run_counted(counts, f"RTN sample_generate 16 steps, temperature 0.8 ({i})",
+                          lambda: sample(0.8, 5), must=("B1", "B6"), never=B5_KEYS)
+              for i in (1, 2))
+    log(f"RTN sample_generate: temperature 0 {'==' if torch.equal(s0, greedy) else '!='} "
+        f"greedy_generate; two runs of seed 5 at 0.8 / top-p 0.9 "
+        f"{'identical' if torch.equal(s1, s2) else 'differ'}; {len(set(s1[0].tolist()))} distinct "
+        f"tokens in 16")
+    if not (torch.equal(s0, greedy) and torch.equal(s1, s2)):
+        raise AssertionError("sample_generate: temperature 0 is not greedy, or a seed did not repeat")
+    drive_speculative(P, params, cfg, card, counts, prompt, prefilled)
+
+    # KV4 fake quant on the fp cache: the eager route, no decode kernel
+    rq = P.RuntimeQuantConfig(k=P.QuantSpec(n_bits=4), v=P.QuantSpec(n_bits=4))
+    cache, first = prefilled(rq)
+    toks, _ = run_counted(counts, "RTN KV4-hooked greedy_generate 8 steps",
+                          lambda: P.greedy_generate(params, cache, first, 128, 8, cfg, rq),
+                          must=("B1",), never=B5_KEYS + ("B6", "B6.f32"))
+    rel = decode_vs_forward(P, params, cfg, prompt, torch.cat([first, toks], 1), False, rq)
+    log(f"RTN KV4-hooked decode (asymmetric per-token 4-bit K/V fake quant on the fp cache): "
+        f"decode-vs-forward under the same hooks max rel logit error {rel:.3e} (limit 0.15)")
+    if not rel < 0.15:
+        raise AssertionError(f"KV4-hooked decode/forward divergence: rel err {rel:.4f}")
+    torch.cuda.empty_cache()
+    return sum_counts(counts)
+
+
+def drive_speculative(P, params, cfg, card, counts, prompt, prefilled, n_rounds=8, k=4):
+    """`speculative_generate` with the model as its own draft after a
+    128-token prefill of both caches. Each emitted token must be the argmax
+    of the teacher-forced `forward_logits`, except where the forward's top-2
+    gap is below the decode-vs-forward error on the same tokens (the verify
+    pass and the draft's steps sum in other orders); more than one such
+    position fails."""
+    import torch
+
+    cache, first = prefilled()
+    dcache, _ = prefilled()
+    (toks, cnt, _, _, pos), dt = run_counted(
+        counts, f"RTN speculative_generate {n_rounds} rounds k={k}",
+        lambda: timed(lambda: P.speculative_generate(params, params, cache, dcache, first, 128,
+                                                     n_rounds, k, cfg)),
+        must=("B1", "B6"), never=B5_KEYS)
+    spec = P.flatten_speculative(toks, cnt)
+    log(f"RTN speculative ({n_rounds} rounds, k={k}, draft = target): {len(spec)} tokens, "
+        f"{float(cnt.float().mean()):.2f} emitted and {float(cnt.float().mean()) - 1:.2f} drafts "
+        f"accepted per round (counts {cnt.tolist()}), {len(spec) / dt:.2f} tok/s host clock  "
+        f"[{card}]")
+    if pos != 128 + len(spec):
+        raise AssertionError(f"speculative: final position {pos} != {128 + len(spec)}")
+    cont = torch.cat([first, torch.tensor([spec[:-1]], device="cuda")], dim=1)
+    full = P.forward_logits(params, torch.cat([prompt, cont], 1), cfg)[0, 128:].float()
+    dec = teacher_forced(P, params, cfg, prompt, cont, False)
+    err = float((dec - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    pred = full.argmax(dim=-1).tolist()
+    near_ties = []
+    for i, (t, p, gap) in enumerate(zip(spec, pred, gaps)):
+        if t == p:
+            continue
+        log(f"  speculative position {i}: emitted {t}, forward argmax {p}, top-2 gap {gap:.4f}, "
+            f"decode-vs-forward abs error {err:.4f}")
+        if gap >= err:
+            raise AssertionError(f"speculative token {i} is not the forward's argmax off a near tie")
+        near_ties.append(i)
+    log(f"RTN speculative: {len(spec) - len(near_ties)} of {len(spec)} tokens are the forward's "
+        f"argmax, {len(near_ties)} at near ties (limit 1); decode-vs-forward abs error {err:.4f}")
+    if len(near_ties) > 1:
+        raise AssertionError(f"speculative: {len(near_ties)} tokens off the forward's argmax")
+
+
 #: limit on the full-depth decode through the B5 kernel forms against the
 #: same decode through their plain versions (max relative logit error).
 #: On an H100 the sound kernel forms read 1.46e-2 (int8) and 1.51e-2
@@ -726,11 +946,11 @@ DRIFT_LIMIT = 2e-2
 
 def decode_drift(P, params, cfg, card):
     """Teacher-forced decode (48-token prefill, then 9 seeded tokens) at
-    full width and depth through the B5 kernel forms against the same
-    decode through their plain versions, on the int8 and the int4 cache.
-    Per call the two agree to about an ulp (the kernel sums l in a tree),
-    but a bf16 attention output that rounds the other way compounds over 32
-    layers."""
+    full width and depth through the B5 kernel forms (int8 and int4 cache)
+    and B6 (bf16 fp cache) against the same decode through their plain
+    versions. Per call the two agree to about an ulp (the kernels sum in a
+    tree), but a bf16 attention output that rounds the other way compounds
+    over 32 layers."""
     import torch
 
     from llama3_quantization_tpu_torch.ops import decode_attention as da
@@ -738,20 +958,21 @@ def decode_drift(P, params, cfg, card):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     toks = torch.randint(0, cfg.vocab_size, (1, 57), generator=gen, device="cuda")
     prompt, cont = toks[:, :48], toks[:, 48:]
-    for bits in (8, 4):
+    for bits, kid, name, kv in ((8, "B5", "decode_s8", "int8"), (4, "B5", "decode_s8", "int4"),
+                                (False, "B6", "decode_fp", "bf16 fp")):
         kern = teacher_forced(P, params, cfg, prompt, cont, bits)
-        orig = da.decode_s8
-        da.decode_s8 = da.decode_s8_plain
+        orig = getattr(da, name)
+        setattr(da, name, getattr(da, f"{name}_plain"))
         try:
             plain = teacher_forced(P, params, cfg, prompt, cont, bits)
         finally:
-            da.decode_s8 = orig
+            setattr(da, name, orig)
         rel = float((kern - plain).abs().max() / plain.abs().max())
-        log(f"RTN weights, int{bits} KV: decode logits through the B5 kernel vs its plain "
+        log(f"RTN weights, {kv} KV: decode logits through the {kid} kernel vs its plain "
             f"version: max rel err {rel:.3e} over {cont.shape[1]} steps (limit {DRIFT_LIMIT:g})"
             f"  [{card}]")
         if not (bool(kern.isfinite().all()) and rel < DRIFT_LIMIT):
-            raise AssertionError(f"RTN int{bits}: kernel and plain decode differ, rel err {rel}")
+            raise AssertionError(f"RTN {kv} KV: kernel and plain decode differ, rel err {rel}")
 
 
 def sum_counts(counts):
@@ -774,7 +995,7 @@ def drive_v3_path(P, params, card):
     cfg, counts = P.LLAMA3_8B, {}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
-    cache = P.init_kv_cache(cfg, 1, 512)
+    cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
     os.environ["L3Q_QMM_V"] = "3"
     try:
         lg, _ = run_counted(counts, "v3 prefill 128 (L3Q_QMM_V=3)",
@@ -860,7 +1081,7 @@ def drive_s4_decode(P, card, profile=False):
         prepared, t_prep = timed(lambda: P.prepare_decode_params(params))
         log(f"prepare_decode_params (s4): {t_prep * 1e3:.1f} ms host clock, once per "
             f"greedy_generate call  [{card}]")
-        cache = P.init_kv_cache(cfg, 1, 512)
+        cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
         (lg, _), t_pre = run_counted(
             counts, "s4 prefill 128 into int8 cache",
             lambda: timed(lambda: P.decode_step(params, cache, prompt, 0, cfg)), must=("B3.gemm",))
@@ -888,18 +1109,21 @@ def drive_s4_decode(P, card, profile=False):
     return sum_counts(counts)
 
 
-def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min_distinct=0):
-    """`ServingEngine(8 slots, max_len 512, ljf, int8 cache, fuse)`:
+def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min_distinct=0,
+                      quantized_cache=8, never=()):
+    """`ServingEngine(8 slots, max_len 512, ljf, quantized_cache, fuse)`:
     `run_pipelined(16)` on the 16 requests of the serve mix (after a warm-up
     request) against the sequential `step_n(16)` loop, both counted runs
-    that must launch the kernel forms `must`. Returns the pipelined streams."""
+    that must launch the kernel forms `must` and none of `never`. Returns
+    the pipelined streams."""
     k, reqs = 16, serve_requests(16, cfg.vocab_size)
-    eng = P.ServingEngine(params, cfg, max_slots=8, max_len=512, quantized_cache=8,
+    eng = P.ServingEngine(params, cfg, max_slots=8, max_len=512, quantized_cache=quantized_cache,
                           schedule="ljf", fuse=fuse)
     pipelined_streams(eng, [(reqs[0][0][:20], 2 * k)], k)  # warm-up: first calls, allocations
     warm_steps = eng.dispatches["steps"]
     pipe, dt = run_counted(counts, f"{label} run_pipelined",
-                           lambda: timed(lambda: pipelined_streams(eng, reqs, k)), must=must)
+                           lambda: timed(lambda: pipelined_streams(eng, reqs, k)), must=must,
+                           never=never)
     check_streams(f"{label} run_pipelined", pipe, reqs, cfg.vocab_size)
     produced, distinct = sum(map(len, pipe)), len({t for st in pipe for t in st})
     log(f"served ({label}): {produced / dt:.1f} tok/s ({produced} tokens of 16 requests in "
@@ -909,7 +1133,8 @@ def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min
     if distinct < min_distinct:
         raise AssertionError(f"{label}: streams hold only {distinct} distinct tokens")
     seq, dt_seq = run_counted(counts, f"{label} step_n loop",
-                              lambda: timed(lambda: sequential_streams(eng, reqs, k)), must=must)
+                              lambda: timed(lambda: sequential_streams(eng, reqs, k)), must=must,
+                              never=never)
     log(f"{label} sequential step_n({k}) loop: {produced / dt_seq:.1f} tok/s ({dt_seq:.2f} s, "
         f"host clock)  [{card}]")
     if seq != pipe:
@@ -1003,7 +1228,7 @@ def decode_drift_b3(P, params, cfg, card):
 
 def profile_serving(P, params, cfg, reqs, k, card, bits=(8, 4), fuse=False):
     """Device time by kernel over one full serving window (8 active slots,
-    `step_n(k)`) on each cache of `bits` (int8, int4), the device's busy
+    `step_n(k)`) on each cache of `bits` (8, 4, False: fp), the device's busy
     share of it, and the host time per step without the profiler."""
     import torch
     from torch.autograd import DeviceType
@@ -1022,7 +1247,8 @@ def profile_serving(P, params, cfg, reqs, k, card, bits=(8, 4), fuse=False):
         if busy_us <= 0:
             log("profile: the profiler saw no device time")
             return
-        log(f"profile of one serving window ({k} steps x 8 slots, int{nbits} KV"
+        log(f"profile of one serving window ({k} steps x 8 slots, "
+            f"{f'int{nbits}' if nbits else 'bf16 fp'} KV"
             f"{', fused, backend ' + P.get_backend() if fuse else ''}): "
             f"{1e3 * plain_s / k:.3f} ms/step unprofiled; profiled wall {1e3 * wall_s / k:.3f} "
             f"ms/step, device busy {busy_us / k / 1e3:.3f} ms/step "
@@ -1141,6 +1367,32 @@ def time_kernels(P, card, launches_total, errs):
                 4.0 * b * g * rep * t * d, INT8_OPS, None, errs[key][f"B={b} T={t}"]))
             del kq, ks, vq, vs
 
+    # B6 at the fp paths' shapes: stacked at B=1 (decode), T=512 and 2048,
+    # per layer at B=8 (the engine), T=512; 32 / 8 layers of cache (64 MB
+    # and up) cycle through so that each call reads its layer cold
+    b6_rows = []
+    for b, t, layers, stacked in ((1, 512, 32, True), (1, 2048, 32, True), (8, 512, 8, False)):
+        bt = 1024 if t % 1024 == 0 else 512
+        k = torch.randn((layers, b, g, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((layers, b, g, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+        q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(torch.bfloat16)
+        mask = decode_mask(b, t)
+        qh, amask = q.reshape(b, g * rep, 1, d), mask[:, None, None, :]
+        ms = time_ms(lambda i: da.decode_fp(q, k[i % layers], v[i % layers], mask, bt), 200)
+        plain_ms = time_ms(lambda i: da.decode_fp_plain(q, k[i % layers], v[i % layers], mask, bt),
+                           10)
+        lib_ms = time_ms(lambda i: F.scaled_dot_product_attention(
+            qh, k[i % layers], v[i % layers], attn_mask=amask, enable_gqa=True), 200)
+        nbytes = 2 * b * g * t * d * 2 + 2 * b * g * rep * d * 2 + b * t * 4
+        b6_rows.append(add(
+            "B6", "decode_fp" + ("" if stacked else " per-layer"),
+            "llama3_quantization_tpu_torch/csrc/decode_fp.cu",
+            "llama3_quantization_tpu/ops/decode_attention.py:" + ("379" if stacked else "37"),
+            f"B={b} G={g} rep={rep} D={d} T={t} bf16 {'stacked' if stacked else 'per-layer'} "
+            f"(library: SDPA, enable_gqa, float mask)", ms, plain_ms, nbytes,
+            4.0 * b * g * rep * t * d, BF16_FLOPS, lib_ms, errs["B6"][f"B={b} T={t}"]))
+        del k, v
+
     b7_rows = []
     for s in (128, 2048):
         q = torch.randn((1, s, 32, 128), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1160,12 +1412,13 @@ def time_kernels(P, card, launches_total, errs):
     b3_rows = time_b3(P, gen, add, errs)
     w3_rows = time_b2_w3(P, gen, add, errs)
     # one row per kernel form in the summary line (B1 at both of its path
-    # instantiations, M=1 and M=8), at the main path's heaviest shape
-    # (B1/B2: gate/up; B3: fused gate-up) or its own length (B5 forms:
-    # T=512, B7: S=128); the lines above hold the other shapes. The B1 rows
-    # share B1's one count.
+    # instantiations, M=1 and M=8; B6 stacked at B=1 and per layer at B=8),
+    # at the main path's heaviest shape (B1/B2: gate/up; B3: fused gate-up)
+    # or its own length (B5 forms and B6: T=512, B7: S=128); the lines above
+    # hold the other shapes. The B1 rows share B1's one count, the B6 rows
+    # B6's.
     return ([rows_[2] for rows_ in qmm_rows.values()] + [rows_[0] for rows_ in form_rows.values()]
-            + [b7_rows[0]] + b3_rows + w3_rows)
+            + [b6_rows[0], b6_rows[2], b7_rows[0]] + b3_rows + w3_rows)
 
 
 def b3_dequant_bf16(w, k):
@@ -1281,7 +1534,7 @@ def main() -> int:
                     help="only time B2 at M = 128, 512, 2048 and forward_logits at S = 512, "
                          "2048 (run it from two checkouts in one call to compare them)")
     ap.add_argument("--decode-drift", action="store_true",
-                    help="only run the full-depth decode through the B5 kernel forms and "
+                    help="only run the full-depth decode through the B5 kernel forms, B6 and "
                          "through B3 (s4 backend) against their plain versions")
     args = ap.parse_args()
 
@@ -1327,6 +1580,7 @@ def main() -> int:
     check_b2_w3(P, gen, errs)
     check_b3(P, gen, errs)
     check_decode_forms(P, gen, errs)
+    check_fp_decode(P, gen, errs)
     check_flash(P, gen, errs)
     check_window_merge(P, gen)
     torch.cuda.synchronize()
@@ -1337,6 +1591,7 @@ def main() -> int:
     params = build_params(P)
     paths = [drive_main_path(P, params, card, profile=args.profile),
              drive_serving(P, params, card, profile=args.profile),
+             drive_fp_paths(P, params, card, profile=args.profile),
              drive_v3_path(P, params, card)]
     del params
     torch.cuda.empty_cache()
@@ -1345,6 +1600,7 @@ def main() -> int:
     paths.append(drive_a8_serving(P, card, profile=args.profile))
     params = build_rtn_params(P)
     paths.append(drive_rtn_checks(P, params, card))
+    paths.append(drive_rtn_fp(P, params, card))
     paths.append(drive_rtn_a8(P, params, card))
     del params
     torch.cuda.empty_cache()

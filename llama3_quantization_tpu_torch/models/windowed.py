@@ -19,9 +19,10 @@ same bytes as the TPU's bounded-scratch piece merge and its whole-cache
 gather merge (`windowed.py:263-439`), which are two forms of that mapping.
 
 Scope as in JAX: quantized stacked caches (int8 / int4), single-token
-steps, sink tokens. Callers fall back to per-step decode otherwise
-(`windowed_ok`) and when a window would evict (see `greedy_generate` and
-`ServingEngine._dispatch_window`).
+steps, sink tokens, no enabled q/k/v/p hook (the `act` hook runs in the
+window's linears). Callers fall back to per-step decode otherwise
+(`windowed_ok`: an fp cache never takes it) and when a window would evict
+(see `greedy_generate` and `ServingEngine._dispatch_window`).
 """
 
 from __future__ import annotations
@@ -36,12 +37,16 @@ from ..ops.kvcache import CACHE_KEYS, kv4_codes, kv_quantize, true_div
 from ..ops.matmul import prepare_decode_params, qlinear
 from .configs import ModelConfig
 from .transformer import (
+    NO_QUANT,
+    RuntimeQuantConfig,
     _check_arch,
+    _decode_kernel_ok,
     _kernel_mask,
     _layer_params,
     _mlp_block,
     _ring_write_and_mask,
     apply_rope,
+    decode_block_t,
     embed,
     final_norm,
     lm_head,
@@ -63,21 +68,20 @@ def set_windowed_decode(on: bool) -> None:
     _WINDOWED = on
 
 
-def _decode_block_t(t: int) -> int:
-    return 1024 if t % 1024 == 0 else 512
-
-
-def windowed_ok(cfg: ModelConfig, cache: Dict[str, torch.Tensor], sink_tokens: int = 0) -> bool:
+def windowed_ok(
+    cfg: ModelConfig, cache: Dict[str, torch.Tensor], rq: RuntimeQuantConfig = NO_QUANT,
+    sink_tokens: int = 0,
+) -> bool:
     """Is the window write-combined decode applicable? (`windowed.py:85-123`
     as it runs with the decode kernel: a llama stack over a quantized
-    cache whose length the kernel's T blocks tile.) The ring-crossing gate
-    lives in the callers, as in JAX."""
+    cache whose length the kernel's T blocks tile, no enabled q/k/v/p
+    hook.) The ring-crossing gate lives in the callers, as in JAX."""
     if not _WINDOWED or cfg.arch != "llama" or cfg.is_moe or cfg.parallel_block:
         return False
-    if sorted(cache) != sorted(CACHE_KEYS):
+    if sorted(cache) != sorted(CACHE_KEYS) or not _decode_kernel_ok(rq):
         return False
     t = cache["k_s"].shape[3]
-    return t % block_size(t, _decode_block_t(t)) == 0
+    return t % block_size(t, decode_block_t(t)) == 0
 
 
 def _merge_attn(o1, m1, l1, o2, m2, l2):
@@ -110,13 +114,13 @@ def _window_attn(q, wk, wks, wv, wvs, wmask):
     return o, m, l
 
 
-def _attn_block_windowed(p, x, cfg, cos_sin, main_mask, cache, w_bufs, widx, layer, block_t):
+def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx, layer, block_t):
     """Attention = B5 (main cache, read in place) merged with exact
     attention over the window. Writes this step's K/V codes into slot
     `widx` of the layer's window buffers."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    q, k, v = qkv_proj(p, x, cfg)  # fused qkv as `windowed.py:172-177`
+    q, k, v = qkv_proj(p, x, cfg, rq.act)  # fused qkv as `windowed.py:172-177`
     cos, sin = cos_sin
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -140,10 +144,10 @@ def _attn_block_windowed(p, x, cfg, cos_sin, main_mask, cache, w_bufs, widx, lay
     o2, m2, l2 = _window_attn(q.reshape(b, g, rep, hd).float(), wk, wks, wv, wvs,
                               wmask.float()[None, None, None, :])
     attn = _merge_attn(o1, m1, l1, o2, m2, l2).reshape(b, s, cfg.num_heads * hd).to(x.dtype)
-    return qlinear(attn, p["o"]["w"], p["o"].get("b"))
+    return qlinear(attn, p["o"]["w"], p["o"].get("b"), rq.act)
 
 
-def _decode_step_windowed(params, cache, w_bufs, tokens, pos, widx, main_mask, cfg, block_t):
+def _decode_step_windowed(params, cache, w_bufs, tokens, pos, widx, main_mask, cfg, rq, block_t):
     """One windowed decode step at per-row positions `pos` [B]: h through
     the layer stack; the main cache is only read."""
     h = embed(params, tokens)
@@ -151,10 +155,10 @@ def _decode_step_windowed(params, cache, w_bufs, tokens, pos, widx, main_mask, c
     for i in range(cfg.num_layers):
         lp = _layer_params(params["layers"], i)
         x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps, lp["ln1"].get("b"))
-        h = h + _attn_block_windowed(lp, x, cfg, cos_sin, main_mask, cache, w_bufs, widx, i,
+        h = h + _attn_block_windowed(lp, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx, i,
                                      block_t)
         mlp_in = rms_norm(h, lp["ln2"]["w"], cfg.rms_norm_eps, lp["ln2"].get("b"))
-        h = h + _mlp_block(lp, mlp_in)
+        h = h + _mlp_block(lp, mlp_in, rq)
     return lm_head(params, final_norm(params, h, cfg), cfg)
 
 
@@ -227,6 +231,7 @@ def decode_window(
     pos0,  # int or [B]: position of tok0
     n_steps: int,
     cfg: ModelConfig,
+    rq: RuntimeQuantConfig = NO_QUANT,
     generator: Optional[torch.Generator] = None,
     temperature: float = 0.0,
     top_k: int = 0,
@@ -251,7 +256,7 @@ def decode_window(
         # a window spanning the whole ring width would alias slots in the
         # merge; callers chunk n_steps below the ring width instead
         raise ValueError(f"decode_window n_steps={n_steps} must be < ring width {t - sink_tokens}")
-    block_t = _decode_block_t(t)
+    block_t = decode_block_t(t)
     posv = _positions(pos0, b, dev)
     _, mask0 = _ring_write_and_mask(posv - 1, 1, t, sink_tokens, dev)
     main_mask = _kernel_mask(mask0, b, t)
@@ -265,7 +270,7 @@ def decode_window(
     )
     tok, pos, out = tok0.to(torch.long), posv, []
     for i in range(n_steps):
-        logits = _decode_step_windowed(params, cache, w_bufs, tok, pos, i, main_mask, cfg,
+        logits = _decode_step_windowed(params, cache, w_bufs, tok, pos, i, main_mask, cfg, rq,
                                        block_t)
         nxt = sample_logits(logits[:, -1, :], generator, temperature, top_k, top_p)
         out.append(nxt)

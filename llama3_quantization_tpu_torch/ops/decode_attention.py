@@ -1,6 +1,6 @@
-"""Quantized-KV single-token GQA flash decode: kernel B4/B5.
+"""Single-token GQA flash decode: kernels B4/B5 (quantized KV) and B6 (fp KV).
 
-Port of `flash_decode_gqa_s8` / `flash_decode_gqa_s8_stacked`
+B4/B5 port `flash_decode_gqa_s8` / `flash_decode_gqa_s8_stacked`
 (`llama3_quantization_tpu/ops/decode_attention.py:214,295`) for the int8
 cache and the T-pair-packed int4 cache, with or without the online-softmax
 statistics m/l that the windowed decode merges (`return_stats`). The kernel
@@ -15,9 +15,15 @@ The TPU feeds int4 codes to its MXU by splitting each s8 activation into
 two int4 rows (`_split_s8_rows`, `:78-84`); that dot is exact, so the plain
 version dots the unpacked s8 codes and gets the same integers.
 
-The wrapper uses the plain version for CPU tensors; for CUDA tensors it
-launches the kernel or raises. Each form has its own launch count:
-`B5`, `B5.stats`, `B5.int4`, `B5.int4.stats`.
+B6 ports `flash_decode_gqa` / `flash_decode_gqa_stacked` (`:443,389`), the
+flash decode over a bf16 or fp32 cache: fp32 scores and online softmax, p
+cast to the cache dtype before PV, the output in the cache dtype. Its kernel
+is `csrc/decode_fp.cu`; `decode_fp_plain` runs the same T blocks with the
+same rounding points.
+
+The wrappers use the plain version for CPU tensors; for CUDA tensors they
+launch the kernel or raise. Each form has its own launch count: `B5`,
+`B5.stats`, `B5.int4`, `B5.int4.stats`, and `B6` (bf16 cache) / `B6.f32`.
 """
 
 from __future__ import annotations
@@ -45,6 +51,15 @@ def _lib():
             [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_F, _F, _P]
         )
         lib.l3q_decode_s8.restype = _I
+        lib._l3q_typed = True
+    return lib
+
+
+def _lib_fp():
+    lib = _build.load("decode_fp")
+    if not getattr(lib, "_l3q_typed", False):
+        lib.l3q_decode_fp.argtypes = [_P] * 5 + [_I] * 7 + [_F, _P]
+        lib.l3q_decode_fp.restype = _I
         lib._l3q_typed = True
     return lib
 
@@ -185,3 +200,86 @@ def flash_decode_gqa_s8_stacked(
         q, k_q[layer], k_s[layer], v_q[layer], v_s[layer], mask, out_dtype, block_t,
         return_stats,
     )
+
+
+def fp_launch_key(dtype) -> str:
+    """The launch-count key of B6 on a cache of `dtype`."""
+    return "B6" if dtype == torch.bfloat16 else "B6.f32"
+
+
+def decode_fp_plain(q, k, v, mask, block_t=512):
+    """B6's function. q [B, 1, Hq, D] in the cache dtype; k/v bf16 or fp32
+    [B, G, T, D]; mask fp32 [B, T] (finite). fp32 scores scaled by the fp32
+    constant 1/sqrt(D) (a multiply), online softmax over T blocks in order,
+    p cast to the cache dtype for PV, `acc / l` cast to q's dtype. Returns
+    o [B, 1, Hq, D]."""
+    b, s, hq, d = q.shape
+    g, t = k.shape[1], k.shape[2]
+    rep = hq // g
+    bt = block_size(t, block_t)
+    if s != 1 or t % bt:
+        raise ValueError(f"single-token decode with T % block == 0 (T={t}, block={bt})")
+    scale = 1.0 / math.sqrt(d)
+    qf = q.reshape(b, g, rep, d).float()
+    msk = mask.float()[:, None, None, :]
+    m = torch.full((b, g, rep, 1), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, g, rep, d), dtype=torch.float32, device=q.device)
+    for t0 in range(0, t, bt):
+        sl = slice(t0, t0 + bt)
+        sc = torch.matmul(qf, k[:, :, sl].float().transpose(-1, -2)) * scale + msk[..., sl]
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), v[:, :, sl].float())
+    return (acc / l).to(q.dtype).reshape(b, 1, hq, d)
+
+
+def decode_fp(q, k, v, mask, block_t=512):
+    """Kernel B6 on the card (same arguments as `decode_fp_plain`)."""
+    b, s, hq, d = q.shape
+    g, t = k.shape[1], k.shape[2]
+    rep = hq // g
+    bt = block_size(t, block_t)
+    dev = q.device
+    if s != 1 or hq % g or rep not in (1, 2, 4, 8):
+        raise ValueError(f"B6 takes one token and rep in (1, 2, 4, 8); got S={s}, rep={hq / g}")
+    if d % 8 or d > 256 or t % bt:
+        raise ValueError(f"B6 needs D % 8 == 0, D <= 256 and T % block == 0 (D={d}, T={t})")
+    dt = k.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"B6 takes a bfloat16 or float32 cache, got {dt}")
+    for name, x, xdt, shape in (
+        ("q", q, dt, (b, 1, hq, d)), ("k", k, dt, (b, g, t, d)), ("v", v, dt, (b, g, t, d)),
+        ("mask", mask, torch.float32, (b, t)),
+    ):
+        if x.dtype != xdt or tuple(x.shape) != shape or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be contiguous {xdt} {shape} on {dev}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("B6 loads k and v rows as 16-byte vectors: 16-byte aligned buffers")
+    out = torch.empty((b, 1, hq, d), dtype=dt, device=dev)
+    err = _lib_fp().l3q_decode_fp(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        int(dt == torch.bfloat16), b, g, rep, t, d, bt,
+        float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)), _build.stream_ptr(dev),
+    )
+    _build.check(err, "decode_fp (B6)")
+    COUNTS[fp_launch_key(dt)] += 1
+    return out
+
+
+def flash_decode_gqa(q, k, v, mask, block_t=512):
+    """Per-layer fp-cache decode (B6): plain on the CPU, the kernel on CUDA."""
+    if q.device.type == "cpu":
+        return decode_fp_plain(q, k, v, mask, block_t)
+    if q.device.type == "cuda":
+        return decode_fp(q, k, v, mask, block_t)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+def flash_decode_gqa_stacked(q, k, v, mask, layer: int, block_t=512):
+    """B6 on layer `layer` of the stacked fp cache `[L, B, G, T, D]`, read in
+    place through the layer views."""
+    return flash_decode_gqa(q, k[layer], v[layer], mask, block_t)

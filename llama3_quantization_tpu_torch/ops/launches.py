@@ -5,7 +5,8 @@ and nowhere else; a run reads the counts to show which kernels it went
 through. Keys are the kernel ids of the TPU kernel table in PERF.md; the
 forms of one kernel each have their own key: B2 on 3-bit planes; B3's GEMV
 form by caller (v3 on a QuantizedTensor, the s4 backend, the a8 backend)
-and its tiled form; B5 on the int4 cache and with m/l statistics.
+and its tiled form; B5 on the int4 cache and with m/l statistics; B6 on
+an fp32 cache (`B6` is the bf16 cache).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Dict
 
 COUNTS: Dict[str, int] = {
     "B1": 0, "B2": 0, "B2.w3": 0, "B3.v3": 0, "B3.s4": 0, "B3.s8": 0, "B3.gemm": 0,
-    "B5": 0, "B5.stats": 0, "B5.int4": 0, "B5.int4.stats": 0, "B7": 0,
+    "B5": 0, "B5.stats": 0, "B5.int4": 0, "B5.int4.stats": 0, "B6": 0, "B6.f32": 0, "B7": 0,
 }
 
 

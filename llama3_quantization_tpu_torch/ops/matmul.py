@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from ..quant.qtensor import QuantizedTensor, dequantize
+from ..quant.quantizer import QuantSpec, fake_quant_dynamic
 from .a8_matmul import a8_matmul
 from .fused_qmatmul import fused_dequant_matmul
 from .s4_matmul import S4Weight, prepare_s4, s4_matmul, s4w_matmul
@@ -117,8 +118,13 @@ def qmatmul(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     return _dequant_matmul(x, w, out_dtype)
 
 
-def qlinear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Linear layer `x @ w (+ bias)`."""
+def qlinear(
+    x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, act_spec: Optional[QuantSpec] = None
+) -> torch.Tensor:
+    """Linear layer `x @ w (+ bias)`, with an enabled `act_spec`
+    fake-quantizing the input first (`ops/matmul.py:147-161`)."""
+    if act_spec is not None and act_spec.enabled:
+        x = fake_quant_dynamic(x, act_spec)
     y = qmatmul(x, w)
     if bias is not None:
         y = y + bias.to(y.dtype)

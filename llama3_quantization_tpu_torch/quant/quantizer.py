@@ -1,9 +1,11 @@
 """Uniform affine quantizer (port of `llama3_quantization_tpu/quant/quantizer.py`).
 
 Min/max dynamic calibration, asymmetric zero-point rounding, scale clipping
-to [1e-5, 1e4] and group reshape with zero padding. `torch.round` rounds
-half to even, as `jnp.round` does. The straight-through estimator and
-learnable weight clipping belong to training and are not ported yet.
+to [1e-5, 1e4], group reshape with zero padding, and the dynamic fake quant
+of activations and attention tensors (`fake_quant_dynamic`, incl. the
+`fix0to1` softmax metric). `torch.round` rounds half to even, as
+`jnp.round` does. The straight-through estimator and learnable weight
+clipping belong to training and are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..ops.kvcache import true_div
 
 CLIPMIN = 1e-5
 CLIPMAX = 1e4
@@ -28,6 +32,9 @@ class QuantSpec:
     group_size: Optional[int] = None
     #: signed integer range without a zero point
     disable_zero_point: bool = False
+    #: "minmax" (dynamic calibration) or "fix0to1" (softmax probabilities
+    #: on the fixed grid k / (2^n - 1))
+    metric: str = "minmax"
 
     def __post_init__(self):
         if not (1 <= self.n_bits <= 16):
@@ -110,3 +117,17 @@ def fake_quant(
         if pad:
             x_dq = x_dq[..., : orig_shape[-1]]
     return x_dq
+
+
+def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Dynamic-calibration fake quant (`quantizer.py:196-212`): min/max of
+    the last axis (or its groups), then quantize-dequantize; `fix0to1`
+    rounds to the fixed grid k / (2^n - 1) instead. Disabled specs (16 bits)
+    pass `x` through."""
+    if not spec.enabled:
+        return x
+    if spec.metric == "fix0to1":
+        levels = 2**spec.n_bits - 1
+        return true_div(torch.round(x * levels), float(levels))
+    scale, zp = minmax_scale_zp(x, spec)
+    return fake_quant(x, scale, zp, spec)

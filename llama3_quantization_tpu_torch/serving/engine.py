@@ -21,14 +21,17 @@ collect. Host->device copies go through pinned memory and device->host
 copies are waited on by event, so the per-window Python adds no device
 sync inside a window.
 
-`fuse=True` fuses q/k/v and gate/up horizontally (`quant/serving.fuse_for_decode`).
+The slot pool is the fp cache by default (`quantized_cache=False`, bf16
+from `cfg.dtype`, decoded per step through B6: the windowed decode takes
+quantized caches only), or the int8 (`8`) or int4 (`4`) cache. `rq` is the
+runtime fake-quant config every decode and prefill runs under. `fuse=True`
+fuses q/k/v and gate/up horizontally (`quant/serving.fuse_for_decode`).
 The matmul backend (`ops/matmul.set_backend`) is read at every call; under
 "s4" the engine prepares its weights once per backend and keeps them
 (`prepare_decode_params`), where JAX re-prepares inside every compiled
 window: the prepared weights compute the same numbers, and a repack per
-window would cost the port a pass over every weight byte. The fp cache
-(`quantized_cache=False`) is not ported and raises. Sampled streams come
-from a `torch.Generator` and do not reproduce JAX's.
+window would cost the port a pass over every weight byte. Sampled streams
+come from a `torch.Generator` and do not reproduce JAX's.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ import torch
 from ..device import resolve_device
 from ..models.configs import ModelConfig
 from ..models.transformer import (
+    NO_QUANT,
+    RuntimeQuantConfig,
     decode_hidden,
     decode_step_multi,
     init_kv_cache,
@@ -78,7 +83,8 @@ class ServingEngine:
         cfg: ModelConfig,
         max_slots: int = 8,
         max_len: int = 512,
-        quantized_cache=8,  # 8 (or True): int8; 4: int4-packed
+        rq: RuntimeQuantConfig = NO_QUANT,
+        quantized_cache=False,  # False: fp (cfg.dtype); 8 (or True): int8; 4: int4-packed
         sink_tokens: int = 0,
         temperature: float = 0.0,
         top_k: int = 0,
@@ -88,8 +94,6 @@ class ServingEngine:
         schedule: str = "fifo",
         device="cuda",
     ):
-        if quantized_cache is False or quantized_cache is None:
-            raise NotImplementedError("the fp KV cache is not ported; use quantized_cache=8 or 4")
         if schedule not in ("fifo", "ljf"):
             raise ValueError(schedule)
         self.device = resolve_device(device)
@@ -103,9 +107,10 @@ class ServingEngine:
         self.max_slots = max_slots
         self.max_len = max_len
         self._quantized_cache = quantized_cache
-        self.cache = init_kv_cache(cfg, max_slots, max_len, quantized_cache, self.device)
+        self.cache = init_kv_cache(cfg, max_slots, max_len, quantized=quantized_cache,
+                                   device=self.device)
         self._scratch: Optional[Dict[str, torch.Tensor]] = None
-        self._sink_tokens = sink_tokens
+        self._rq, self._sink_tokens = rq, sink_tokens
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
@@ -170,12 +175,14 @@ class ServingEngine:
         them, so the scratch is never cleared."""
         if self._scratch is None:
             self._scratch = init_kv_cache(
-                self.cfg, self.max_slots, self.max_len, self._quantized_cache, self.device
+                self.cfg, self.max_slots, self.max_len, quantized=self._quantized_cache,
+                device=self.device,
             )
         return self._scratch
 
     def _splice(self, slot: int, batch_cache: Dict[str, torch.Tensor], row: int) -> None:
-        """Copy prefill row `row` into pool slot `slot`, in place."""
+        """Copy prefill row `row` into pool slot `slot`, in place, cast to
+        the pool's dtype (`serving/engine.py:126-134`)."""
         for k, buf in self.cache.items():
             buf[:, slot].copy_(batch_cache[k][:, row])
 
@@ -201,7 +208,7 @@ class ServingEngine:
             toks[row, : len(prompt)] = np.asarray(prompt, np.int64)
             last[row] = len(prompt) - 1
         cache = self._batch_cache()
-        h = decode_hidden(self._params(), cache, self._to_device(toks), 0, self.cfg,
+        h = decode_hidden(self._params(), cache, self._to_device(toks), 0, self.cfg, self._rq,
                           self._sink_tokens)
         h_last = h[torch.arange(npad, device=self.device), self._to_device(last)]
         logits = lm_head(self._params(), h_last[:, None], self.cfg)[:, 0]
@@ -291,7 +298,7 @@ class ServingEngine:
         tokens = self._to_device(self.next_tok[:, None])
         pos = self._to_device(self.pos)
         logits, _ = decode_step_multi(self._params(), self.cache, tokens, pos, self.cfg,
-                                      self._sink_tokens)
+                                      self._rq, self._sink_tokens)
         nxt = self._pick(logits[:, 0, :]).cpu().numpy()
         out: Dict[int, int] = {}
         for slot, rid in list(self._slot_req.items()):
@@ -345,10 +352,10 @@ class ServingEngine:
         fits_ring = k < self.max_len and all(self.pos[s] + k <= self.max_len for s in active)
         self.dispatches["steps"] += k
         params = self._params()
-        if fits_ring and windowed_ok(self.cfg, self.cache, self._sink_tokens):
+        if fits_ring and windowed_ok(self.cfg, self.cache, self._rq, self._sink_tokens):
             self.dispatches["windowed"] += 1
             toks, _ = decode_window(
-                params, self.cache, tok0, pos0, k, self.cfg, generator=self._gen,
+                params, self.cache, tok0, pos0, k, self.cfg, self._rq, generator=self._gen,
                 temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
                 sink_tokens=self._sink_tokens,
             )
@@ -357,7 +364,7 @@ class ServingEngine:
         out = []
         tok, pos = tok0, pos0
         for _ in range(k):
-            logits, _ = decode_step_multi(params, self.cache, tok, pos, self.cfg,
+            logits, _ = decode_step_multi(params, self.cache, tok, pos, self.cfg, self._rq,
                                           self._sink_tokens)
             nxt = self._pick(logits[:, 0, :])
             out.append(nxt)
@@ -409,7 +416,7 @@ class ServingEngine:
                 # ring-headroom clamp: near the ring end, shrink the window so
                 # the windowed path keeps fitting; headroom <= 0 means a slot
                 # already lives past the ring (per-step path, keep k)
-                if windowed_ok(self.cfg, self.cache, self._sink_tokens):
+                if windowed_ok(self.cfg, self.cache, self._rq, self._sink_tokens):
                     headroom = int(self.max_len - max(self.pos[s] for s in self._slot_req))
                     if headroom >= 1:
                         target = min(target, headroom)

@@ -179,6 +179,85 @@ def test_decode_kernel_forms_match_plain(cuda_device, int4, stats):
         assert bool((got[1][2] == da.NEG).all()) and bool((got[2][2] == 2 * BT).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 136])
+def test_fp_decode_kernel_matches_plain(cuda_device, dtype, rep, d):
+    """B6 on layer 1 of a stacked fp cache, two T blocks, masked slots and
+    one all-masked row (the mean of v). fp32 cache within 1e-5 * max|ref|
+    (fp32 summation order only); bf16 within 1e-2 (p rounded to bf16 after
+    exp may differ by one ulp). D = 136 leaves threads of the PV pass idle."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rep + d)
+    L, B, G, BT = 2, 3, 2, 32
+    k = torch.randn((L, B, G, 2 * BT, d), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((L, B, G, 2 * BT, d), generator=gen, device=cuda_device).to(dtype)
+    q = torch.randn((B, 1, G * rep, d), generator=gen, device=cuda_device).to(dtype)
+    mask = torch.zeros((B, 2 * BT), device=cuda_device)
+    mask[0, -11:] = da.NEG
+    mask[2, :] = da.NEG
+    key = da.fp_launch_key(dtype)
+    before = launches.snapshot()[key]
+    got = da.flash_decode_gqa_stacked(q, k, v, mask, 1, BT)
+    assert launches.snapshot()[key] == before + 1 and got.dtype == dtype
+    ref = da.decode_fp_plain(q, k[1], v[1], mask, BT)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=tol * float(ref.float().abs().max()))
+    mean_v = v[1, 2].float().mean(dim=1).repeat_interleave(rep, dim=0)
+    torch.testing.assert_close(got[2, 0].float(), mean_v, rtol=0, atol=1e-2)
+
+
+def test_fp_decode_kernel_rejects_what_it_cannot_take(cuda_device):
+    """No fallback: q in another dtype than the cache, or D % 8 != 0, raise."""
+    k = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device=cuda_device)
+    mask = torch.zeros((1, 64), device=cuda_device)
+    with pytest.raises(ValueError):
+        da.flash_decode_gqa(torch.zeros((1, 1, 4, 64), device=cuda_device), k, k, mask, 32)
+    k12 = torch.zeros((1, 2, 64, 12), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        da.flash_decode_gqa(torch.zeros((1, 1, 4, 12), dtype=torch.bfloat16, device=cuda_device),
+                            k12, k12, mask, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tiny_fp_cache_on_card_matches_cpu(cuda_device, dtype):
+    """TINY_LLAMA W4 g32 (fp32 activations) on an fp cache: prefill, a
+    single-token step (stacked B6) and a per-row step (B6 per layer) track
+    the CPU's logits within 1e-2 of their scale; the eager route under a
+    KV4 hook launches no B6."""
+    cfg = P.TINY_LLAMA
+    params = P.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                           device="cpu")
+    params = P.quantize_model_rtn(params, cfg, P.QuantSpec(n_bits=4, group_size=32), pack=True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 80), generator=torch.Generator().manual_seed(1))
+
+    def run(device):
+        p = _to(params, device)
+        cache = P.init_kv_cache(cfg, 2, 128, dtype=dtype, device=device)
+        pre, cache = P.decode_step(p, cache, toks.to(device), 0, cfg)
+        step, _ = P.decode_step(p, cache, toks[:, -1:].to(device), 80, cfg)
+        multi, _ = P.decode_step_multi(p, cache, toks[:, -1:].to(device),
+                                       torch.tensor([81, 60], device=device), cfg)
+        return pre.cpu(), step.cpu(), multi.cpu()
+
+    cpu = run("cpu")
+    launches.reset()
+    gpu = run(cuda_device)
+    assert launches.snapshot()[da.fp_launch_key(dtype)] == 2 * cfg.num_layers
+    # 1e-2: B1/B2 round their inputs to bf16, and an input that lands one
+    # fp32 ulp apart on the card rounds to the next bf16 value (the fp32
+    # cache's prefill, which runs no B6, reads 2.5e-3)
+    for got, ref in zip(gpu, cpu):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * float(ref.abs().max()))
+    rq = P.RuntimeQuantConfig(k=P.QuantSpec(n_bits=4), v=P.QuantSpec(n_bits=4))
+    cache = P.init_kv_cache(cfg, 2, 128, dtype=dtype, device=cuda_device)
+    p = _to(params, cuda_device)
+    launches.reset()
+    _, cache = P.decode_step(p, cache, toks.to(cuda_device), 0, cfg, rq)
+    out, _ = P.greedy_generate(p, cache, toks[:, -1:].to(cuda_device), 80, 3, cfg, rq)
+    assert out.shape == (2, 3) and launches.snapshot()[da.fp_launch_key(dtype)] == 0
+
+
 def test_tiny_engine_on_card_matches_cpu(cuda_device):
     """TINY_LLAMA W4 g32 (fp32 activations) served by `run_pipelined` on the
     int8 and int4 caches: the card's streams equal the CPU's, through B1,
@@ -255,7 +334,7 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):
 
     def run(device):
         p = _to(params, device)
-        cache = P.init_kv_cache(cfg, 2, 128, device=device)
+        cache = P.init_kv_cache(cfg, 2, 128, quantized=8, device=device)
         pre, cache = P.decode_step(p, cache, toks.to(device), 0, cfg)
         step, _ = P.decode_step(p, cache, toks[:, -1:].to(device), 80, cfg)
         return pre.cpu(), step.cpu()

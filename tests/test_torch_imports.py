@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package (a
-forward and a two-request serving engine run with both blocked), and an
-entry point called without `device` on a machine without CUDA raises
-instead of running on the CPU."""
+forward, serving engines on the int4 and the default fp cache, the W·A8
+backends, sampled and speculative decoding and a hooked decode run with
+both blocked), and an entry point called without `device` on a machine
+without CUDA raises instead of running on the CPU."""
 
 import re
 import subprocess
@@ -50,15 +51,32 @@ def test_port_runs_with_jax_blocked():
         # the W·A8 backends: s4 decode on fused weights, a8 serving on recodes
         with P.backend("s4"):
             fused = P.fuse_for_decode(params, cfg)
-            cache = P.init_kv_cache(cfg, 1, 32, device="cpu")
+            cache = P.init_kv_cache(cfg, 1, 32, quantized=8, device="cpu")
             out, _ = P.greedy_generate(fused, cache, toks[:, -1:], 12, 4, cfg)
             assert out.shape == (1, 4)
         with P.backend("a8"):
             rec = P.recode_model_s8(params, cfg, include_head=True)
-            eng = ServingEngine(rec, cfg, max_slots=2, max_len=64, fuse=True, device="cpu")
+            eng = ServingEngine(rec, cfg, max_slots=2, max_len=64, quantized_cache=8, fuse=True,
+                                device="cpu")
             eng.submit([1, 2, 3], 5)
             eng.run_pipelined(4)
             assert [len(r.generated) for r in eng.requests.values()] == [5]
+        # the fp cache (the default), sampled and speculative decoding, the hooks
+        eng = ServingEngine(params, cfg, max_slots=2, max_len=64, device="cpu")
+        eng.submit([1, 2, 3], 5)
+        eng.run_pipelined(4)
+        assert sorted(eng.cache) == ["k", "v"] and eng.dispatches["windowed"] == 0
+        fp = lambda: P.init_kv_cache(cfg, 1, 32, device="cpu")  # noqa: E731
+        out, _ = P.sample_generate(params, fp(), toks[:, -1:], 0, 4, cfg,
+                                   torch.Generator().manual_seed(1), temperature=0.8, top_p=0.9)
+        assert out.shape == (1, 4)
+        spec, counts, _, _, pos = P.speculative_generate(params, params, fp(), fp(), toks[:, -1:],
+                                                         0, 3, 2, cfg)
+        assert len(P.flatten_speculative(spec, counts)) == pos
+        rq = P.RuntimeQuantConfig(act=P.QuantSpec(n_bits=8), k=P.QuantSpec(n_bits=4),
+                                  v=P.QuantSpec(n_bits=4))
+        out, _ = P.greedy_generate(params, fp(), toks[:, -1:], 0, 4, cfg, rq)
+        assert out.shape == (1, 4) and P.fake_quant_dynamic(toks.float(), rq.k).shape == toks.shape
         assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
 
@@ -84,7 +102,8 @@ def test_port_runs_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("name", ["qmatmul", "qmatmul_a8", "decode_attention", "flash_attention"])
+@pytest.mark.parametrize("name", ["qmatmul", "qmatmul_a8", "decode_attention", "decode_fp",
+                                  "flash_attention"])
 def test_kernel_sources_ship(name):
     """Every kernel source the build names is in the package (and in the
     wheel's package data)."""

@@ -162,7 +162,7 @@ def test_greedy_generate_identical_tokens(models, jax_kernel_route):
     jfirst = jnp.argmax(jlogits[:, -1], axis=-1).astype(jnp.int32)[:, None]
     jtoks, _ = JT.greedy_generate(jparams, jcache, jfirst, jnp.int32(s), n_steps, CFG)
 
-    tcache = TT.init_kv_cache(tcfg.TINY_LLAMA, b, MAX_LEN, device="cpu")
+    tcache = TT.init_kv_cache(tcfg.TINY_LLAMA, b, MAX_LEN, quantized=8, device="cpu")
     tlogits, tcache = TT.decode_step(tparams, tcache, torch.from_numpy(prompt), 0, tcfg.TINY_LLAMA)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0,
                                atol=1e-4 * np.abs(np.asarray(jlogits)).max())

@@ -162,7 +162,7 @@ def test_fused_greedy_generate_s4_matches_jax(jax_s4_route):
     jtoks, _ = JT.greedy_generate(jp, jcache, jfirst, jnp.int32(s), n_steps, TINY_LLAMA)
 
     with tmm.backend("s4"):
-        tcache = TT.init_kv_cache(tcfg.TINY_LLAMA, b, 64, device="cpu")
+        tcache = TT.init_kv_cache(tcfg.TINY_LLAMA, b, 64, quantized=8, device="cpu")
         tlogits, tcache = TT.decode_step(tp, tcache, torch.from_numpy(prompt), 0, tcfg.TINY_LLAMA)
         assert_rel(tlogits.numpy(), jlogits, 1e-4)
         tfirst = tlogits[:, -1].argmax(dim=-1)[:, None]

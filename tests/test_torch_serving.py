@@ -5,10 +5,10 @@ mixes of tests/test_serving.py (single sequences, a request joining
 mid-flight, slot reuse, eos, `step_n` with a mid-window finish) and must
 give identical token streams. TINY_LLAMA W4 g32 packed is carried across
 with `convert.params_from_numpy`; JAX runs on its kernel route
-(`jax_kernel_route` of tests/test_torch_model.py). The fp cache is not
-ported, so both engines use the int8 (and here once the int4) cache.
-`run_pipelined` and the scheduling clamps are in
-tests/test_torch_serving_pipelined.py.
+(`jax_kernel_route` of tests/test_torch_model.py). Both engines use the
+int8 (and here once the int4) cache, asked for explicitly; the default fp
+cache is in tests/test_torch_serving_fp.py. `run_pipelined` and the
+scheduling clamps are in tests/test_torch_serving_pipelined.py.
 """
 
 import numpy as np
@@ -104,11 +104,12 @@ def test_step_n_windowed(models, jax_kernel_route, bits):
 
 
 def test_engine_guards():
-    """Full pool, oversized prompt, and the part that is not ported (the fp
-    cache; `fuse=True` is ported, tests/test_torch_a8.py)."""
+    """Full pool, oversized prompt, an unknown schedule or cache kind; the
+    default pool is the fp cache, as in JAX."""
     params = {}
-    with pytest.raises(NotImplementedError):
-        TEngine(params, tcfg.TINY_LLAMA, quantized_cache=False, device="cpu")
+    assert sorted(TEngine(params, tcfg.TINY_LLAMA, device="cpu").cache) == ["k", "v"]
+    with pytest.raises(ValueError):
+        TEngine(params, tcfg.TINY_LLAMA, quantized_cache=3, device="cpu")
     with pytest.raises(ValueError):
         TEngine(params, tcfg.TINY_LLAMA, schedule="sjf", device="cpu")
     eng = TEngine(params, tcfg.TINY_LLAMA, max_slots=1, max_len=32, device="cpu")
@@ -124,7 +125,7 @@ def test_engine_sampling_is_seeded(models):
     _, tparams = models
 
     def run(seed, temperature):
-        eng = TEngine(tparams, tcfg.TINY_LLAMA, max_slots=2, max_len=64,
+        eng = TEngine(tparams, tcfg.TINY_LLAMA, max_slots=2, max_len=64, quantized_cache=8,
                       temperature=temperature, seed=seed, device="cpu")
         rid = eng.add_request(list(range(1, 9)), max_new_tokens=10)
         eng.run(step_tokens=4)
@@ -140,7 +141,8 @@ def test_engine_sampling_is_seeded(models):
 def test_engine_streams_are_tokens(models):
     """`streams` of a finished engine: every request has its budget."""
     _, tparams = models
-    eng = TEngine(tparams, tcfg.TINY_LLAMA, max_slots=2, max_len=64, device="cpu")
+    eng = TEngine(tparams, tcfg.TINY_LLAMA, max_slots=2, max_len=64, quantized_cache=8,
+                  device="cpu")
     for p, n in (([1, 2], 3), ([4, 5, 6], 5), ([7], 2)):
         eng.submit(p, n)
     eng.run_pipelined(4)

@@ -62,7 +62,8 @@ def test_run_pipelined_matches_jax_and_sequential(models, jax_kernel_route):
     ref, got = run_both(models, drive, max_slots=2, max_len=64)
     assert got == ref
     assert sorted(len(g) for g in got.values()) == sorted(LENS)
-    seq = TEngine(models[1], tcfg.TINY_LLAMA, max_slots=2, max_len=64, device="cpu")
+    seq = TEngine(models[1], tcfg.TINY_LLAMA, max_slots=2, max_len=64, quantized_cache=8,
+                  device="cpu")
     assert sequential(seq, PROMPTS, LENS, 4) == sorted(tuple(g) for g in got.values())
 
 
@@ -95,7 +96,8 @@ def test_ring_headroom_clamp(models, jax_kernel_route):
 
     ref, got = run_both(models, drive, max_slots=2, max_len=24)
     assert got == ref
-    seq = TEngine(models[1], tcfg.TINY_LLAMA, max_slots=2, max_len=24, device="cpu")
+    seq = TEngine(models[1], tcfg.TINY_LLAMA, max_slots=2, max_len=24, quantized_cache=8,
+                  device="cpu")
     assert sequential(seq, prompts, lens, 8) == sorted(tuple(g) for g in got.values())
 
 

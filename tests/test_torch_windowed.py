@@ -144,7 +144,7 @@ def test_greedy_generate_int4_gates_ring_crossing(models, jax_kernel_route):
     jparams, tparams = models
     toks = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (1, 8), 0, CFG.vocab_size))
     jc, jtok, tc, ttok = _prefill(jparams, tparams, 4, toks, 16)
-    assert TW.windowed_ok(TCFG, tc, 0)
+    assert TW.windowed_ok(TCFG, tc, sink_tokens=0)
     ref_cache = {k: v.clone() for k, v in tc.items()}
     jseq, tseq = [], []
     for wi in range(4):
