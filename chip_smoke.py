@@ -7,6 +7,7 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --profile       # also profile decode steps and serving windows
     python3 chip_smoke.py --prefill-bench # only time B2 and forward_logits at M up to 2048
     python3 chip_smoke.py --decode-drift  # only the full-depth B5, B6 and B3 kernel-vs-plain decodes
+    python3 chip_smoke.py --microbench    # only the weight-stream probes B8-B10 and their entry points
 
 Phases, in order; any failure exits non-zero:
   1. require CUDA and print the card's name and power limit;
@@ -23,7 +24,11 @@ Phases, in order; any failure exits non-zero:
      B = 8 with per-row masks and an all-masked row) and on an fp32 cache,
      B7; then the window-merge op (B5 with stats merged with the exact
      window attention) against eager attention over the dequantized main
-     and window keys;
+     and window keys; B3 on unpacked uint8 8-bit codes; and the
+     weight-stream probes at the microbench scripts' default shapes
+     (`check_probes`): B8 (w4, tiled, depth 1/2/4/8) and B10 dot2 / cat
+     exactly, B9 (v4, tiled, dot4, noscale, cast8, multi S = 1/2/4) within
+     1e-6 * max|ref|, B10 bf16 within 1e-2;
   4. drive the first main path at full Llama-3-8B width and depth (W4 g128
      packed synthetic weights, bf16, 32 layers, the pallas backend):
      `forward_logits` on [1, 128] tokens, a 128-token prefill into an int8
@@ -66,7 +71,12 @@ Phases, in order; any failure exits non-zero:
      (< DRIFT_LIMIT) and the s4 decode through B3 against B3's plain
      version (< B3_DRIFT_LIMIT); these checks' launches are not counted as
      a path's;
-  8. time each kernel form, its plain version and a library yardstick, with
+  8. run every `llama3_quantization_tpu_torch.microbench` entry point at its
+     defaults (Llama-3-8B widths; the lines they print are the card's W4
+     stream ceiling and formulation costs), checking w4_v4 against its
+     oracle (< 1e-5) and the unpack numerics (u8 dot2 / cat < 1e-5, bf16 <
+     2e-2 of the fake-quant oracle);
+  9. time each kernel form, its plain version and a library yardstick, with
      the least time the card could take for the same work (its bound).
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -247,8 +257,9 @@ def b3_call(key, w, xq, s_x, out_dtype):
 def check_b3(P, gen, results):
     """Every B3 form against its plain version at the paths' shapes: v3, s4
     and per-column s8 at M = 1, 8 and 128 on o, qkv, gate-up and down, the
-    s8 and s4 heads at M = 1 and 8. Tolerances: fp32 out 1e-5 * max|ref|
-    (exact s32 partials, the fp32 order only), bf16 out 1e-2."""
+    s8 and s4 heads at M = 1 and 8, and unpacked uint8 8-bit codes on o
+    (a8's "u8" layout, v3's int8 cast). Tolerances: fp32 out 1e-5 *
+    max|ref| (exact s32 partials, the fp32 order only), bf16 out 1e-2."""
     import torch
     from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
 
@@ -270,6 +281,14 @@ def check_b3(P, gen, results):
     for key, w in head_forms(P, gen).items():
         for m in (1, 8):
             one(key, "head", w, m, HEAD_SHAPE[0])
+    # unpacked uint8 8-bit codes (`quantize_rtn(bits=8, pack=True)`): the a8
+    # route's promoted dot, the v3 route's int8 cast
+    k, n = B3_SHAPES["o"]
+    qt = P.quantize_rtn(torch.randn((k, n), generator=gen, device="cuda"),
+                        P.QuantSpec(n_bits=8, group_size=GS), pack=True)
+    for m in B3_MS:
+        one("B3.s8", "o", (qt.data, "u8", qt.scale, qt.zero, GS), m, k)
+        one("B3.v3", "o", (qt.data.view(torch.int8), "s8", qt.scale, qt.zero, GS), m, k)
 
 
 def check_b2_w3(P, gen, results):
@@ -404,6 +423,220 @@ def check_window_merge(P, gen):
             f"{float((got - ref).abs().max()):.3e} of max|ref| {float(ref.abs().max()):.3e}")
         if not (bool(got.isfinite().all()) and rel < 2e-2):
             raise AssertionError(f"window merge: rel err {rel} not below 2e-2")
+
+
+#: the microbench scripts' default (K, N, bk): the fused gate/up of
+#: Llama-3-8B (w4_variants, w4_tiled, w4_multidma) and its gate (w4_v4,
+#: unpack); dma_depth streams 64 MiB of width 1024 in chunks of 512 KB
+MB_SHAPE = (4096, 28672, 2048)
+V4_SHAPE = (4096, 14336, 2048)
+DEPTH_ROWS, DEPTH_CHUNK, DEPTH_WIDTH = 64 * 1024, 512, 1024
+#: the weight-stream probe forms (kernels B8-B10), in the kernels line's order
+PROBE_KEYS = ("B8.w4", "B8.tiled", "B8.depth", "B9.v4", "B9.dot4", "B9.cast8", "B9.noscale",
+              "B9.tiled", "B9.multi", "B10.dot2", "B10.cat", "B10.bf16")
+
+
+def probe_cases(P, gen, copies):
+    """Each probe form at its script's default shape, `copies` weight copies
+    (cycled by the timings so each call finds its weight cold in the 50 MB
+    L2): a list of dicts with the kernel call `run(i)`, its plain version
+    `plain()` on copy 0, the check's tolerance (0: exact), the bytes and
+    integer operations of its bound, and the library yardstick `lib(i)`
+    (`torch.matmul` on the pre-dequantized bf16 weight) or None."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import w4_bd, w4_stream
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int16).to(torch.int8)
+
+    def scales(g, n):
+        return (torch.rand((g, n), generator=gen, device="cuda") + 0.5) * 0.01
+
+    def dequant(packed, scale):  # int4 values times their group scales, bf16
+        w = w4_bd.int4_weight(packed).float().reshape(scale.shape[0], GS, -1)
+        return (w * scale[:, None]).reshape(-1, scale.shape[1]).to(torch.bfloat16)
+
+    cases = []
+
+    def add(key, script_line, shape, run, plain, tol, nbytes, ops, lib=None):
+        cases.append(dict(key=key, replaces=f"scripts/microbench_{script_line}", shape=shape,
+                          run=run, plain=plain, tol=tol, nbytes=nbytes, ops=ops, lib=lib))
+
+    k, n, bk = MB_SHAPE
+    g, gt = k // GS, bk // GS
+    w = [ints(-128, 128, (k // 2, n)) for _ in range(copies)]
+    s = [scales(g, n) for _ in range(copies)]
+    wt = [x.reshape(k // bk, bk // 2, n // 512, 512).permute(0, 2, 1, 3).contiguous() for x in w]
+    xh, xl, bd2, bd1 = ints(-8, 8, (1, k)), ints(-8, 8, (1, k)), ints(-8, 8, (2 * g, k)), \
+        ints(-120, 120, (g, k))
+    xb = torch.randn((1, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wd = [dequant(w[i], s[i]) for i in range(copies)]
+    lib = lambda i: torch.matmul(xb, wd[i])  # noqa: E731
+    wbytes, sbytes, obytes = k * n // 2, 4 * g * n, 4 * n
+    mb = f"[{k}x{n}] bk={bk}"
+    add("B8.w4", "w4_variants.py:54", f"{mb} packed W4 [K/2,N], depth {w4_stream.W4_DEPTH}",
+        lambda i: w4_stream.w4_dma(w[i], bk), lambda: w4_stream.w4_dma_plain(w[0], bk), 0,
+        wbytes + obytes, 0)
+    add("B8.tiled", "w4_tiled.py:24", f"{mb} bn=512 tiles [K/bk,N/bn,bk/2,bn]",
+        lambda i: w4_stream.w4_dma_tiled(wt[i]), lambda: w4_stream.w4_dma_tiled_plain(wt[0]), 0,
+        wbytes + obytes, 0)
+    add("B9.tiled", "w4_tiled.py:39", f"{mb} bn=512 tiles, x[1,K] as xh, xl",
+        lambda i: w4_bd.w4_bd(xh, xl, s[i], wt[i], bk, tiled=True),
+        lambda: w4_bd.bd_plain("v4", (xh, xl), (w[0],), s[0], bk), 1e-6,
+        wbytes + sbytes + 2 * k + obytes, 4.0 * k * n, lib)
+    add("B9.dot4", "w4_variants.py:70", f"{mb} bd[{2 * gt},K] int4 rows",
+        lambda i: w4_bd.w4_dot4(bd2, s[i], w[i], bk),
+        lambda: w4_bd.bd_plain("dot4", (bd2[:2 * gt],), (w[0],), s[0], bk), 1e-6,
+        wbytes + sbytes + 2 * gt * k + obytes, 2.0 * 2 * gt * k * n, lib)
+    add("B9.noscale", "w4_variants.py:139", f"{mb} bd[{2 * gt},K] int4 rows, no scales",
+        lambda i: w4_bd.w4_noscale(bd2, w[i], bk),
+        lambda: w4_bd.bd_plain("noscale", (bd2[:2 * gt],), (w[0],), None, bk), 1e-6,
+        wbytes + 2 * gt * k + obytes, 2.0 * 2 * gt * k * n, lib)
+    add("B9.cast8", "w4_variants.py:120", f"{mb} bd[{gt},K] s8 rows",
+        lambda i: w4_bd.w4_cast8(bd1, s[i], w[i], bk),
+        lambda: w4_bd.bd_plain("cast8", (bd1[:gt],), (w[0],), s[0], bk), 1e-6,
+        wbytes + sbytes + gt * k + obytes, 2.0 * gt * k * n, lib)
+    for st in (1, 2, 4):
+        ws = [[ints(-128, 128, (k // 2 // st, n)) for _ in range(st)] for _ in range(copies)]
+        bds = [ints(-8, 8, (2 * gt // st, k // st)) for _ in range(st)]
+        add("B9.multi", "w4_multidma.py:24", f"{mb} S={st} streams",
+            lambda i, ws=ws, bds=bds: w4_bd.w4_multi(bds, ws[i], bk),
+            lambda ws=ws, bds=bds: w4_bd.bd_plain("multi", bds, ws[0], None, bk), 1e-6,
+            wbytes + 2 * gt * k + obytes, 2.0 * 2 * gt * k * n / st, lib)
+    v4_cases(P, gen, copies, ints, scales, dequant, add)
+    return cases
+
+
+def v4_cases(P, gen, copies, ints, scales, dequant, add):
+    """`probe_cases` at the gate's shape (w4_v4, unpack): B9.v4 and B10."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import qmm_u8, w4_bd
+    from llama3_quantization_tpu_torch.ops.qmatmul_a8 import quantize_activations_s8
+
+    k, n, bk = V4_SHAPE
+    g = k // GS
+    w = [ints(-128, 128, (k // 2, n)) for _ in range(copies)]
+    s = [scales(g, n) for _ in range(copies)]
+    xh, xl = ints(-8, 8, (1, k)), ints(-8, 8, (1, k))
+    xb = torch.randn((1, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wd4 = [dequant(w[i], s[i]) for i in range(copies)]
+    add("B9.v4", "w4_v4.py:30", f"[{k}x{n}] bk={bk} x[1,K] as xh, xl",
+        lambda i: w4_bd.w4_bd(xh, xl, s[i], w[i], bk),
+        lambda: w4_bd.bd_plain("v4", (xh, xl), (w[0],), s[0], bk), 1e-6,
+        k * n // 2 + 4 * g * n + 2 * k + 4 * n, 4.0 * k * n,
+        lambda i: torch.matmul(xb, wd4[i]))
+    qts = [P.quantize_rtn(torch.randn((k, n), generator=gen, device="cuda") * 0.02,
+                          P.QuantSpec(n_bits=4, group_size=GS), pack=True) for _ in range(copies)]
+    x8 = torch.randn((qmm_u8.BM, k), generator=gen, device="cuda").to(torch.bfloat16)
+    xq, _ = quantize_activations_s8(x8)
+    wdu = [((P.dequantize(q)).float()).to(torch.bfloat16) for q in qts]
+    for v in ("dot2", "cat", "bf16"):
+        add(f"B10.{v}", "unpack.py:61", f"x[8,{k}] s8, u4 g128 [{k},{n}] group-local",
+            lambda i, v=v: qmm_u8.u8_qmm(xq, qts[i].data, qts[i].scale, qts[i].zero, v),
+            lambda v=v: qmm_u8.u8_qmm_plain(xq, qts[0].data, qts[0].scale, qts[0].zero, v),
+            1e-2 if v == "bf16" else 0, k * n // 2 + 2 * 4 * g * n + 8 * k + 4 * 8 * n,
+            2.0 * 8 * k * n, lambda i: torch.matmul(x8, wdu[i]))
+
+
+def check_probes(P, gen, results):
+    """Every B8, B9 and B10 form against its plain version at the
+    microbench scripts' default shapes: B8 and B10 dot2 / cat exactly, B9
+    within 1e-6 * max|ref| (exact s32 partials, the fp32 epilogue in the
+    same order), B10 bf16 within 1e-2 (the order inside a bf16 dot)."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import w4_stream
+
+    x = torch.randint(-128, 128, (DEPTH_ROWS, DEPTH_WIDTH), generator=gen, device="cuda",
+                      dtype=torch.int16).to(torch.int8)
+    ref = w4_stream.dma_depth_plain(x, DEPTH_CHUNK)
+    for depth in w4_stream.DEPTHS:
+        err = compare(f"B8.depth [{DEPTH_ROWS},{DEPTH_WIDTH}] depth={depth}",
+                      w4_stream.dma_depth(x, DEPTH_CHUNK, depth), ref, 0)
+        results.setdefault("B8.depth", {})[depth] = err
+    del x
+    for c in probe_cases(P, gen, 1):
+        err = compare(f"{c['key']} {c['shape']}", c["run"](0), c["plain"](), c["tol"])
+        results.setdefault(c["key"], {})[c["shape"]] = err
+    torch.cuda.empty_cache()
+
+
+#: the kernel forms each microbench entry point must launch
+MB_MUST = {
+    "w4_variants": ("B8.w4", "B9.dot4", "B9.v4", "B9.cast8", "B9.noscale"),
+    "w4_tiled": ("B8.tiled", "B9.tiled"),
+    "w4_multidma": ("B9.multi",),
+    "dma_depth": ("B8.depth",),
+    "w4_v4": ("B9.v4",),
+    "unpack": ("B10.dot2", "B10.cat", "B10.bf16", "B1", "B3.v3", "B3.s8"),
+}
+#: w4_v4 against its script's oracle (max relative error), and the u8
+#: variants against the fake-quant oracle (`microbench_unpack.py:156-162`)
+V4_ORACLE_LIMIT = 1e-5
+U8_ORACLE_LIMITS = {"dot2": 1e-5, "cat": 1e-5, "bf16": 2e-2}
+
+
+def drive_microbench(P, card):
+    """Every `llama3_quantization_tpu_torch.microbench` entry point at its
+    defaults (the scripts' Llama-3-8B widths), each a counted path; their
+    lines are the card's W4 stream ceiling and formulation costs."""
+    import importlib
+
+    from llama3_quantization_tpu_torch import microbench
+
+    counts, out = {}, {}
+    log(f"microbench entry points at their defaults  [{card}]")
+    for name in microbench.MODULES:
+        mod = importlib.import_module(f"llama3_quantization_tpu_torch.microbench.{name}")
+        out[name], dt = run_counted(counts, f"microbench {name}", lambda: timed(lambda: mod.main([])),
+                                    must=MB_MUST[name])
+        log(f"  (microbench {name}: {dt:.1f} s host clock, set-up and capture included)")
+    err = out["w4_v4"]["max_rel_err"]
+    log(f"w4_v4 against its oracle: max rel err {err:.3e} (limit {V4_ORACLE_LIMIT:g})")
+    if not err < V4_ORACLE_LIMIT:
+        raise AssertionError(f"w4_v4: v4_matvec off its oracle, rel err {err}")
+    for v, lim in U8_ORACLE_LIMITS.items():
+        if not out["unpack"]["rel_err"][v] < lim:
+            raise AssertionError(f"unpack: u8 {v} off the fake-quant oracle")
+    return sum_counts(counts)
+
+
+def time_probes(P, card, launches_total, errs, add):
+    """Device ms of each probe form beside its plain version, bound and
+    library yardstick, four weight copies cycled; B8.depth at every depth
+    (the kernels line takes depth 4). Returns one row per probe key: B9.multi
+    at S = 1, the others at their scripts' default shapes."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import w4_stream
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows = {}
+    x = torch.randint(-128, 128, (DEPTH_ROWS, DEPTH_WIDTH), generator=gen, device="cuda",
+                      dtype=torch.int16).to(torch.int8)
+    for depth in w4_stream.DEPTHS:
+        ms = time_ms(lambda i: w4_stream.dma_depth(x, DEPTH_CHUNK, depth), 50)
+        plain_ms = time_ms(lambda i: w4_stream.dma_depth_plain(x, DEPTH_CHUNK), 20)
+        row = add("B8.depth", "w4_stream depth", "llama3_quantization_tpu_torch/csrc/w4_stream.cu",
+                  "scripts/microbench_dma_depth.py:24",
+                  f"int8 [{DEPTH_ROWS},{DEPTH_WIDTH}], {DEPTH_CHUNK} KB chunks, depth {depth}", ms,
+                  plain_ms, DEPTH_ROWS * DEPTH_WIDTH + 4 * DEPTH_WIDTH, 0, INT8_OPS, None,
+                  errs["B8.depth"][depth])
+        if depth == w4_stream.W4_DEPTH:
+            rows["B8.depth"] = row
+    del x
+    for c in probe_cases(P, gen, 4):
+        ms = time_ms(lambda i: c["run"](i % 4), 100)
+        plain_ms = time_ms(lambda i: c["plain"](), 3)
+        lib_ms = None if c["lib"] is None else time_ms(lambda i: c["lib"](i % 4), 100)
+        key = c["key"]
+        kid, form = key.split(".")
+        src = {"B8": "w4_stream", "B9": "w4_bd", "B10": "qmm_u8"}[kid]
+        row = add(key, f"{src} {form}", f"llama3_quantization_tpu_torch/csrc/{src}.cu", c["replaces"],
+                  c["shape"] + ("" if c["lib"] is None else " (library: torch.matmul bf16)"), ms,
+                  plain_ms, c["nbytes"], c["ops"], INT8_OPS, lib_ms, errs[key][c["shape"]])
+        rows.setdefault(key, row)
+    torch.cuda.empty_cache()
+    return [rows[k] for k in PROBE_KEYS]
 
 
 #: the B5 kernel forms, none of which an fp-cache path may launch
@@ -1287,8 +1520,9 @@ def prefill_bench(P, card):
             f"({s / ms * 1e3:.0f} tok/s), {dt * 1e3:.3f} ms host clock  [{card}]")
 
 
-def time_kernels(P, card, launches_total, errs):
-    """Per-kernel ms beside plain ms, bound and library yardstick."""
+def time_kernels(P, card, launches_total, errs, probes_only=False):
+    """Per-kernel ms beside plain ms, bound and library yardstick (only the
+    weight-stream probes' with `probes_only`)."""
     import torch
     import torch.nn.functional as F
     from llama3_quantization_tpu_torch.ops import decode_attention as da
@@ -1309,6 +1543,8 @@ def time_kernels(P, card, launches_total, errs):
             f"({by}), library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  [{card}]")
         return row
 
+    if probes_only:
+        return time_probes(P, card, launches_total, errs, add)
     # B1/B2: four weight copies per shape cycle through so each call finds
     # its weights cold in the 50 MB L2, as a decode step does
     qmm_rows = {}
@@ -1417,8 +1653,9 @@ def time_kernels(P, card, launches_total, errs):
     # or its own length (B5 forms and B6: T=512, B7: S=128); the lines above
     # hold the other shapes. The B1 rows share B1's one count, the B6 rows
     # B6's.
+    probe_rows = time_probes(P, card, launches_total, errs, add)
     return ([rows_[2] for rows_ in qmm_rows.values()] + [rows_[0] for rows_ in form_rows.values()]
-            + [b6_rows[0], b6_rows[2], b7_rows[0]] + b3_rows + w3_rows)
+            + [b6_rows[0], b6_rows[2], b7_rows[0]] + b3_rows + w3_rows + probe_rows)
 
 
 def b3_dequant_bf16(w, k):
@@ -1536,6 +1773,9 @@ def main() -> int:
     ap.add_argument("--decode-drift", action="store_true",
                     help="only run the full-depth decode through the B5 kernel forms, B6 and "
                          "through B3 (s4 backend) against their plain versions")
+    ap.add_argument("--microbench", action="store_true",
+                    help="only check, drive and time the weight-stream probes B8-B10 through "
+                         "the microbench entry points")
     args = ap.parse_args()
 
     import torch
@@ -1576,6 +1816,15 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {}
     log("kernel checks against the plain versions on the card:")
+    if args.microbench:
+        check_probes(P, gen, errs)
+        total = drive_microbench(P, card)
+        rows = time_kernels(P, card, total, errs, probes_only=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        }}), flush=True)
+        return 0
     check_qmatmul(P, gen, errs)
     check_b2_w3(P, gen, errs)
     check_b3(P, gen, errs)
@@ -1583,6 +1832,7 @@ def main() -> int:
     check_fp_decode(P, gen, errs)
     check_flash(P, gen, errs)
     check_window_merge(P, gen)
+    check_probes(P, gen, errs)
     torch.cuda.synchronize()
     if args.kernels_only:
         log("kernel checks passed")
@@ -1604,6 +1854,7 @@ def main() -> int:
     paths.append(drive_rtn_a8(P, params, card))
     del params
     torch.cuda.empty_cache()
+    paths.append(drive_microbench(P, card))
     total = {key: sum(p[key] for p in paths) for key in paths[0]}
     log(f"launches over all paths: {json.dumps(total)}")
     rows = time_kernels(P, card, total, errs)

@@ -22,7 +22,11 @@
 // group-local layout: byte row j of group g holds rows g*gs + j (low
 // nibble) and g*gs + gs/2 + j (high nibble). A centered code with
 // z8 = z - 2^(bits-1) gives the same integer dot - xsum*z8 as the unsigned
-// code with z, so the forms agree exactly.
+// code with z, so the forms agree exactly. U8 = unpacked unsigned 8-bit
+// codes [K, N] (what `quantize_rtn(bits=8, pack=True)` stores): each byte
+// enters the s8 dot as c ^ 0x80 = c - 128, and 128 * xsum is added back to
+// the s32 dot before the epilogue, so the dot is the exact promoted one of
+// JAX's `a8_matmul`.
 //
 // What bounds it on the H100. At M <= 64 (every decode and serving step)
 // it is a GEMV bound by the weight bytes over HBM (3.35 TB/s): the GEMV
@@ -44,19 +48,22 @@
 
 namespace {
 
+using l3q::mma_s8_16832;
 using l3q::store_out;
+using l3q::transpose4;
 
-enum Code { S8 = 0, U4 = 1, S4 = 2, U2 = 3 };
+enum Code { S8 = 0, U4 = 1, S4 = 2, U2 = 3, U8 = 4 };
 
 template <int C>
 struct PackOf {
-  static constexpr int F = C == S8 ? 1 : (C == U2 ? 4 : 2);
+  static constexpr int F = (C == S8 || C == U8) ? 1 : (C == U2 ? 4 : 2);
 };
 
 // Field s of four packed bytes, each byte a code in the int8 range.
 template <int C>
 __device__ __forceinline__ uint32_t field4(uint32_t w, int s) {
   if (C == S8) return w;
+  if (C == U8) return w ^ 0x80808080u;  // c - 128 as s8, per byte
   if (C == U2) return (w >> (2 * s)) & 0x03030303u;
   uint32_t v = (w >> (4 * s)) & 0x0F0F0F0Fu;
   if (C == S4) v = __vsub4(v ^ 0x08080808u, 0x08080808u);  // sign-extend each nibble
@@ -67,19 +74,6 @@ __device__ __forceinline__ uint32_t field4(uint32_t w, int s) {
 template <int C>
 __device__ __forceinline__ uint32_t field1(uint32_t b, int s) {
   return field4<C>(b, s) & 0xFFu;
-}
-
-// r[i] holds columns 0..3 (one byte each) of row i; c[j] gets rows 0..3 of
-// column j, row 0 in the low byte.
-__device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* c) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t1, 0x5410);
-  c[1] = __byte_perm(t0, t1, 0x7632);
-  c[2] = __byte_perm(t2, t3, 0x5410);
-  c[3] = __byte_perm(t2, t3, 0x7632);
 }
 
 // The group epilogue term (dot - xsum * z) * s, one rounding per operation.
@@ -159,6 +153,12 @@ __global__ void __launch_bounds__(GEMV_THREADS) a8_gemv_kernel(
         }
       }
     }
+  }
+  if (C == U8) {  // back to the promoted dot: sum (c - 128) x + 128 sum x
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) dot[m][c] += 128 * xs[m];
   }
 
 #pragma unroll
@@ -267,14 +267,6 @@ __global__ void __launch_bounds__(EPI_THREADS) a8_epilogue_kernel(
 constexpr int TBM = 64, TBN = 64, TBK = 32, TLDS = 48;  // TLDS in bytes: 12 words, no bank conflicts
 constexpr int GEMM_THREADS = 128;
 
-__device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Needs K % 32 == 0 and gs % 32 == 0, so that a k tile lies inside one group.
 template <int C>
 __global__ void __launch_bounds__(GEMM_THREADS) a8_gemm_kernel(
@@ -374,8 +366,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) a8_gemm_kernel(
             for (int e = 0; e < 2; ++e) {
               const int col = min(bn0 + wn + ni * 8 + tig * 2 + e, N - 1);
               float& v = acc[mi][ni][2 * h + e];
-              v = __fadd_rn(v, group_term(dot[mi][ni][2 * h + e], xs, scale, zero, zmode,
-                                          (size_t)g * N + col));
+              const int d = dot[mi][ni][2 * h + e] + (C == U8 ? 128 * xs : 0);
+              v = __fadd_rn(v, group_term(d, xs, scale, zero, zmode, (size_t)g * N + col));
               dot[mi][ni][2 * h + e] = 0;
             }
           }
@@ -436,7 +428,7 @@ int launch_gemm(const void* xq, const void* data, const void* scale, const void*
 }  // namespace
 
 // code: 0 = int8 containers, 1 = packed unsigned 4-bit, 2 = signed 4-bit
-// (s4 storage), 3 = packed unsigned 2-bit. zmode: 0 = no zero point, 1 =
+// (s4 storage), 3 = packed unsigned 2-bit, 4 = unpacked unsigned 8-bit. zmode: 0 = no zero point, 1 =
 // fp32 zero [G, N], 2 = int8 zero [G, N]. GEMV form: `rc` byte rows per
 // warp (a multiple of 4), segments of `seg` byte rows (seg = min(gs/f,
 // 8*rc)), ysplit = ceil(K/f / (8*rc)) blocks along K, mt rows per block (1,
@@ -453,9 +445,10 @@ extern "C" int l3q_a8_gemv(const void* xq, const void* data, void* part, void* x
   else if (code == U4) err = launch_gemv_mt<U4>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
   else if (code == S4) err = launch_gemv_mt<S4>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
   else if (code == U2) err = launch_gemv_mt<U2>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
+  else if (code == U8) err = launch_gemv_mt<U8>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
   else return (int)cudaErrorInvalidValue;
   if (err != 0) return err;
-  const int f = code == S8 ? 1 : (code == U2 ? 4 : 2);
+  const int f = (code == S8 || code == U8) ? 1 : (code == U2 ? 4 : 2);
   const int G = K / gs, cpg = (gs / f) / seg;
   if (G < EPI_WARPS) {
     a8_epilogue_rows_kernel<<<(M * N + EPI_THREADS - 1) / EPI_THREADS, EPI_THREADS, 0, st>>>(
@@ -478,5 +471,6 @@ extern "C" int l3q_a8_gemm(const void* xq, const void* data, const void* scale, 
   if (code == U4) return launch_gemm<U4>(xq, data, scale, zero, zmode, sx, out, out_bf16, M, K, N, gs, st);
   if (code == S4) return launch_gemm<S4>(xq, data, scale, zero, zmode, sx, out, out_bf16, M, K, N, gs, st);
   if (code == U2) return launch_gemm<U2>(xq, data, scale, zero, zmode, sx, out, out_bf16, M, K, N, gs, st);
+  if (code == U8) return launch_gemm<U8>(xq, data, scale, zero, zmode, sx, out, out_bf16, M, K, N, gs, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -393,9 +393,12 @@ def _ring_write_and_mask(pos, s: int, max_len: int, sink: int, device):
         if s == 1:
             write_slot = pos if pos < max_len else sink + (pos - sink) % w
         else:
-            if pos + s > max_len:
-                raise ValueError(f"prefill of {s} tokens at {pos} does not fit max_len={max_len}")
-            write_slot = pos
+            if s > max_len:
+                raise ValueError(f"a span of {s} tokens does not fit max_len={max_len}")
+            # JAX writes at `pos` through `dynamic_update_slice`, which clamps
+            # the start so that the span fits: past the end it lands at
+            # max_len - s, earlier than its positions; the mask stays JAX's
+            write_slot = min(pos, max_len - s)
         last = pos if s == 1 else pos + s - 1
         qi = pos + torch.arange(s, device=device)[:, None]
     abs_ring = last - torch.remainder(last - slots, w)

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("qmatmul", "qmatmul_a8", "decode_attention", "decode_fp", "flash_attention")
+SOURCES = ("qmatmul", "qmatmul_a8", "decode_attention", "decode_fp", "flash_attention",
+           "w4_stream", "w4_bd", "qmm_u8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

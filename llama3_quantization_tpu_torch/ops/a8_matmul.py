@@ -2,8 +2,9 @@
 `llama3_quantization_tpu/ops/a8_matmul.py`).
 
 Activations are quantized per token to s8 and the weights stay unpacked
-signed int8 codes (the per-column s8 serving recode of `quant/serving.py`,
-or grouped centered codes), with scales applied after the integer dots:
+codes (signed int8: the per-column s8 serving recode of `quant/serving.py`,
+or grouped centered codes; or unsigned uint8 8-bit codes), with scales
+applied after the integer dots:
 
     y[b, n] = s_x[b] * sum_g s[g, n] * (xq[b, g, :] . c[g, :, n] - z[g, n] * xsum[b, g])
 
@@ -26,13 +27,14 @@ __all__ = ["a8_matmul", "quantize_activations_s8"]
 
 
 def a8_matmul(x: torch.Tensor, qt: QuantizedTensor, out_dtype=None) -> torch.Tensor:
-    """`x @ dequant(qt)` with s8 activations, for unpacked int8 codes."""
+    """`x @ dequant(qt)` with s8 activations, for unpacked codes: int8
+    containers, or uint8 codes whose dot JAX's `dot_general` promotes (B3's
+    "u8" layout keeps that exact s32 value)."""
     if qt.packed:
         raise ValueError("a8 path requires unpacked (int8-container) storage")
-    if qt.data.dtype != torch.int8:
-        raise NotImplementedError(f"a8 takes int8 containers, not {qt.data.dtype} codes")
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
-    y = w_a8_matmul(x.reshape(-1, qt.k), qt.data, "s8", qt.scale, qt.zero,
+    layout = "u8" if qt.data.dtype == torch.uint8 else "s8"
+    y = w_a8_matmul(x.reshape(-1, qt.k), qt.data, layout, qt.scale, qt.zero,
                     qt.group_size or qt.k, out_dtype, "B3.s8")
     return y.reshape(*lead, qt.n)

@@ -180,16 +180,15 @@ def qmm_gemm(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
 
 def qmm_v3(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     """The v3 route (`pallas_qmatmul.py:405-417`): x quantized per token to
-    s8, B3 on the packed codes (or int8 containers) with the fp32 zero."""
+    s8, B3 on the packed codes (or unpacked codes as int8) with the fp32
+    zero."""
     if qt.packed:
-        layout = {4: "u4", 2: "u2"}.get(qt.bits)
+        layout, data = {4: "u4", 2: "u2"}.get(qt.bits), qt.data
         if layout is None:
             raise NotImplementedError(f"v3 takes 4/2-bit packed weights, got {qt.bits}-bit")
-    elif qt.data.dtype == torch.int8:
-        layout = "s8"
-    else:
-        raise NotImplementedError("v3 takes int8 containers, not unpacked uint8 codes")
-    return w_a8_matmul(x2d, qt.data, layout, qt.scale, qt.zero, qt.group_size or qt.k,
+    else:  # cast to int8 as `pallas_qmatmul.py:294` casts: uint8 codes above 127 wrap
+        layout, data = "s8", qt.data.view(torch.int8)
+    return w_a8_matmul(x2d, data, layout, qt.scale, qt.zero, qt.group_size or qt.k,
                        out_dtype, "B3.v3")
 
 

@@ -15,8 +15,10 @@ only in the fp32 order of the sum over groups. The port sums groups in
 order, one rounding per operation, in the kernel and in its plain version
 alike (`a8_plain`, whose s32 partials come from exact float64 dots).
 
-Weights reach B3 as codes in one of four layouts (`LAYOUTS`): int8
-containers ("s8"), the packed unsigned 4/2-bit codes of `quant/pack.py`
+Weights reach B3 as codes in one of five layouts (`LAYOUTS`): int8
+containers ("s8"), unpacked unsigned 8-bit codes ("u8", what
+`quantize_rtn(bits=8, pack=True)` stores; the dot is the exact promoted one
+of JAX's `a8_matmul`), the packed unsigned 4/2-bit codes of `quant/pack.py`
 ("u4", "u2") or the s4 backend's signed 4-bit storage ("s4", see
 `ops/s4_matmul.py`). The zero point is fp32 `[G, N]`, int8 `[G, N]` or
 None. M <= 64 takes the GEMV form (counted per caller: "B3.v3", "B3.s4",
@@ -38,7 +40,7 @@ from .kvcache import kv_quantize
 from .launches import COUNTS
 
 #: layout name -> (kernel code, values per byte, bits of the unpacked codes)
-LAYOUTS = {"s8": (0, 1, 8), "u4": (1, 2, 4), "s4": (2, 2, 4), "u2": (3, 4, 2)}
+LAYOUTS = {"s8": (0, 1, 8), "u4": (1, 2, 4), "s4": (2, 2, 4), "u2": (3, 4, 2), "u8": (4, 1, 8)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,7 +66,7 @@ def quantize_activations_s8(x: torch.Tensor):
 
 def codes_of(data: torch.Tensor, layout: str, k: int, gs: int) -> torch.Tensor:
     """Integer codes `[K, N]` of a weight in `layout`."""
-    if layout == "s8":
+    if layout in ("s8", "u8"):
         return data
     bits = LAYOUTS[layout][2]
     codes = unpack_subbyte(data, bits, k, gs)

@@ -10,6 +10,11 @@ port (CPU, where B3's wrapper runs its plain version):
   interpret mode) within 5e-6 of max|ref| in fp32 (`tests/test_s4.py`'s
   oracle bound: the integers are exact, only the fp32 order of the sum over
   groups differs);
+- unpacked uint8 8-bit codes (`quantize_rtn(bits=8, pack=True)`) under
+  v3 (codes cast to int8, wrapping above 127, as JAX's kernel casts them),
+  a8 (the promoted dot, exact in s32) and the s4 backend (which sends such
+  weights to a8; `prepare_s4` refuses them on both sides), within the same
+  5e-6, and exactly equal for per-column weights;
 - `recode_s8_percol`, `recode_head_s8`, `recode_head_s4`: codes
   byte-identical, scales equal; `fuse_for_decode`: the same keys and
   concatenated tensors; `params_from_numpy` on `percol_s8` trees;
@@ -122,6 +127,68 @@ def test_a8_matmul_matches_jax(bits, gs, zp, m):
     assert_rel(got.numpy(), ref)
     if zp == "percol":  # g == 1: the same fp32 operations in the same order
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _jqt_u8(gs, seed=0):
+    """`quantize_rtn(bits=8, pack=True)`: unpacked uint8 codes, fp32 zero."""
+    jq = _jqt(8, gs, pack=True, seed=seed)
+    assert jq.data.dtype == jnp.uint8 and not jq.packed and int(jq.data.max()) > 127
+    return jq
+
+
+@pytest.mark.parametrize("route", ["v3", "a8"])
+def test_uint8_codes_partials_exact(route):
+    """B3's s32 group partials on unpacked uint8 codes equal JAX's integer
+    dots: a8's `dot_general` promotes the codes, v3 casts them to int8."""
+    jq = _jqt_u8(32)
+    xq, _ = ja8.quantize_activations_s8(jnp.asarray(_x(3)))
+    codes = jq.data.astype(jnp.int8) if route == "v3" else jq.data
+    jparts = jax.lax.dot_general(
+        xq.reshape(3, K // 32, 32), codes.reshape(K // 32, 32, N),
+        (((2,), (1,)), ((1,), (0,))), preferred_element_type=jnp.int32)
+    tdata = carry(jq).data
+    tcodes = qa.codes_of(tdata.view(torch.int8) if route == "v3" else tdata,
+                         "s8" if route == "v3" else "u8", K, 32)
+    dots, _ = qa.group_partials(torch.from_numpy(np.asarray(xq)), tcodes, 32)
+    np.testing.assert_array_equal(dots.numpy().astype(np.int64), np.asarray(jparts, np.int64))
+
+
+@pytest.mark.parametrize("m", [1, 4, 70])
+@pytest.mark.parametrize("gs", [32, None])
+@pytest.mark.parametrize("route", ["v3", "a8", "s4"])
+def test_uint8_codes_match_jax(route, gs, m):
+    """v3, a8 and the s4 backend on `quantize_rtn(bits=8, pack=True)` codes."""
+    jq = _jqt_u8(gs, seed=m)
+    tq = carry(jq)
+    assert tq.data.dtype == torch.uint8
+    x = _x(m)
+    if route == "v3":
+        ref = jpq.fused_dequant_matmul(jnp.asarray(x), jq, out_dtype=jnp.float32,
+                                       interpret=True, version=3)
+        got = tfq.fused_dequant_matmul(torch.from_numpy(x), tq, out_dtype=torch.float32,
+                                       version=3)
+    elif route == "a8":
+        ref = ja8.a8_matmul(jnp.asarray(x), jq, out_dtype=jnp.float32)
+        got = a8_matmul(torch.from_numpy(x), tq, out_dtype=torch.float32)
+    else:
+        with jmm.backend("s4"):
+            ref = jmm.qmatmul(jnp.asarray(x), jq, out_dtype=jnp.float32)
+        with tmm.backend("s4"):
+            got = tmm.qmatmul(torch.from_numpy(x), tq, out_dtype=torch.float32)
+    assert_rel(got.numpy(), ref)
+    if route != "v3" and gs is None:  # g == 1: the same fp32 operations in the same order
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_s4_prepare_refuses_8_bit_codes():
+    from llama3_quantization_tpu.ops import s4_matmul as js4
+    from llama3_quantization_tpu_torch.ops import s4_matmul as ts4
+
+    jq = _jqt_u8(32)
+    with pytest.raises(ValueError):
+        js4.prepare_s4(jq)
+    with pytest.raises(ValueError):
+        ts4.prepare_s4(carry(jq))
 
 
 def test_a8_rejects_packed_and_keeps_leading_shape():

@@ -22,6 +22,7 @@ from llama3_quantization_tpu_torch.ops import flash_attention as fa
 from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 from llama3_quantization_tpu_torch.ops import launches
 from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
+from llama3_quantization_tpu_torch.ops import qmm_u8, w4_bd, w4_stream
 
 torch.set_num_threads(1)
 
@@ -60,7 +61,7 @@ def _b3_weight(kind, k, n, gs, rng, device):
     if kind == "s4_head":
         s4 = P.prepare_s4(P.recode_head_s4(w))
         return s4.data4, "s4", s4.scale, s4.zero8, k
-    bits = {"u4": 4, "u2": 2, "s4": 4, "s8": 8}[kind]
+    bits = {"u4": 4, "u2": 2, "s4": 4, "s8": 8, "u8": 8}[kind]
     qt = P.quantize_rtn(w, P.QuantSpec(n_bits=bits, group_size=gs), pack=kind != "s8")
     if kind == "s4":
         s4 = P.prepare_s4(qt)
@@ -68,12 +69,12 @@ def _b3_weight(kind, k, n, gs, rng, device):
     return qt.data, kind, qt.scale, qt.zero, gs
 
 
-@pytest.mark.parametrize("kind", ["u4", "u2", "s4", "s8", "s8_percol", "s4_head"])
+@pytest.mark.parametrize("kind", ["u4", "u2", "s4", "s8", "u8", "s8_percol", "s4_head"])
 @pytest.mark.parametrize("m", [1, 3, 8, 65, 130])
 @pytest.mark.parametrize("k,gs", [(256, 64), (2304, 32)])
 def test_b3_forms_match_plain(cuda_device, kind, m, k, gs):
-    """B3's GEMV form (M <= 64) and tiled form on every weight layout and
-    zero-point kind: exact s32 partials and the same fp32 epilogue order,
+    """B3's GEMV form (M <= 64) and tiled form on every weight layout
+    (unpacked uint8 8-bit codes included) and zero-point kind: exact s32 partials and the same fp32 epilogue order,
     so fp32 output equals the plain version (atol 1e-5 * max|ref| allows
     the fp32 order only); bf16 output within 1e-2. 4 groups take the GEMV
     epilogue's per-output schedule, 72 its per-block one in two passes."""
@@ -99,15 +100,19 @@ def test_b3_forms_match_plain(cuda_device, kind, m, k, gs):
 @pytest.mark.parametrize("m", [1, 65])
 def test_v3_s4_a8_routes_count_their_forms(cuda_device, m):
     """`fused_dequant_matmul(version=3)`, `s4_matmul` and `a8_matmul` each
-    launch their own B3 form (the tiled form above M = 64)."""
+    launch their own B3 form (the tiled form above M = 64), on unpacked
+    uint8 8-bit codes too."""
     rng = np.random.default_rng(7)
     w = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32)).to(cuda_device)
     qt4 = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=64), pack=True)
     qt8 = P.recode_s8_percol(qt4)
+    qtu8 = P.quantize_rtn(w, P.QuantSpec(n_bits=8, group_size=64), pack=True)  # uint8 codes
     x = torch.from_numpy(rng.standard_normal((m, 256)).astype(np.float32)).to(cuda_device)
     for key, call in (("B3.v3", lambda: fq.fused_dequant_matmul(x, qt4, version=3)),
                       ("B3.s4", lambda: P.s4_matmul(x, qt4)),
-                      ("B3.s8", lambda: P.a8_matmul(x, qt8))):
+                      ("B3.s8", lambda: P.a8_matmul(x, qt8)),
+                      ("B3.v3", lambda: fq.fused_dequant_matmul(x, qtu8, version=3)),
+                      ("B3.s8", lambda: P.a8_matmul(x, qtu8))):
         key = "B3.gemm" if m > qa.GEMV_MAX_M else key
         before = launches.snapshot()[key]
         y = call()
@@ -346,6 +351,90 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):
     assert counts["B1"] > 0 and counts["B2"] > 0 and counts["B5"] > 0
     for got, ref in ((gpu_pre, cpu_pre), (gpu_step, cpu_step)):
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
+
+
+def _ints(rng, lo, hi, shape, device):
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8)).to(device)
+
+
+@pytest.mark.parametrize("form", ["w4", "tiled", 1, 2, 4, 8])
+def test_b8_forms_equal_plain(cuda_device, form):
+    """B8 streams every byte and sums one row per block: exactly its plain
+    version (small integers in f32), on rows split over many blocks of
+    threads and a ragged last one."""
+    rng = np.random.default_rng(8)
+    k, n, bk, bn = 3072, 1536, 512, 256
+    if form == "w4":
+        w = _ints(rng, -128, 128, (k // 2, n), cuda_device)
+        key, got, ref = "B8.w4", lambda: w4_stream.w4_dma(w, bk), w4_stream.w4_dma_plain(w, bk)
+    elif form == "tiled":
+        w = _ints(rng, -128, 128, (k // bk, n // bn, bk // 2, bn), cuda_device)
+        key, got, ref = "B8.tiled", lambda: w4_stream.w4_dma_tiled(w), w4_stream.w4_dma_tiled_plain(w)
+    else:
+        x = _ints(rng, -128, 128, (5000, 1024), cuda_device)
+        key, got = "B8.depth", lambda: w4_stream.dma_depth(x, 64, form)
+        ref = w4_stream.dma_depth_plain(x, 64)
+    before = launches.snapshot()[key]
+    out = got()
+    assert launches.snapshot()[key] == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("form", ["v4", "tiled", "dot4", "noscale", "cast8", 1, 2, 4])
+@pytest.mark.parametrize("bk", [256, 2048])
+def test_b9_forms_match_plain(cuda_device, form, bk):
+    """B9 against its plain version: exact s32 partials and the same fp32
+    epilogue order, so within 1e-6 * max|ref| (multi-stream: S = 1, 2, 4)."""
+    rng = np.random.default_rng(9)
+    k, n, g = 4096, 384, 4096 // 128
+    w = _ints(rng, -128, 128, (k // 2, n), cuda_device)
+    scale = torch.from_numpy((rng.random((g, n)) + 0.5).astype(np.float32) * 0.01).to(cuda_device)
+    xh, xl = _ints(rng, -8, 8, (1, k), cuda_device), _ints(rng, -8, 8, (1, k), cuda_device)
+    bd2, bd1 = _ints(rng, -8, 8, (2 * g, k), cuda_device), _ints(rng, -120, 120, (g, k), cuda_device)
+    if form == "v4":
+        key, call = "B9.v4", lambda: w4_bd.w4_bd(xh, xl, scale, w, bk)
+        ref = w4_bd.bd_plain("v4", (xh, xl), (w,), scale, bk)
+    elif form == "tiled":
+        bn = 128
+        wt = w.reshape(k // bk, bk // 2, n // bn, bn).permute(0, 2, 1, 3).contiguous()
+        key, call = "B9.tiled", lambda: w4_bd.w4_bd(xh, xl, scale, wt, bk, tiled=True)
+        ref = w4_bd.bd_plain("v4", (xh, xl), (w,), scale, bk)
+    elif form == "dot4":
+        key, call = "B9.dot4", lambda: w4_bd.w4_dot4(bd2, scale, w, bk)
+        ref = w4_bd.bd_plain("dot4", (bd2[: 2 * (bk // 128)],), (w,), scale, bk)
+    elif form == "noscale":
+        key, call = "B9.noscale", lambda: w4_bd.w4_noscale(bd2, w, bk)
+        ref = w4_bd.bd_plain("noscale", (bd2[: 2 * (bk // 128)],), (w,), None, bk)
+    elif form == "cast8":
+        key, call = "B9.cast8", lambda: w4_bd.w4_cast8(bd1, scale, w, bk)
+        ref = w4_bd.bd_plain("cast8", (bd1[: bk // 128],), (w,), scale, bk)
+    else:
+        s = form
+        ws = [_ints(rng, -128, 128, (k // 2 // s, n), cuda_device) for _ in range(s)]
+        bds = [_ints(rng, -8, 8, (2 * (bk // 128) // s, k // s), cuda_device) for _ in range(s)]
+        key, call = "B9.multi", lambda: w4_bd.w4_multi(bds, ws, bk)
+        ref = w4_bd.bd_plain("multi", bds, ws, None, bk)
+    before = launches.snapshot()[key]
+    got = call()
+    assert launches.snapshot()[key] == before + 1
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("variant", ["dot2", "cat", "bf16"])
+def test_b10_variants_match_plain(cuda_device, variant):
+    """B10 on RTN W4 g128 codes: dot2 and cat bit-identical to the plain
+    version (B3's integers and epilogue order), bf16 within 1e-2 * max|ref|."""
+    rng = np.random.default_rng(10)
+    k, n = 1024, 448
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=128), pack=True)
+    xq = _ints(rng, -127, 128, (8, k), cuda_device)
+    before = launches.snapshot()[f"B10.{variant}"]
+    got = qmm_u8.u8_qmm(xq, qt.data, qt.scale, qt.zero, variant)
+    assert launches.snapshot()[f"B10.{variant}"] == before + 1
+    ref = qmm_u8.u8_qmm_plain(xq, qt.data, qt.scale, qt.zero, variant)
+    tol = 1e-2 * float(ref.abs().max()) if variant == "bf16" else 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=tol)
 
 
 def _to(tree, device):

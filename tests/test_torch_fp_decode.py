@@ -19,6 +19,9 @@
   output one ulp apart, or, with W4 weights, an activation that B1/B2 round
   to the neighbouring bf16 value after an fp32 sum in another order (one
   such flip moves a K entry by 2.4e-3).
+- A prefill or verify of S tokens that runs past `max_len`: JAX's
+  `dynamic_update_slice` clamps the write to the last S slots and keeps its
+  mask; the port's logits and caches (fp32, int8 and int4) equal JAX's.
 """
 
 import functools
@@ -217,3 +220,42 @@ def test_write_cache_in_place():
     for row, p in enumerate(pos.tolist()):
         torch.testing.assert_close(buf[0, row, :, p], new[row, 0].to(torch.bfloat16))
     assert int((buf[0] != 0).any(dim=-1).sum()) == 3 * 2
+
+
+@pytest.mark.parametrize("pos,s", [(28, 6), (31, 5), (27, 8)])
+@pytest.mark.parametrize("kind", ["float32", 8, 4])
+def test_prefill_past_max_len_matches_jax(both_models, kind, pos, s):
+    """`decode_step` of S tokens at `pos` with pos + S > max_len (32) after
+    a 20-token prefill, fp32 weights. fp32 cache: logits and cache within
+    1e-4. int8 / int4 caches: codes at most one step apart (an fp32 ulp of K
+    or V at a rounding tie moves a code; later layers then differ by a code
+    step, ~1e-3 of the logits), scales within 1e-3, logits within 1e-2 of
+    their scale, argmax identical."""
+    from llama3_quantization_tpu_torch.ops.kvcache import kv4_unpack_codes
+
+    jparams, tparams = both_models["fp32"]
+    toks = np.random.default_rng(pos + s).integers(0, CFG.vocab_size, (2, 20 + s))
+    toks = toks.astype(np.int32)
+    if kind == "float32":
+        jcache, tcache = _caches("float32", 2, max_len=32)
+    else:
+        jcache = JT.init_kv_cache(CFG, 2, 32, quantized=kind)
+        tcache = TT.init_kv_cache(TCFG, 2, 32, quantized=kind, device="cpu")
+    _, jcache = JT.decode_step(jparams, jcache, jnp.asarray(toks[:, :20]), jnp.int32(0), CFG)
+    _, tcache = TT.decode_step(tparams, tcache, torch.from_numpy(toks[:, :20]).long(), 0, TCFG)
+    jlg, jcache = JT.decode_step(jparams, jcache, jnp.asarray(toks[:, 20:]), jnp.int32(pos), CFG)
+    tlg, tcache = TT.decode_step(tparams, tcache, torch.from_numpy(toks[:, 20:]).long(), pos,
+                                 TCFG)
+    exact = kind == "float32"
+    _close(tlg.numpy(), jlg, exact)
+    np.testing.assert_array_equal(tlg.argmax(-1).numpy(), np.asarray(jnp.argmax(jlg, -1)))
+    for key in jcache:
+        got, ref = tcache[key], torch.from_numpy(np.array(jcache[key]))
+        if key in ("k", "v"):
+            _close(got.numpy(), ref.numpy(), True)
+        elif key in ("k_s", "v_s"):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-3, atol=0)
+        else:
+            if kind == 4:
+                got, ref = kv4_unpack_codes(got), kv4_unpack_codes(ref)
+            assert int((got.int() - ref.int()).abs().max()) <= 1, key

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (a
 forward, serving engines on the int4 and the default fp cache, the W·A8
-backends, sampled and speculative decoding and a hooked decode run with
-both blocked), and an entry point called without `device` on a machine
-without CUDA raises instead of running on the CPU."""
+backends, sampled and speculative decoding, a hooked decode and a
+microbench entry point run with both blocked), and an entry point called
+without `device` on a machine without CUDA raises instead of running on
+the CPU."""
 
 import re
 import subprocess
@@ -77,6 +78,9 @@ def test_port_runs_with_jax_blocked():
                                   v=P.QuantSpec(n_bits=4))
         out, _ = P.greedy_generate(params, fp(), toks[:, -1:], 0, 4, cfg, rq)
         assert out.shape == (1, 4) and P.fake_quant_dynamic(toks.float(), rq.k).shape == toks.shape
+        from llama3_quantization_tpu_torch.microbench import w4_v4
+        res = w4_v4.main(["512", "256", "256", "128", "--device", "cpu", "--steps", "1"])
+        assert res["max_rel_err"] < 1e-5
         assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
 
@@ -87,7 +91,8 @@ def test_port_runs_with_jax_blocked():
                      lambda: ServingEngine(params, cfg),
                      lambda: P.init_quantized_params(cfg, P.QuantSpec(n_bits=4, group_size=32)),
                      lambda: P.init_params(cfg, gen),
-                     lambda: P.params_from_numpy({})):
+                     lambda: P.params_from_numpy({}),
+                     lambda: w4_v4.main(["512", "256", "256", "128"])):
             try:
                 call()
             except RuntimeError as e:
@@ -103,7 +108,7 @@ def test_port_runs_with_jax_blocked():
 
 
 @pytest.mark.parametrize("name", ["qmatmul", "qmatmul_a8", "decode_attention", "decode_fp",
-                                  "flash_attention"])
+                                  "flash_attention", "w4_stream", "w4_bd", "qmm_u8"])
 def test_kernel_sources_ship(name):
     """Every kernel source the build names is in the package (and in the
     wheel's package data)."""
