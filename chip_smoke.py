@@ -5,7 +5,8 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
     python3 chip_smoke.py --profile       # also profile decode steps and serving windows
-    python3 chip_smoke.py --prefill-bench # only time B2 and forward_logits at M up to 2048
+    python3 chip_smoke.py --prefill-bench # only time B2 (W4, W3 L2-warm and cold), B6 and forward_logits
+    python3 chip_smoke.py --kernel-bench  # only time B2 W4/W3 gate/up (L2-warm and cold) and B6
     python3 chip_smoke.py --decode-drift  # only the full-depth B5, B6 and B3 kernel-vs-plain decodes
     python3 chip_smoke.py --microbench    # only the weight-stream probes B8-B10 and their entry points
 
@@ -15,16 +16,19 @@ Phases, in order; any failure exits non-zero:
      per source, in parallel);
   3. hold each kernel form against its plain PyTorch version on the card at
      the main paths' shapes, with the tolerances stated below: B1 at M = 1
-     and 8, B2 at M = 128 and 512, B2 on 3-bit planes at M = 128 and 512,
+     and 8, B2 at M = 65, 128, 200 and 512, B2 on 3-bit planes at the same
+     M, B2's batch invariance (rows 0..7 of M = 128 and M = 72 bit-equal),
      B3 (v3 on packed W4 g128, s4, per-column s8) at M = 1, 8 and 128 on
      the W·A8 paths' o, qkv, gate-up and down and the s8 and s4 heads at
      M = 1 and 8, B5 on the int8 cache with and without m/l statistics and
      on the int4 cache with and without them (one all-masked row), B6 on
-     the bf16 fp cache (stacked at B = 1, T = 512 and 2048; per layer at
-     B = 8 with per-row masks and an all-masked row) and on an fp32 cache,
-     B7; then the window-merge op (B5 with stats merged with the exact
-     window attention) against eager attention over the dequantized main
-     and window keys; B3 on unpacked uint8 8-bit codes; and the
+     the bf16 fp cache (stacked at B = 1, per layer at B = 8 with per-row
+     masks, an all-masked row and a row masked after its first T block, T =
+     512 to 4096) and on an fp32 cache, B7; then the window-merge op (B5
+     with stats merged with the exact window attention) against eager
+     attention over the dequantized main and window keys; the codes-direct
+     int8 route on the card against the same call on the CPU; B3 on
+     unpacked uint8 8-bit codes; and the
      weight-stream probes at the microbench scripts' default shapes
      (`check_probes`): B8 (w4, tiled, depth 1/2/4/8) and B10 dot2 / cat
      exactly, B9 (v4, tiled, dot4, noscale, cast8, multi S = 1/2/4) within
@@ -65,7 +69,10 @@ Phases, in order; any failure exits non-zero:
      draft (8 rounds of k = 4 after a 128-token prefill; every emitted
      token the forward's argmax but at near ties, at most one); a greedy
      decode under KV4 fake quant (`RuntimeQuantConfig(k=4 bits, v=4 bits)`:
-     the eager route, no B6); check teacher-forced decode against the
+     the eager route, no B6); the JAX package's decode routes: the int8
+     engine under `set_decode_kernel(False)` (eager, no window) and under
+     `set_decode_attn("xla")` (codes-direct windows), launching no B5 form,
+     pipelined = sequential; check teacher-forced decode against the
      forward (int8 < 0.15, int4 reported, KV4-hooked < 0.15), the decode
      through the B5 and B6 kernel forms against their plain versions
      (< DRIFT_LIMIT) and the s4 decode through B3 against B3's plain
@@ -184,8 +191,10 @@ def rand_weights(P, k: int, n: int, copies: int, gen):
 #: (kernel id, M) of every B1/B2 instantiation the paths run: B1 at M=1
 #: (batch-1 decode) and M=8 (the 8-slot engine's decode, two 4-row tiles);
 #: B2 at M=128 (a 128-token prefill, the engine's bucket-16 prefill) and
-#: M=512 (the engine's bucket-64 prefill: 8 slots x 64)
-QMM_CASES = (("B1", 1), ("B1", 8), ("B2", 128), ("B2", 512))
+#: M=512 (the engine's bucket-64 prefill: 8 slots x 64), and at the ragged
+#: M=65 and 200 (a partly filled 128-row tile)
+QMM_CASES = (("B1", 1), ("B1", 8), ("B2", 65), ("B2", 128), ("B2", 200), ("B2", 512))
+B2_M = (65, 128, 200, 512)
 
 
 def check_qmatmul(P, gen, results):
@@ -206,6 +215,27 @@ def check_qmatmul(P, gen, results):
             err = compare(f"{kid} {label} M={m} bf16-out", kern(x, qt, torch.bfloat16),
                           plain(x, qt, torch.bfloat16), 1e-2)
             results.setdefault(kid, {})[f"{label} M={m}"] = err
+
+
+def check_b2_batch_invariance(P, gen):
+    """B2's K split follows (K, N) alone: rows 0..7 of an M = 128 call equal
+    the same rows of an M = 72 call bit for bit (fp32 and bf16 out), on every
+    decoder linear shape, 4-bit and 3-bit."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    for label, (k, n) in LINEAR_SHAPES.items():
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        for bits in (4, 3):
+            qt = P.quantize_rtn(w, P.QuantSpec(n_bits=bits, group_size=GS), pack=True)
+            x = torch.randn((128, k), generator=gen, device="cuda").to(torch.bfloat16)
+            for dt in (torch.float32, torch.bfloat16):
+                full, part = fq.qmm_gemm(x, qt, dt), fq.qmm_gemm(x[:72].clone(), qt, dt)
+                if not torch.equal(full[:8], part[:8]):
+                    raise AssertionError(f"B2 W{bits} {label}: rows 0..7 of M=128 and M=72 "
+                                         f"differ ({dt})")
+        log(f"  B2 {label} W4 and W3: rows 0..7 of M=128 == rows 0..7 of M=72, bit for bit "
+            f"(K split {fq.b2_ksplit(k, n)}, from (K, N) alone)")
 
 
 #: (K, N) of the linears the W·A8 paths run, q/k/v and gate/up fused as
@@ -292,15 +322,16 @@ def check_b3(P, gen, results):
 
 
 def check_b2_w3(P, gen, results):
-    """B2 on 3-bit planes (RTN W3 g128 of random normals) at M = 128 and 512
-    on every decoder linear shape: fp32 out 1e-4 * max|ref|, bf16 1e-2."""
+    """B2 on 3-bit planes (RTN W3 g128 of random normals) at M = 65, 128,
+    200 and 512 on every decoder linear shape: fp32 out 1e-4 * max|ref|,
+    bf16 1e-2."""
     import torch
     from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 
     for label, (k, n) in LINEAR_SHAPES.items():
         w = torch.randn((k, n), generator=gen, device="cuda")
         qt = P.quantize_rtn(w, P.QuantSpec(n_bits=3, group_size=GS), pack=True)
-        for m in (128, 512):
+        for m in B2_M:
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
             compare(f"B2.w3 {label} M={m} fp32-out", fq.qmm_gemm(x, qt, torch.float32),
                     fq.qmm_gemm_plain(x, qt, torch.float32), 1e-4)
@@ -643,41 +674,95 @@ def time_probes(P, card, launches_total, errs, add):
 B5_KEYS = ("B5", "B5.stats", "B5.int4", "B5.int4.stats")
 
 
+def fp_masks(b, t, bt):
+    """[B, T] masks of the B6 checks: the decode path's (last eighth masked);
+    at B = 8 the engine's per-row lengths, with row 0 all masked (the mean
+    of v) and row 1 valid only in its first T block (masked in the later
+    ones, where the running max of the first block carries over)."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import decode_attention as da
+
+    if b != 8:
+        return decode_mask(b, t)
+    lens = torch.tensor([0, min(bt, t - t // 8), t // 5, t // 2 - 1, t // 2, 3 * t // 5,
+                         4 * t // 5, t], device="cuda")
+    return torch.where(torch.arange(t, device="cuda")[None, :] < lens[:, None], 0.0,
+                       da.NEG).float().contiguous()
+
+
+#: (B, T, cache dtype, stacked) of the B6 checks: batch-1 decode (stacked)
+#: and the 8-slot engine (per layer) at T = 512 to 4096 (one to four T
+#: blocks), and the fp32 cache
+FP_CASES = tuple((b, t, "bf16", b == 1) for t in (512, 1024, 2048, 4096) for b in (1, 8)) + (
+    (2, 512, "f32", True), (8, 2048, "f32", False))
+
+
 def check_fp_decode(P, gen, results):
-    """B6 on the bf16 cache at the paths' shapes, G=8, rep=4, D=128: the
-    stacked form (layer 1 of 2) at B=1, T=512 and 2048 (two T blocks), the
-    per-layer form at B=8, T=512 under per-row masks with row 0 all masked
-    (its output is the mean of v); then an fp32 cache at B=2, T=512.
-    Tolerances: bf16 1e-2 * max|ref| (bf16 out; p's bf16 rounding after an
-    exp one ulp apart), fp32 1e-5 * max|ref| (summation order)."""
+    """B6 (split along T) against its plain version at FP_CASES, G=8,
+    rep=4, D=128 (stacked: layer 1 of 2); the all-masked row's output is
+    the mean of v. Tolerances: bf16 1e-2 * max|ref| (bf16 out; p's bf16
+    rounding after an exp one ulp apart), fp32 1e-5 * max|ref| (summation
+    order). Also the split algorithm's plain twin on the card: its rounded
+    p equal the plain version's bit for bit."""
     import torch
     from llama3_quantization_tpu_torch.ops import decode_attention as da
 
     g, rep, d = 8, 4, 128
-    for b, t, dtype, stacked in ((1, 512, torch.bfloat16, True), (1, 2048, torch.bfloat16, True),
-                                 (8, 512, torch.bfloat16, False), (2, 512, torch.float32, True)):
+    for b, t, dname, stacked in FP_CASES:
+        dtype = torch.bfloat16 if dname == "bf16" else torch.float32
         key = da.fp_launch_key(dtype)
         k = torch.randn((2, b, g, t, d), generator=gen, device="cuda").to(dtype)
         v = torch.randn((2, b, g, t, d), generator=gen, device="cuda").to(dtype)
         q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(dtype)
-        mask = decode_mask(b, t)
-        if b == 8:  # per-row lengths, as the engine's slots have them
-            lens = torch.tensor([0, 17, 100, 255, 256, 301, 400, 512], device="cuda")
-            mask = torch.where(torch.arange(t, device="cuda")[None, :] < lens[:, None], 0.0,
-                               da.NEG).float().contiguous()
-            mask[0] = da.NEG
         bt = 1024 if t % 1024 == 0 else 512
+        mask = fp_masks(b, t, bt)
         if stacked:
             got = da.flash_decode_gqa_stacked(q, k, v, mask, 1, bt)
         else:
             got = da.flash_decode_gqa(q, k[1], v[1], mask, bt)
-        ref = da.decode_fp_plain(q, k[1], v[1], mask, bt)
-        label = f"{key} {'stacked' if stacked else 'per-layer'} B={b} T={t}"
+        ref, p_ref = da.decode_fp_plain(q, k[1], v[1], mask, bt, return_p=True)
+        c = da.fp_split_chunk(b * g, t, bt)
+        label = (f"{key} {'stacked' if stacked else 'per-layer'} B={b} T={t} "
+                 f"({b * g * t // c} blocks of {c} tokens)")
         err = compare(label, got, ref, 1e-5 if dtype == torch.float32 else 1e-2)
         if b == 8:
             mean_v = v[1, 0].float().mean(dim=1).repeat_interleave(rep, dim=0)
             compare(f"{label} all-masked row vs mean of v", got[0, 0], mean_v, 1e-2)
+        _, p_twin = da.decode_fp_split_plain(q, k[1], v[1], mask, bt, return_p=True)
+        if not torch.equal(p_twin, p_ref):
+            raise AssertionError(f"{label}: the split twin's p differ from the plain version's")
         results.setdefault(key, {})[f"B={b} T={t}"] = err
+
+
+def check_xla_route(P, gen):
+    """The codes-direct int8 route (`xla_decode_gqa_s8`, per layer and
+    stacked with m/l) on the card against the same call on CPU copies of
+    its inputs, at B=8 T=512 and B=1 T=2048 (the PV dot then sums two
+    exact s32 chunks), G=8, rep=4, D=128, one all-masked row at B=8. Both
+    devices run the same tensor ops: the s32 dots are exact, so o, m and l
+    differ only by fp32 order and an ulp of exp. Tolerances: o 1e-5 *
+    max|o|, m 1e-6 * |m|, l 1e-5 * l."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import decode_attention as da
+
+    g, rep, d = 8, 4, 128
+    for b, t in ((8, 512), (1, 2048)):
+        kq, ks, vq, vs = rand_cache(P, b, g, t, d, 2, gen)
+        q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(torch.bfloat16)
+        mask = decode_mask(b, t)
+        if b > 1:
+            mask[0] = da.NEG
+        args = (q, kq, ks, vq, vs, mask)
+        cpu = [a.cpu() for a in args]
+        got = da.xla_decode_gqa_s8(q, kq[1], ks[1], vq[1], vs[1], mask, torch.float32)
+        ref = da.xla_decode_gqa_s8(cpu[0], *(a[1] for a in cpu[1:5]), cpu[5], torch.float32)
+        compare(f"xla_decode_gqa_s8 B={b} T={t} card vs CPU", got.cpu(), ref, 1e-5)
+        go, gm, gl = da.xla_decode_gqa_s8_stacked(*args, 1, torch.float32, return_stats=True)
+        ro, rm, rl = da.xla_decode_gqa_s8_stacked(*cpu, 1, torch.float32, return_stats=True)
+        label = f"xla_decode_gqa_s8_stacked stats B={b} T={t} card vs CPU"
+        compare(f"{label} o", go.cpu(), ro, 1e-5)
+        compare_rel(f"{label} m", gm.cpu(), rm, 1e-6)
+        compare_rel(f"{label} l", gl.cpu(), rl, 1e-5)
 
 
 def check_flash(P, gen, results):
@@ -1068,6 +1153,30 @@ def drive_rtn_checks(P, params, card):
     return total
 
 
+def drive_routes(P, params, card):
+    """The JAX package's decode routes on input-dependent weights: the
+    16-request int8 serving run under `set_decode_kernel(False)` (every
+    step eager over the read-back cache: no B5 form, no window), then under
+    `set_decode_attn("xla")` (the codes-direct route in the windows: no B5
+    form), each pipelined against sequential. The switches are reset in a
+    `finally`."""
+    cfg, counts = P.LLAMA3_8B, {}
+    try:
+        P.set_decode_kernel(False)
+        serve_and_compare(P, params, cfg, card, "RTN serve int8 decode_kernel(False)", counts,
+                          ("B1", "B2"), min_distinct=64, never=B5_KEYS + ("B6",),
+                          windowed=False)
+    finally:
+        P.set_decode_kernel("auto")
+    try:
+        P.set_decode_attn("xla")
+        serve_and_compare(P, params, cfg, card, "RTN serve int8 decode_attn(xla)", counts,
+                          ("B1", "B2"), min_distinct=64, never=B5_KEYS + ("B6",), windowed=True)
+    finally:
+        P.set_decode_attn("auto")
+    return sum_counts(counts)
+
+
 def drive_rtn_fp(P, params, card):
     """The fp-cache entry points on input-dependent weights: the default
     engine (pipelined against sequential, varied streams), `sample_generate`,
@@ -1343,12 +1452,13 @@ def drive_s4_decode(P, card, profile=False):
 
 
 def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min_distinct=0,
-                      quantized_cache=8, never=()):
+                      quantized_cache=8, never=(), windowed=None):
     """`ServingEngine(8 slots, max_len 512, ljf, quantized_cache, fuse)`:
     `run_pipelined(16)` on the 16 requests of the serve mix (after a warm-up
     request) against the sequential `step_n(16)` loop, both counted runs
-    that must launch the kernel forms `must` and none of `never`. Returns
-    the pipelined streams."""
+    that must launch the kernel forms `must` and none of `never`; with
+    `windowed` True (False), the engine must (must not) have dispatched a
+    window. Returns the pipelined streams."""
     k, reqs = 16, serve_requests(16, cfg.vocab_size)
     eng = P.ServingEngine(params, cfg, max_slots=8, max_len=512, quantized_cache=quantized_cache,
                           schedule="ljf", fuse=fuse)
@@ -1373,6 +1483,9 @@ def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min
     if seq != pipe:
         diff = sum(a != b for a, b in zip(seq, pipe))
         raise AssertionError(f"{label}: run_pipelined and step_n streams differ ({diff} of 16)")
+    if windowed is not None and (eng.dispatches["windowed"] > 0) != windowed:
+        raise AssertionError(f"{label}: windows dispatched {eng.dispatches}, expected "
+                             f"{'some' if windowed else 'none'}")
     log(f"{label}: run_pipelined streams == sequential step_n streams for all 16 requests")
     return pipe
 
@@ -1494,16 +1607,50 @@ def profile_serving(P, params, cfg, reqs, k, card, bits=(8, 4), fuse=False):
         torch.cuda.empty_cache()
 
 
+def clock_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip() or out.stderr.strip()
+
+
+def kernel_bench(P, card, gen):
+    """B2 on W4 and W3 (bit planes) gate/up at M = 128 with one weight
+    (L2-warm: 29 MB and 22 MB of codes fit the 50 MB L2) and with four
+    copies cycling (cold), with the SM clock beside; B6 at its timed shapes
+    beside SDPA. Only the checkout's own package is imported, so running
+    this from two checkouts in one call compares their B2 and B6 designs on
+    one card."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    k, n = LINEAR_SHAPES["gate/up"]
+    for bits in (4, 3):
+        qts = [P.quantize_rtn(torch.randn((k, n), generator=gen, device="cuda"),
+                              P.QuantSpec(n_bits=bits, group_size=GS), pack=True)
+               for _ in range(4)]
+        x = torch.randn((128, k), generator=gen, device="cuda").to(torch.bfloat16)
+        for copies in (1, 4, 1):
+            ms = time_ms(lambda i: fq.qmm_gemm(x, qts[i % copies], torch.bfloat16), 50)
+            log(f"kernel bench: B2 W{bits} gate/up M=128, {copies} weight "
+                f"{'copy (L2-warm)' if copies == 1 else 'copies (cold)'}: {ms:.4f} ms device "
+                f"time; sm clock, max, power, temperature: {clock_line()}  [{card}]")
+        del qts
+    for b, t, stacked, ms, _, lib_ms in time_b6(gen):
+        log(f"kernel bench: B6 B={b} T={t} {'stacked' if stacked else 'per-layer'}: {ms:.4f} ms "
+            f"(CUDA graph, events), SDPA {lib_ms:.4f} ms  [{card}]")
+
+
 def prefill_bench(P, card):
-    """B2's device time at M = 128, 512 and 2048 on every decoder linear
-    shape, and `forward_logits` on [1, 512] and [1, 2048] tokens of the
-    synthetic Llama-3-8B W4 g128. Only the checkout's own package is
-    imported, so running this script from two checkouts in one call
-    compares their B2 K-split policies on one card."""
+    """`kernel_bench`, then B2's device time at M = 128, 512 and 2048 on
+    every decoder linear shape, and `forward_logits` on [1, 512] and
+    [1, 2048] tokens of the synthetic Llama-3-8B W4 g128 (run it from two
+    checkouts in one call to compare them)."""
     import torch
     from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    kernel_bench(P, card, gen)
     for label, (k, n) in LINEAR_SHAPES.items():
         qts = rand_weights(P, k, n, 4, gen)
         for m in (128, 512, 2048):
@@ -1607,18 +1754,7 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
     # per layer at B=8 (the engine), T=512; 32 / 8 layers of cache (64 MB
     # and up) cycle through so that each call reads its layer cold
     b6_rows = []
-    for b, t, layers, stacked in ((1, 512, 32, True), (1, 2048, 32, True), (8, 512, 8, False)):
-        bt = 1024 if t % 1024 == 0 else 512
-        k = torch.randn((layers, b, g, t, d), generator=gen, device="cuda").to(torch.bfloat16)
-        v = torch.randn((layers, b, g, t, d), generator=gen, device="cuda").to(torch.bfloat16)
-        q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(torch.bfloat16)
-        mask = decode_mask(b, t)
-        qh, amask = q.reshape(b, g * rep, 1, d), mask[:, None, None, :]
-        ms = time_ms(lambda i: da.decode_fp(q, k[i % layers], v[i % layers], mask, bt), 200)
-        plain_ms = time_ms(lambda i: da.decode_fp_plain(q, k[i % layers], v[i % layers], mask, bt),
-                           10)
-        lib_ms = time_ms(lambda i: F.scaled_dot_product_attention(
-            qh, k[i % layers], v[i % layers], attn_mask=amask, enable_gqa=True), 200)
+    for b, t, stacked, ms, plain_ms, lib_ms in time_b6(gen, plain=True):
         nbytes = 2 * b * g * t * d * 2 + 2 * b * g * rep * d * 2 + b * t * 4
         b6_rows.append(add(
             "B6", "decode_fp" + ("" if stacked else " per-layer"),
@@ -1627,7 +1763,6 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
             f"B={b} G={g} rep={rep} D={d} T={t} bf16 {'stacked' if stacked else 'per-layer'} "
             f"(library: SDPA, enable_gqa, float mask)", ms, plain_ms, nbytes,
             4.0 * b * g * rep * t * d, BF16_FLOPS, lib_ms, errs["B6"][f"B={b} T={t}"]))
-        del k, v
 
     b7_rows = []
     for s in (128, 2048):
@@ -1656,6 +1791,52 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
     probe_rows = time_probes(P, card, launches_total, errs, add)
     return ([rows_[2] for rows_ in qmm_rows.values()] + [rows_[0] for rows_ in form_rows.values()]
             + [b6_rows[0], b6_rows[2], b7_rows[0]] + b3_rows + w3_rows + probe_rows)
+
+
+#: (B, T, layers of cache, stacked) of the B6 timings: batch-1 decode at T
+#: = 512 and 2048, the 8-slot engine per layer at T = 512; 32 / 8 layers of
+#: cache (64 MB and up) cycle through so that each call reads its layer cold
+B6_TIMED = ((1, 512, 32, True), (1, 2048, 32, True), (8, 512, 8, False))
+
+
+def graph_ms(fn, calls: int, steps: int = 10) -> float:
+    """Milliseconds per call of `fn(i)`, i over `calls` inputs, `steps`
+    rounds captured in one CUDA graph and replayed under CUDA events: the
+    wall time of back-to-back calls on the card, gaps between launches
+    included. B6 (three launches per call) and its yardstick are timed this
+    way: their cost includes the gaps between launches, which the
+    profiler's per-kernel durations leave out."""
+    import torch
+    from llama3_quantization_tpu_torch.microbench._timing import time_calls
+
+    return time_calls(fn, [(i,) for i in range(calls)], steps, torch.device("cuda"),
+                      replays=3) * 1e3
+
+
+def time_b6(gen, plain=False):
+    """(B, T, stacked, kernel ms, plain ms or None, SDPA ms) at B6_TIMED,
+    G=8, rep=4, D=128, bf16, the decode path's mask; the kernel and SDPA
+    by `graph_ms`, the plain version by the profiler."""
+    import torch
+    import torch.nn.functional as F
+    from llama3_quantization_tpu_torch.ops import decode_attention as da
+
+    g, rep, d, out = 8, 4, 128, []
+    for b, t, layers, stacked in B6_TIMED:
+        bt = 1024 if t % 1024 == 0 else 512
+        k = torch.randn((layers, b, g, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((layers, b, g, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+        q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(torch.bfloat16)
+        mask = decode_mask(b, t)
+        qh, amask = q.reshape(b, g * rep, 1, d), mask[:, None, None, :]
+        ms = graph_ms(lambda i: da.decode_fp(q, k[i], v[i], mask, bt), layers)
+        plain_ms = time_ms(lambda i: da.decode_fp_plain(q, k[i % layers], v[i % layers], mask,
+                                                        bt), 10) if plain else None
+        lib_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+            qh, k[i], v[i], attn_mask=amask, enable_gqa=True), layers)
+        out.append((b, t, stacked, ms, plain_ms, lib_ms))
+        del k, v
+    return out
 
 
 def b3_dequant_bf16(w, k):
@@ -1768,8 +1949,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few decode steps (device time by kernel)")
     ap.add_argument("--prefill-bench", action="store_true",
-                    help="only time B2 at M = 128, 512, 2048 and forward_logits at S = 512, "
-                         "2048 (run it from two checkouts in one call to compare them)")
+                    help="only time B2 at M = 128, 512, 2048 (W4 and W3 gate/up L2-warm and "
+                         "cold), B6 and forward_logits at S = 512, 2048 (run it from two "
+                         "checkouts in one call to compare them)")
+    ap.add_argument("--kernel-bench", action="store_true",
+                    help="only time B2 W4/W3 gate/up at M = 128 (L2-warm and cold) and B6 "
+                         "beside SDPA (run it from two checkouts in one call to compare them)")
     ap.add_argument("--decode-drift", action="store_true",
                     help="only run the full-depth decode through the B5 kernel forms, B6 and "
                          "through B3 (s4 backend) against their plain versions")
@@ -1807,6 +1992,9 @@ def main() -> int:
     if args.prefill_bench:
         prefill_bench(P, card)
         return 0
+    if args.kernel_bench:
+        kernel_bench(P, card, torch.Generator(device="cuda").manual_seed(SEED + 6))
+        return 0
     if args.decode_drift:
         params = build_rtn_params(P)
         decode_drift(P, params, P.LLAMA3_8B, card)
@@ -1827,11 +2015,13 @@ def main() -> int:
         return 0
     check_qmatmul(P, gen, errs)
     check_b2_w3(P, gen, errs)
+    check_b2_batch_invariance(P, gen)
     check_b3(P, gen, errs)
     check_decode_forms(P, gen, errs)
     check_fp_decode(P, gen, errs)
     check_flash(P, gen, errs)
     check_window_merge(P, gen)
+    check_xla_route(P, gen)
     check_probes(P, gen, errs)
     torch.cuda.synchronize()
     if args.kernels_only:
@@ -1850,6 +2040,7 @@ def main() -> int:
     paths.append(drive_a8_serving(P, card, profile=args.profile))
     params = build_rtn_params(P)
     paths.append(drive_rtn_checks(P, params, card))
+    paths.append(drive_routes(P, params, card))
     paths.append(drive_rtn_fp(P, params, card))
     paths.append(drive_rtn_a8(P, params, card))
     del params

@@ -24,6 +24,8 @@ from .models.transformer import (
     init_kv_cache,
     sample_generate,
     sample_logits,
+    set_decode_attn,
+    set_decode_kernel,
     speculative_generate,
 )
 from .models.windowed import decode_window, merge_window_into_cache, set_windowed_decode, windowed_ok
@@ -33,6 +35,8 @@ from .ops.decode_attention import (
     flash_decode_gqa_s8,
     flash_decode_gqa_s8_stacked,
     flash_decode_gqa_stacked,
+    xla_decode_gqa_s8,
+    xla_decode_gqa_s8_stacked,
 )
 from .ops.a8_matmul import a8_matmul, quantize_activations_s8
 from .ops.flash_attention import flash_attention
@@ -66,6 +70,7 @@ __all__ = [
     "params_from_numpy", "prepare_decode_params", "prepare_s4", "qlinear", "qmatmul",
     "quantize_activations_s8", "quantize_model_rtn", "quantize_rtn", "recode_head_s4",
     "recode_head_s8", "recode_model_s8", "recode_s8_percol", "resolve_device", "s4_matmul",
-    "s4w_matmul", "sample_generate", "sample_logits", "set_backend", "set_windowed_decode",
-    "speculative_generate", "unpack_subbyte", "windowed_ok",
+    "s4w_matmul", "sample_generate", "sample_logits", "set_backend", "set_decode_attn",
+    "set_decode_kernel", "set_windowed_decode", "speculative_generate", "unpack_subbyte",
+    "windowed_ok", "xla_decode_gqa_s8", "xla_decode_gqa_s8_stacked",
 ]

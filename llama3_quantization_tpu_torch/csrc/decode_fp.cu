@@ -1,4 +1,4 @@
-// fp-cache single-token GQA flash decode: kernel B6.
+// fp-cache single-token GQA flash decode: kernel B6, split along T.
 //
 // Replaces the TPU kernels `_decode_kernel` / `_decode_kernel_stacked`
 // (llama3_quantization_tpu/ops/decode_attention.py:37,379), reached through
@@ -6,39 +6,55 @@
 // The stacked form is this kernel on the layer view cache[l], which the
 // caller passes as a pointer offset (no copy).
 //
-// Per (b, g) pair, over T blocks of `bt` tokens in order (as the TPU grid):
+// The TPU kernel walks T blocks of `bt` tokens in order, per (b, g):
 //   s     = f32(q[rep, D] . k[bt, D]^T)          q already in the cache dtype
 //   s     = s * f32(1/sqrt(D)) + mask[b, block]   multiply, then add
 //   m_new = max(m, rowmax(s)); alpha = exp(m - m_new); p = exp(s - m_new)
 //   l     = l * alpha + rowsum(p); m = m_new
 //   acc   = acc * alpha + f32(cast(p, cache dtype) . v[bt, D])
 //   out   = cast(acc / l, cache dtype)              (no floor on l)
-// with m = -1e30 and l = acc = 0 at the start. The float steps outside the
-// dots use the _rn intrinsics, so no multiply-add is contracted into an FMA
-// that the TPU kernel does not do; exp is expf. An all-masked row (mask
+// with m = -1e30 and l = acc = 0 at the start. An all-masked row (mask
 // -1e30 everywhere) gives p = 1 for every slot: the mean of v, l = T.
 //
 // What bounds it on the H100: it reads 2 * T * D * itemsize bytes per
 // (b, g) and does 4 * rep * T * D flops on them (rep <= 8), far below the
-// card's ~295 flops per byte, so it is bound by HBM bytes. This first
-// design gives each (b, g) pair one 256-thread block that walks its T
-// blocks in order: scores are one thread per token over 16-byte loads of
-// its key row, with the rep query rows in shared memory; one warp per
-// query row then runs the online softmax over the block; PV spreads 16-byte
-// column chunks of each value row over a half-warp (neighbouring threads on
-// neighbouring addresses) and sums the per-thread partials in a fixed order
-// through shared memory. With B*G blocks only (8 at batch 1, 64 at the
-// serving engine's 8 slots) it cannot fill the 132 SMs. Unlike B5, B6
-// quantizes nothing per block, so splitting T across blocks (flash-decoding
-// with a combine pass) would change only the fp32 summation order: that is
-// the lever for a later redesign.
+// card's ~295 flops per byte, so it is bound by HBM bytes. To stream them
+// at the card's rate it must keep all 132 SMs reading: B * G blocks (8 at
+// batch 1) cannot. So the T axis is split into chunks of `c` tokens that
+// tile each T block, chosen by the wrapper from (B * G, T) so that the grid
+// (chunk, g, b) holds at least 132 blocks, in three launches:
+//   1. scores: s for the chunk, with the rounding points above, into an
+//      fp32 scratch [B, G, rep, T], and the chunk's row maxima;
+//   2. probabilities and PV: each block forms the prefix max of the chunk
+//      maxima of every T block up to and including its own, from -1e30:
+//      exactly the m_new the sequential kernel holds in that T block. So
+//      p = exp(s - m_prefix), rounded to the cache dtype, is the p the TPU
+//      kernel forms from the same scores, bit for bit (the catch of a naive
+//      split: a chunk-local max would round every p of a bf16 cache
+//      differently). The block
+//      writes its l partial (unrounded p), its PV partial [rep, D] (fp32)
+//      and m_prefix;
+//   3. combine, per (b, g, row): every chunk's partials scaled by
+//      exp(m_prefix - M), M the last chunk's m_prefix, summed in chunk
+//      order, acc / l cast to the cache dtype.
+// The result differs from the sequential recurrence only in fp32 order: a
+// product of the per-block alphas becomes one exp per chunk. An all-masked
+// row keeps m_prefix = -1e30 in every chunk: p = 1, weights 1, l = T.
+// Three launches of small blocks: their latency, not bytes, sets the floor
+// at these sizes. Loads: a half-warp reads one key or value row as 16-byte vectors,
+// neighbouring threads on neighbouring addresses. Float steps outside the
+// dots use the _rn intrinsics, so no multiply-add is contracted into an
+// FMA that the TPU kernel does not do; exp is expf. The kernels allocate
+// nothing: the wrapper hands in the scratch.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int TEAM = 16;               // threads reading one row
+constexpr int TEAMS = THREADS / TEAM;  // rows in flight per block
+constexpr float NEG = -1e30f;
 
 template <typename T>
 struct Vec;
@@ -74,156 +90,227 @@ struct Vec<float> {
   __device__ static float get(const float* p) { return *p; }
 };
 
+// Scratch of one call, fp32, [B, G] leading:
+//   S   [B, G, REP, T]       scores
+//   CM  [B, G, REP, NC]      chunk row maxima
+//   MP  [B, G, REP, NC]      m_prefix of each chunk
+//   LP  [B, G, REP, NC]      l partials
+//   PVP [B, G, NC, REP, D]   PV partials
+struct Scratch {
+  float *S, *CM, *MP, *LP, *PVP;
+};
+
+__device__ __forceinline__ float team_sum(float v) {
+#pragma unroll
+  for (int o = TEAM / 2; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// 1. scores and chunk maxima; grid (NC, G, B)
 template <typename T, int REP>
-__global__ void __launch_bounds__(THREADS) decode_fp_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ mask, T* __restrict__ out, int G, int Tlen, int D, int bt,
-    float scale) {
+__global__ void __launch_bounds__(THREADS) fp_scores_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const float* __restrict__ mask,
+    Scratch sc, int G, int Tlen, int D, int c, float scale) {
   constexpr int VN = Vec<T>::N;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int chunks = D / VN;            // 16-byte column chunks of a row
-  const int nsl = THREADS / chunks;     // token slices of the PV pass
-  float* S = reinterpret_cast<float*>(smem);  // [REP][bt] scores, then rounded p
-  float* qs = S + REP * bt;                   // [REP][D]
-  float* acc = qs + REP * D;                  // [REP][D]
-  float* part = acc + REP * D;                // [nsl][REP][D]
-  float* m_s = part + (size_t)nsl * REP * D;  // [REP]
-  float* l_s = m_s + REP;
-  float* al = l_s + REP;
-
-  const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int hq = G * REP;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;              // [REP][D]
+  float* tmax = qs + REP * D;    // [TEAMS][REP]
+  const int j = blockIdx.x, g = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, team = tid / TEAM, tl = tid % TEAM;
   const size_t bg = (size_t)b * G + g;
-  const T* kb = k + bg * Tlen * D;
-  const T* vb = v + bg * Tlen * D;
-  const float* mb = mask + (size_t)b * Tlen;
+  const int t0 = j * c;
+  for (int e = tid; e < REP * D; e += THREADS)
+    qs[e] = Vec<T>::get(q + (bg * REP) * D + e);  // q [B, G*REP, D]: rows g*REP.. of b
+  __syncthreads();
 
-  for (int e = tid; e < REP * D; e += THREADS) {
-    qs[e] = Vec<T>::get(q + ((size_t)b * hq + g * REP) * D + e);
-    acc[e] = 0.f;
+  const int chunks = D / VN;
+  const T* kb = k + (bg * Tlen + t0) * D;
+  const float* mb = mask + (size_t)b * Tlen + t0;
+  float* Sb = sc.S + bg * REP * Tlen + t0;
+  float mx[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) mx[r] = -INFINITY;
+  for (int tb = 0; tb < c; tb += TEAMS) {  // every lane of a warp runs team_sum
+    const int t = tb + team;
+    const bool ok = t < c;
+    float s[REP];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) s[r] = 0.f;
+    for (int cc = tl; ok && cc < chunks; cc += TEAM) {
+      float kf[VN];
+      Vec<T>::load(kb + (size_t)t * D + cc * VN, kf);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float* qr = qs + r * D + cc * VN;
+#pragma unroll
+        for (int i = 0; i < VN; ++i) s[r] = fmaf(qr[i], kf[i], s[r]);
+      }
+    }
+    const float mt = ok ? __ldg(mb + t) : 0.f;
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float v = __fadd_rn(__fmul_rn(team_sum(s[r]), scale), mt);
+      if (ok) {
+        if (tl == 0) Sb[(size_t)r * Tlen + t] = v;
+        mx[r] = fmaxf(mx[r], v);
+      }
+    }
   }
+  if (tl == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) tmax[team * REP + r] = mx[r];
+  }
+  __syncthreads();
   if (tid < REP) {
-    m_s[tid] = -1e30f;
-    l_s[tid] = 0.f;
+    float m = -INFINITY;
+    for (int w = 0; w < TEAMS; ++w) m = fmaxf(m, tmax[w * REP + tid]);
+    sc.CM[(bg * REP + tid) * nc + j] = m;
+  }
+}
+
+// 2. prefix max, probabilities, l and PV partials; grid (NC, G, B)
+template <typename T, int REP>
+__global__ void __launch_bounds__(THREADS) fp_pv_kernel(
+    const T* __restrict__ v, Scratch sc, int G, int Tlen, int D, int bt, int c) {
+  constexpr int VN = Vec<T>::N;
+  extern __shared__ __align__(16) float smem[];
+  const int chunks = D / VN;
+  const int nsl = THREADS / chunks;  // token slices of the PV pass
+  float* P = smem;                   // [REP][c] rounded p
+  float* part = P + REP * c;         // [nsl][REP][D]
+  float* mp_s = part + (size_t)nsl * REP * D;  // [REP]
+  const int j = blockIdx.x, g = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t bg = (size_t)b * G + g;
+  const int t0 = j * c;
+  const int upto = (t0 / bt + 1) * (bt / c);  // chunks of T blocks 0..own
+
+  // m_prefix: warp r reduces row r's chunk maxima up to its own T block
+  for (int r = warp; r < REP; r += THREADS / 32) {
+    const float* cm = sc.CM + (bg * REP + r) * nc;
+    float m = NEG;
+    for (int i = lane; i < upto; i += 32) m = fmaxf(m, cm[i]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) mp_s[r] = m;
   }
   __syncthreads();
 
-  for (int t0 = 0; t0 < Tlen; t0 += bt) {
-    // scores: one thread per token, 16-byte loads of its key row
-    for (int t = tid; t < bt; t += THREADS) {
-      const T* krow = kb + (size_t)(t0 + t) * D;
-      float s[REP];
+  // p = exp(s - m_prefix): l from the unrounded p, P rounded for PV
+  for (int r = warp; r < REP; r += THREADS / 32) {
+    const float* Sr = sc.S + (bg * REP + r) * Tlen + t0;
+    const float m = mp_s[r];
+    float ls = 0.f;
+    for (int t = lane; t < c; t += 32) {
+      const float p = expf(__fsub_rn(Sr[t], m));
+      ls = __fadd_rn(ls, p);
+      P[r * c + t] = Vec<T>::round(p);
+    }
 #pragma unroll
-      for (int r = 0; r < REP; ++r) s[r] = 0.f;
-      for (int c = 0; c < chunks; ++c) {
-        float kf[VN];
-        Vec<T>::load(krow + c * VN, kf);
+    for (int o = 16; o > 0; o >>= 1) ls = __fadd_rn(ls, __shfl_xor_sync(0xffffffffu, ls, o));
+    if (lane == 0) {
+      sc.LP[(bg * REP + r) * nc + j] = ls;
+      sc.MP[(bg * REP + r) * nc + j] = m;
+    }
+  }
+  __syncthreads();
+
+  // PV: thread (slice, column chunk) sums its tokens; slices in order below
+  const T* vb = v + (bg * Tlen + t0) * D;
+  {
+    const int cc = tid % chunks, sl = tid / chunks;
+    if (sl < nsl) {
+      float a[REP][VN];
+#pragma unroll
+      for (int r = 0; r < REP; ++r)
+#pragma unroll
+        for (int i = 0; i < VN; ++i) a[r][i] = 0.f;
+      for (int t = sl; t < c; t += nsl) {
+        float vf[VN];
+        Vec<T>::load(vb + (size_t)t * D + cc * VN, vf);
 #pragma unroll
         for (int r = 0; r < REP; ++r) {
-          const float* qr = qs + r * D + c * VN;
+          const float p = P[r * c + t];
 #pragma unroll
-          for (int j = 0; j < VN; ++j) s[r] = fmaf(qr[j], kf[j], s[r]);
+          for (int i = 0; i < VN; ++i) a[r][i] = fmaf(p, vf[i], a[r][i]);
         }
       }
-      const float mt = __ldg(mb + t0 + t);
 #pragma unroll
-      for (int r = 0; r < REP; ++r) S[r * bt + t] = __fadd_rn(__fmul_rn(s[r], scale), mt);
+      for (int r = 0; r < REP; ++r)
+#pragma unroll
+        for (int i = 0; i < VN; ++i) part[((size_t)sl * REP + r) * D + cc * VN + i] = a[r][i];
     }
-    __syncthreads();
-
-    // online softmax: warp r takes query row r
-    if (warp < REP) {
-      float* Sr = S + warp * bt;
-      float lm = -INFINITY;
-      for (int t = lane; t < bt; t += 32) lm = fmaxf(lm, Sr[t]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) lm = fmaxf(lm, __shfl_xor_sync(0xffffffffu, lm, o));
-      const float m_prev = m_s[warp];
-      const float m_new = fmaxf(m_prev, lm);
-      const float alpha = expf(__fsub_rn(m_prev, m_new));
-      float ls = 0.f;
-      for (int t = lane; t < bt; t += 32) {
-        const float p = expf(__fsub_rn(Sr[t], m_new));
-        ls = __fadd_rn(ls, p);
-        Sr[t] = Vec<T>::round(p);  // p in the cache dtype for PV
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ls = __fadd_rn(ls, __shfl_xor_sync(0xffffffffu, ls, o));
-      if (lane == 0) {
-        l_s[warp] = __fadd_rn(__fmul_rn(l_s[warp], alpha), ls);
-        m_s[warp] = m_new;
-        al[warp] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // PV: thread (slice, chunk) sums its tokens; slices add up in order below
-    {
-      const int c = tid % chunks, sl = tid / chunks;
-      if (sl < nsl) {
-        float a[REP][VN];
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-          for (int j = 0; j < VN; ++j) a[r][j] = 0.f;
-        for (int t = sl; t < bt; t += nsl) {
-          float vf[VN];
-          Vec<T>::load(vb + (size_t)(t0 + t) * D + c * VN, vf);
-#pragma unroll
-          for (int r = 0; r < REP; ++r) {
-            const float p = S[r * bt + t];
-#pragma unroll
-            for (int j = 0; j < VN; ++j) a[r][j] = fmaf(p, vf[j], a[r][j]);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-          for (int j = 0; j < VN; ++j) part[((size_t)sl * REP + r) * D + c * VN + j] = a[r][j];
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < REP * D; e += THREADS) {
-      float pv = 0.f;
-      for (int sl = 0; sl < nsl; ++sl) pv = __fadd_rn(pv, part[(size_t)sl * REP * D + e]);
-      acc[e] = __fadd_rn(__fmul_rn(acc[e], al[e / D]), pv);
-    }
-    __syncthreads();
   }
-
+  __syncthreads();
+  float* out = sc.PVP + (bg * nc + j) * REP * D;
   for (int e = tid; e < REP * D; e += THREADS) {
-    const float o = __fdiv_rn(acc[e], l_s[e / D]);
-    Vec<T>::store(out + ((size_t)b * hq + g * REP) * D + e, o);
+    float pv = 0.f;
+    for (int sl = 0; sl < nsl; ++sl) pv = __fadd_rn(pv, part[(size_t)sl * REP * D + e]);
+    out[e] = pv;
   }
 }
 
-size_t smem_bytes(int rep, int d, int bt, int vn) {
-  const int nsl = THREADS / (d / vn);
-  return 4 * ((size_t)rep * bt + 2 * (size_t)rep * d + (size_t)nsl * rep * d + 3 * rep);
+// 3. combine in chunk order; grid (REP, G, B), D threads
+template <typename T>
+__global__ void fp_combine_kernel(Scratch sc, T* __restrict__ out, int G, int REP, int D,
+                                  int nc) {
+  const int r = blockIdx.x, g = blockIdx.y, b = blockIdx.z, col = threadIdx.x;
+  const size_t bg = (size_t)b * G + g;
+  const float* mp = sc.MP + (bg * REP + r) * nc;
+  const float* lp = sc.LP + (bg * REP + r) * nc;
+  const float* pvp = sc.PVP + bg * nc * REP * D + (size_t)r * D + col;
+  const float M = mp[nc - 1];
+  float acc = 0.f, l = 0.f;
+  for (int i = 0; i < nc; ++i) {
+    const float w = expf(__fsub_rn(mp[i], M));
+    l = __fadd_rn(l, __fmul_rn(lp[i], w));
+    acc = __fadd_rn(acc, __fmul_rn(pvp[(size_t)i * REP * D], w));
+  }
+  Vec<T>::store(out + (bg * REP + r) * D + col, __fdiv_rn(acc, l));
 }
 
 template <typename T, int REP>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
-           int G, int Tlen, int D, int bt, float scale, cudaStream_t st) {
-  const size_t smem = smem_bytes(REP, D, bt, Vec<T>::N);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_fp_kernel<T, REP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
+           float* scratch, int B, int G, int Tlen, int D, int bt, int c, float scale,
+           cudaStream_t st) {
+  const int nc = Tlen / c;
+  const size_t bgr = (size_t)B * G * REP;
+  Scratch sc;
+  sc.S = scratch;
+  sc.CM = sc.S + bgr * Tlen;
+  sc.MP = sc.CM + bgr * nc;
+  sc.LP = sc.MP + bgr * nc;
+  sc.PVP = sc.LP + bgr * nc;
+  const dim3 grid(nc, G, B);
+
+  const size_t smem1 = 4 * ((size_t)REP * D + TEAMS * REP);
+  fp_scores_kernel<T, REP><<<grid, THREADS, smem1, st>>>(
+      (const T*)q, (const T*)k, (const float*)mask, sc, G, Tlen, D, c, scale);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(G, B);
-  decode_fp_kernel<T, REP><<<grid, THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)mask, (T*)out, G, Tlen, D, bt, scale);
+
+  const int nsl = THREADS / (D / Vec<T>::N);
+  const size_t smem2 = 4 * ((size_t)REP * c + (size_t)nsl * REP * D + REP);
+  err = cudaFuncSetAttribute(fp_pv_kernel<T, REP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem2);
+  if (err != cudaSuccess) return (int)err;
+  fp_pv_kernel<T, REP><<<grid, THREADS, smem2, st>>>((const T*)v, sc, G, Tlen, D, bt, c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  fp_combine_kernel<T><<<dim3(REP, G, B), D, 0, st>>>(sc, (T*)out, G, REP, D, nc);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_rep(int rep, const void* q, const void* k, const void* v, const void* mask, void* out,
-               int B, int G, int Tlen, int D, int bt, float scale, cudaStream_t st) {
+               float* scratch, int B, int G, int Tlen, int D, int bt, int c, float scale,
+               cudaStream_t st) {
   switch (rep) {
-    case 1: return launch<T, 1>(q, k, v, mask, out, B, G, Tlen, D, bt, scale, st);
-    case 2: return launch<T, 2>(q, k, v, mask, out, B, G, Tlen, D, bt, scale, st);
-    case 4: return launch<T, 4>(q, k, v, mask, out, B, G, Tlen, D, bt, scale, st);
-    case 8: return launch<T, 8>(q, k, v, mask, out, B, G, Tlen, D, bt, scale, st);
+    case 1: return launch<T, 1>(q, k, v, mask, out, scratch, B, G, Tlen, D, bt, c, scale, st);
+    case 2: return launch<T, 2>(q, k, v, mask, out, scratch, B, G, Tlen, D, bt, c, scale, st);
+    case 4: return launch<T, 4>(q, k, v, mask, out, scratch, B, G, Tlen, D, bt, c, scale, st);
+    case 8: return launch<T, 8>(q, k, v, mask, out, scratch, B, G, Tlen, D, bt, c, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -232,12 +319,15 @@ int launch_rep(int rep, const void* q, const void* k, const void* v, const void*
 
 // q [B, G*rep, D], k/v [B, G, T, D] and out [B, G*rep, D], all bf16 (bf16 = 1)
 // or all fp32; mask fp32 [B, T] (finite). D % 8 == 0, D <= 256, T % bt == 0,
-// rep in {1, 2, 4, 8}; scale is f32(1/sqrt(D)).
+// bt % c == 0, rep in {1, 2, 4, 8}; scale is f32(1/sqrt(D)). scratch: fp32,
+// B*G*rep*(T + 3*T/c) + B*G*(T/c)*rep*D elements (see Scratch).
 extern "C" int l3q_decode_fp(const void* q, const void* k, const void* v, const void* mask,
-                             void* out, int bf16, int B, int G, int rep, int T, int D, int bt,
-                             float scale, void* stream) {
+                             void* out, void* scratch, int bf16, int B, int G, int rep, int T,
+                             int D, int bt, int c, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D % 8 || D > 256 || bt <= 0 || T % bt) return (int)cudaErrorInvalidValue;
-  if (bf16) return launch_rep<__nv_bfloat16>(rep, q, k, v, mask, out, B, G, T, D, bt, scale, st);
-  return launch_rep<float>(rep, q, k, v, mask, out, B, G, T, D, bt, scale, st);
+  if (D % 8 || D > 256 || bt <= 0 || c <= 0 || T % bt || bt % c) return (int)cudaErrorInvalidValue;
+  float* s = (float*)scratch;
+  if (bf16)
+    return launch_rep<__nv_bfloat16>(rep, q, k, v, mask, out, s, B, G, T, D, bt, c, scale, st);
+  return launch_rep<float>(rep, q, k, v, mask, out, s, B, G, T, D, bt, c, scale, st);
 }

@@ -3,8 +3,10 @@ of `llama3_quantization_tpu/models/transformer.py`).
 
 Plain functions over the parameter tree of `models/params.py`. The layer
 stack is a Python loop over the stacked `[L, ...]` tensors (views, no
-copies). Routing depends on shapes alone and follows the JAX package as it
-runs with `set_decode_kernel("interpret")`:
+copies). Routing depends on shapes and on two switches that mirror the
+JAX package's (`transformer.py:290-321`), `set_decode_kernel` and
+`set_decode_attn`; at their defaults it follows the JAX package as it runs
+with `set_decode_kernel("interpret")`:
 
 - full-sequence attention takes kernel B7 (`ops/flash_attention.py`) when
   S >= 128 and no q/k/v/p hook is set, the eager path otherwise
@@ -14,10 +16,20 @@ runs with `set_decode_kernel("interpret")`:
   (`ops/decode_attention.py`) on the int8 or int4 cache, B6 on the fp
   cache (`init_kv_cache(quantized=False)`, the default, bf16 or fp32) -- the
   layer-stacked form for a scalar position, the per-layer form with a
-  `[B, T]` mask for per-row positions (`decode_step_multi`, `:532-592`).
-  The TPU's "auto" mode sends int8 and fp caches to XLA dots instead; the
-  port always uses its kernels, as JAX's `set_decode_attn("kernel")` and
-  `set_decode_kernel(True)` do;
+  `[B, T]` mask for per-row positions (`decode_step_multi`, `:532-592`);
+- `set_decode_kernel(False)` sends every cached step, on all three caches,
+  to the eager attention over the read-back cache and turns the windowed
+  decode off (JAX `:374`, `windowed.py:112-123`): the route JAX takes
+  wherever its gate is False, on the CPU by default. True and "auto" (the
+  default) keep the kernel routing. The port has no "interpret" mode: on
+  the CPU its kernels' plain versions play that part;
+- `set_decode_attn("xla")` sends the int8 cache's single-token steps, and
+  the windowed decode's main segment, to the codes-direct route
+  (`ops/decode_attention.xla_decode_gqa_s8*`, JAX `decode_attention.py:
+  491-586`); "kernel" and "auto" (the default) keep B5, and the int4 cache
+  always takes B5 (JAX `:317`). On a TPU, JAX's "auto" picks the
+  codes-direct route for int8 and its XLA einsum for the fp cache; the port
+  deliberately keeps its kernels (B5, B6) there;
 - an enabled q/k/v/p hook of `RuntimeQuantConfig`, and any prefill into the
   cache (S > 1, the speculative verify too), take the eager attention over
   the dequantized or upcast cache (`:373-376,566,593,603-607`);
@@ -45,6 +57,7 @@ from ..ops.decode_attention import (
     flash_decode_gqa,
     flash_decode_gqa_s8_stacked,
     flash_decode_gqa_stacked,
+    xla_decode_gqa_s8_stacked,
 )
 from ..ops.flash_attention import causal_mask, flash_attention
 from ..ops.kvcache import (
@@ -99,9 +112,41 @@ def _flash_ok(rq: RuntimeQuantConfig) -> bool:
     return all(spec is None for spec in (rq.q, rq.k, rq.v, rq.p))
 
 
+#: decode-kernel switch (`transformer.py:280-294`): True and "auto" route
+#: single-token cached steps to the decode kernels, False to the eager path
+_DECODE_KERNEL: Union[bool, str] = "auto"
+#: int8-KV decode attention (`transformer.py:297-321`): "xla" = the
+#: codes-direct route, "kernel" and "auto" = B5 (the port's "auto")
+_DECODE_ATTN = "auto"
+
+
+def set_decode_kernel(mode) -> None:
+    """True | False | "auto" (the default); see the module docstring."""
+    global _DECODE_KERNEL
+    if mode not in (True, False, "auto"):  # no "interpret": see the module docstring
+        raise ValueError(f"set_decode_kernel takes True, False or 'auto', got {mode!r}")
+    _DECODE_KERNEL = mode
+
+
+def set_decode_attn(mode) -> None:
+    """"auto" (the default) | "xla" | "kernel"; see the module docstring."""
+    global _DECODE_ATTN
+    if mode not in ("auto", "xla", "kernel"):
+        raise ValueError(f"set_decode_attn takes 'auto', 'xla' or 'kernel', got {mode!r}")
+    _DECODE_ATTN = mode
+
+
+def _use_xla_attn(codes_dtype) -> bool:
+    """Does an int8 cache take the codes-direct route? (int4 never.)"""
+    return codes_dtype == torch.int8 and _DECODE_ATTN == "xla"
+
+
 def _decode_kernel_ok(rq: RuntimeQuantConfig) -> bool:
-    """The decode kernels (B5, B6) and the windowed decode host no enabled
-    q/k/v/p hook (`transformer.py:375-376`)."""
+    """The decode kernels (B5, B6), the codes-direct route and the windowed
+    decode: not under `set_decode_kernel(False)`, and hosting no enabled
+    q/k/v/p hook (`transformer.py:374-376`)."""
+    if _DECODE_KERNEL is False:
+        return False
     return not any(sp is not None and sp.enabled for sp in (rq.q, rq.k, rq.v, rq.p))
 
 
@@ -274,7 +319,13 @@ def _attn_block(
         cache_update_stacked(cache, layer, k, v, cache_pos)
         t = cache["k_s"].shape[3]  # logical tokens (int4 rows hold two)
         block_t = decode_block_t(t)
-        if s == 1 and _decode_kernel_ok(rq) and t % block_size(t, block_t) == 0:
+        kernel_ok = s == 1 and _decode_kernel_ok(rq)
+        if kernel_ok and _use_xla_attn(cache["k_q"].dtype):
+            attn = xla_decode_gqa_s8_stacked(
+                q, *(cache[key] for key in CACHE_KEYS), _kernel_mask(mask, b, t), layer,
+                out_dtype=h.dtype,
+            )
+        elif kernel_ok and t % block_size(t, block_t) == 0:
             attn = flash_decode_gqa_s8_stacked(
                 q, *(cache[key] for key in CACHE_KEYS), _kernel_mask(mask, b, t), layer,
                 out_dtype=h.dtype, block_t=block_t,

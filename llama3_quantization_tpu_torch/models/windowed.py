@@ -5,10 +5,11 @@ written during the window: each step writes its K/V only into small
 per-window buffers `[L, B, H, KW, *]` indexed by the step, and attention is
 the online-softmax merge (`_merge_attn`) of
 
-- kernel B5 with `return_stats=True` over the main cache, whose mask is
-  frozen at `pos0 - 1` (`windowed.py:480-488`): slots from `pos0` on hold
-  stale data until the merge, and the window segment supplies every newer
-  token;
+- kernel B5 with `return_stats=True` over the main cache, or under
+  `set_decode_attn("xla")` on an int8 cache the codes-direct route with
+  its statistics (`windowed.py:201-211`), whose mask is frozen at
+  `pos0 - 1` (`windowed.py:480-488`): slots from `pos0` on hold stale data
+  until the merge, and the window segment supplies every newer token;
 - exact fp32 attention over the window segment (`_window_attn`), plain
   PyTorch as in JAX, which computes it outside any Pallas kernel.
 
@@ -20,8 +21,9 @@ gather merge (`windowed.py:263-439`), which are two forms of that mapping.
 
 Scope as in JAX: quantized stacked caches (int8 / int4), single-token
 steps, sink tokens, no enabled q/k/v/p hook (the `act` hook runs in the
-window's linears). Callers fall back to per-step decode otherwise
-(`windowed_ok`: an fp cache never takes it) and when a window would evict
+window's linears), not under `set_decode_kernel(False)`. Callers fall back
+to per-step decode otherwise (`windowed_ok`: an fp cache never takes it)
+and when a window would evict
 (see `greedy_generate` and `ServingEngine._dispatch_window`).
 """
 
@@ -32,7 +34,12 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from ..ops.decode_attention import NEG, block_size, flash_decode_gqa_s8_stacked
+from ..ops.decode_attention import (
+    NEG,
+    block_size,
+    flash_decode_gqa_s8_stacked,
+    xla_decode_gqa_s8_stacked,
+)
 from ..ops.kvcache import CACHE_KEYS, kv4_codes, kv_quantize, true_div
 from ..ops.matmul import prepare_decode_params, qlinear
 from .configs import ModelConfig
@@ -44,6 +51,7 @@ from .transformer import (
     _kernel_mask,
     _layer_params,
     _mlp_block,
+    _use_xla_attn,
     _ring_write_and_mask,
     apply_rope,
     decode_block_t,
@@ -74,14 +82,16 @@ def windowed_ok(
 ) -> bool:
     """Is the window write-combined decode applicable? (`windowed.py:85-123`
     as it runs with the decode kernel: a llama stack over a quantized
-    cache whose length the kernel's T blocks tile, no enabled q/k/v/p
-    hook.) The ring-crossing gate lives in the callers, as in JAX."""
+    cache whose length the kernel's T blocks tile, unless the main segment
+    takes the codes-direct route, no enabled q/k/v/p hook, and not under
+    `set_decode_kernel(False)`.) The ring-crossing gate lives in the
+    callers, as in JAX."""
     if not _WINDOWED or cfg.arch != "llama" or cfg.is_moe or cfg.parallel_block:
         return False
     if sorted(cache) != sorted(CACHE_KEYS) or not _decode_kernel_ok(rq):
         return False
     t = cache["k_s"].shape[3]
-    return t % block_size(t, decode_block_t(t)) == 0
+    return _use_xla_attn(cache["k_q"].dtype) or t % block_size(t, decode_block_t(t)) == 0
 
 
 def _merge_attn(o1, m1, l1, o2, m2, l2):
@@ -115,9 +125,9 @@ def _window_attn(q, wk, wks, wv, wvs, wmask):
 
 
 def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx, layer, block_t):
-    """Attention = B5 (main cache, read in place) merged with exact
-    attention over the window. Writes this step's K/V codes into slot
-    `widx` of the layer's window buffers."""
+    """Attention = B5 or the codes-direct route (main cache, read in
+    place) merged with exact attention over the window. Writes this step's
+    K/V codes into slot `widx` of the layer's window buffers."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
     q, k, v = qkv_proj(p, x, cfg, rq.act)  # fused qkv as `windowed.py:172-177`
@@ -134,10 +144,12 @@ def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx,
 
     g = cfg.num_kv_heads
     rep = cfg.num_heads // g
-    o1, m1, l1 = flash_decode_gqa_s8_stacked(
-        q, *(cache[key] for key in CACHE_KEYS), main_mask, layer,
-        out_dtype=torch.float32, block_t=block_t, return_stats=True,
-    )
+    main = (q, *(cache[key] for key in CACHE_KEYS), main_mask, layer)
+    if _use_xla_attn(cache["k_q"].dtype):
+        o1, m1, l1 = xla_decode_gqa_s8_stacked(*main, out_dtype=torch.float32, return_stats=True)
+    else:
+        o1, m1, l1 = flash_decode_gqa_s8_stacked(*main, out_dtype=torch.float32, block_t=block_t,
+                                                 return_stats=True)
     o1 = o1.reshape(b, g, rep, hd)
     kw = wk.shape[2]
     wmask = torch.where(torch.arange(kw, device=x.device) <= widx, 0.0, -math.inf)

@@ -18,8 +18,15 @@ version dots the unpacked s8 codes and gets the same integers.
 B6 ports `flash_decode_gqa` / `flash_decode_gqa_stacked` (`:443,389`), the
 flash decode over a bf16 or fp32 cache: fp32 scores and online softmax, p
 cast to the cache dtype before PV, the output in the cache dtype. Its kernel
-is `csrc/decode_fp.cu`; `decode_fp_plain` runs the same T blocks with the
-same rounding points.
+is `csrc/decode_fp.cu`, split along T into chunks (`fp_split_chunk`) with
+each chunk's p formed against the running max of the TPU kernel's T blocks;
+`decode_fp_plain` runs the same T blocks in order with the same rounding
+points, and `decode_fp_split_plain` is the split algorithm in PyTorch.
+
+`xla_decode_gqa_s8(_stacked)` ports the codes-direct int8 route
+(`:491-586`), JAX's default int8 route on a TPU, which is XLA code outside
+any Pallas kernel: plain tensor ops on either device, selected by
+`models.transformer.set_decode_attn("xla")`.
 
 The wrappers use the plain version for CPU tensors; for CUDA tensors they
 launch the kernel or raise. Each form has its own launch count: `B5`,
@@ -58,7 +65,7 @@ def _lib():
 def _lib_fp():
     lib = _build.load("decode_fp")
     if not getattr(lib, "_l3q_typed", False):
-        lib.l3q_decode_fp.argtypes = [_P] * 5 + [_I] * 7 + [_F, _P]
+        lib.l3q_decode_fp.argtypes = [_P] * 6 + [_I] * 8 + [_F, _P]
         lib.l3q_decode_fp.restype = _I
         lib._l3q_typed = True
     return lib
@@ -78,6 +85,16 @@ def s8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape[-1] > 1024:
         raise ValueError("s8_dot is exact only for contractions of <= 1024 terms")
     return torch.matmul(a.float(), b.float()).to(torch.int32)
+
+
+def s8_dot_long(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`s8_dot` over a contraction of any length: the int32 sum of exact
+    dots over chunks of at most 1024 terms, itself exact."""
+    n = a.shape[-1]
+    out = s8_dot(a[..., :1024], b[..., :1024, :])
+    for c0 in range(1024, n, 1024):
+        out = out + s8_dot(a[..., c0 : c0 + 1024], b[..., c0 : c0 + 1024, :])
+    return out
 
 
 def block_size(t: int, block_t: int = 1024) -> int:
@@ -202,17 +219,73 @@ def flash_decode_gqa_s8_stacked(
     )
 
 
+def _xla_s8_core(qg, kq, ks, vq, vs, mask):
+    """The codes-direct route's math (`decode_attention.py:491-524`): qg
+    [B, G, rep, D] fp32; kq/vq int8 [B, G, T, D]; ks/vs fp32 [B, G, T];
+    mask fp32 [B, T]. q is quantized per row to s8 against
+    max(amax, 1e-8) / 127, the QK dot is exact in s32, the scores
+    `s32 * (qs * scale) * ks + mask` take one softmax over the whole T, the
+    probabilities `p * vs` are requantized per row against
+    max(amax, 1e-20) / 127, the PV dot is exact in s32, and
+    o = pv32 * ps / max(l, 1e-30). Returns (o [B, G, rep, D], m, l), m and
+    l fp32 [B, G, rep]."""
+    d = qg.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qs = true_div(qg.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8), 127.0)
+    qc = torch.round(qg / qs).clamp(-127, 127).to(torch.int8)
+    s32 = s8_dot(qc, kq.transpose(-1, -2))  # [B, G, rep, T]: contracts D
+    s = s32.float() * (qs * scale) * ks[:, :, None, :] + mask[:, None, None, :]
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    pv_f = p * vs[:, :, None, :]
+    ps = true_div(pv_f.abs().amax(dim=-1, keepdim=True).clamp(min=1e-20), 127.0)
+    pc = torch.round(pv_f / ps).clamp(-127, 127).to(torch.int8)
+    pv32 = s8_dot_long(pc, vq)  # [B, G, rep, D]: contracts T
+    o = pv32.float() * ps / l.clamp(min=1e-30)[..., None]
+    return o, m, l
+
+
+def xla_decode_gqa_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16,
+                      return_stats=False):
+    """The codes-direct int8-KV decode (`decode_attention.py:527-555`), the
+    JAX package's default int8 route on a TPU, where it is XLA code outside
+    any Pallas kernel: plain tensor ops here, on either device. q
+    [B, 1, Hq, D]; k_q/v_q int8 [B, G, T, D]; k_s/v_s fp32 [B, G, T, 1];
+    mask fp32 [B, T]. Returns o [B, 1, Hq, D] in `out_dtype`, and with
+    `return_stats` also m and l fp32 [B, G, rep]."""
+    b, s, hq, d = q.shape
+    if s != 1 or k_q.dtype != torch.int8:
+        raise ValueError(f"single-token decode over int8 codes (S={s}, codes {k_q.dtype})")
+    g, t = k_q.shape[1], k_q.shape[2]
+    qg = q.reshape(b, g, hq // g, d).float()
+    o, m, l = _xla_s8_core(qg, k_q, k_s.reshape(b, g, t), v_q, v_s.reshape(b, g, t),
+                           mask.float())
+    out = o.reshape(b, 1, hq, d).to(out_dtype)
+    return (out, m, l) if return_stats else out
+
+
+def xla_decode_gqa_s8_stacked(q, k_q, k_s, v_q, v_s, mask, layer: int,
+                              out_dtype=torch.bfloat16, return_stats=False):
+    """`xla_decode_gqa_s8` on layer `layer` of the stacked int8 cache
+    `[L, B, G, T, *]` (`decode_attention.py:558-586`), through the layer
+    views."""
+    return xla_decode_gqa_s8(q, k_q[layer], k_s[layer], v_q[layer], v_s[layer], mask,
+                             out_dtype, return_stats)
+
+
 def fp_launch_key(dtype) -> str:
     """The launch-count key of B6 on a cache of `dtype`."""
     return "B6" if dtype == torch.bfloat16 else "B6.f32"
 
 
-def decode_fp_plain(q, k, v, mask, block_t=512):
+def decode_fp_plain(q, k, v, mask, block_t=512, return_p=False):
     """B6's function. q [B, 1, Hq, D] in the cache dtype; k/v bf16 or fp32
     [B, G, T, D]; mask fp32 [B, T] (finite). fp32 scores scaled by the fp32
     constant 1/sqrt(D) (a multiply), online softmax over T blocks in order,
     p cast to the cache dtype for PV, `acc / l` cast to q's dtype. Returns
-    o [B, 1, Hq, D]."""
+    o [B, 1, Hq, D], and with `return_p` also the rounded p fp32
+    [B, G, rep, T] that entered PV."""
     b, s, hq, d = q.shape
     g, t = k.shape[1], k.shape[2]
     rep = hq // g
@@ -225,16 +298,77 @@ def decode_fp_plain(q, k, v, mask, block_t=512):
     m = torch.full((b, g, rep, 1), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, g, rep, d), dtype=torch.float32, device=q.device)
+    ps = []
     for t0 in range(0, t, bt):
         sl = slice(t0, t0 + bt)
-        sc = torch.matmul(qf, k[:, :, sl].float().transpose(-1, -2)) * scale + msk[..., sl]
+        sc = _fp_scores(qf, k[:, :, sl], msk[..., sl], scale)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(sc - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         m = m_new
-        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), v[:, :, sl].float())
-    return (acc / l).to(q.dtype).reshape(b, 1, hq, d)
+        pr = p.to(v.dtype).float()
+        ps.append(pr)
+        acc = acc * alpha + torch.matmul(pr, v[:, :, sl].float())
+    out = (acc / l).to(q.dtype).reshape(b, 1, hq, d)
+    return (out, torch.cat(ps, dim=-1)) if return_p else out
+
+
+def _fp_scores(qf, k_blk, msk_blk, scale):
+    """fp32 scores of one T block: `f32(q . k^T) * scale + mask`."""
+    return torch.matmul(qf, k_blk.float().transpose(-1, -2)) * scale + msk_blk
+
+
+#: streaming multiprocessors of an H100: the split B6 wants this many blocks
+SMS = 132
+
+
+def fp_split_chunk(bg: int, t: int, bt: int) -> int:
+    """Tokens per block of the split B6: halve the T block `bt` while the
+    grid of `bg * t / c` blocks stays below one per SM, down to 16 tokens.
+    Depends on (B * G, T) only."""
+    c = bt
+    while c % 2 == 0 and c >= 32 and bg * (t // c) < SMS:
+        c //= 2
+    return c
+
+
+def decode_fp_split_plain(q, k, v, mask, block_t=512, return_p=False):
+    """The split B6's algorithm in PyTorch, with its chunking (not on the
+    main path: the tests and `chip_smoke.py` hold it against
+    `decode_fp_plain`). Same arguments. Scores per T block as
+    `decode_fp_plain` forms them, row maxima per chunk of
+    `fp_split_chunk` tokens; each chunk's p = exp(s - m_prefix) with
+    m_prefix the running max up to the end of its T block (from -1e30), so
+    the rounded p are the sequential ones bit for bit; l and PV partials
+    per chunk; combined with weights exp(m_prefix - M) in chunk order."""
+    b, s, hq, d = q.shape
+    g, t = k.shape[1], k.shape[2]
+    rep = hq // g
+    bt = block_size(t, block_t)
+    if s != 1 or t % bt:
+        raise ValueError(f"single-token decode with T % block == 0 (T={t}, block={bt})")
+    c = fp_split_chunk(b * g, t, bt)
+    nc, per = t // c, bt // c
+    scale = 1.0 / math.sqrt(d)
+    qf = q.reshape(b, g, rep, d).float()
+    msk = mask.float()[:, None, None, :]
+    sc = torch.cat([_fp_scores(qf, k[:, :, t0 : t0 + bt], msk[..., t0 : t0 + bt], scale)
+                    for t0 in range(0, t, bt)], dim=-1).reshape(b, g, rep, nc, c)
+    cmax = sc.amax(dim=-1)  # 1. chunk row maxima [B, G, rep, NC]
+    bmax = cmax.reshape(b, g, rep, nc // per, per).amax(dim=-1)
+    mp = torch.cummax(bmax.clamp(min=NEG), dim=-1).values.repeat_interleave(per, dim=-1)
+    p = torch.exp(sc - mp[..., None])  # 2. the sequential kernel's p
+    lp = p.sum(dim=-1)
+    pr = p.to(v.dtype).float()
+    pvp = torch.einsum("bgrnc,bgncd->bgrnd", pr, v.float().reshape(b, g, nc, c, d))
+    w = torch.exp(mp - mp[..., -1:])  # 3. combine
+    acc, l = pvp[..., 0, :] * w[..., 0, None], lp[..., 0] * w[..., 0]
+    for i in range(1, nc):
+        acc = acc + pvp[..., i, :] * w[..., i, None]
+        l = l + lp[..., i] * w[..., i]
+    out = (acc / l[..., None]).to(q.dtype).reshape(b, 1, hq, d)
+    return (out, pr.reshape(b, g, rep, t)) if return_p else out
 
 
 def decode_fp(q, k, v, mask, block_t=512):
@@ -259,10 +393,14 @@ def decode_fp(q, k, v, mask, block_t=512):
             raise ValueError(f"{name} must be contiguous {xdt} {shape} on {dev}")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("B6 loads k and v rows as 16-byte vectors: 16-byte aligned buffers")
+    c = fp_split_chunk(b * g, t, bt)
+    nc = t // c
     out = torch.empty((b, 1, hq, d), dtype=dt, device=dev)
+    # scores, chunk maxima, m_prefix, l partials, PV partials (decode_fp.cu)
+    scratch = torch.empty(b * g * rep * (t + 3 * nc + nc * d), dtype=torch.float32, device=dev)
     err = _lib_fp().l3q_decode_fp(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        int(dt == torch.bfloat16), b, g, rep, t, d, bt,
+        scratch.data_ptr(), int(dt == torch.bfloat16), b, g, rep, t, d, bt, c,
         float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)), _build.stream_ptr(dev),
     )
     _build.check(err, "decode_fp (B6)")

@@ -4,7 +4,7 @@ Port of `llama3_quantization_tpu/ops/pallas_qmatmul.fused_dequant_matmul`.
 B1 (`csrc/qmatmul.cu` `qmm_gemv_kernel`, the TPU `_qmm_v2_kernel`) serves
 M <= 64 and applies scale and zero after the dot; B2 (`qmm_gemm_kernel`,
 the TPU `_qmm_kernel` v1) serves M > 64 and dequantizes each weight tile
-to bf16 before a bf16 MMA. Both cast x to bf16 and accumulate in fp32.
+to bf16 before a bf16 MMA, in a pipelined shared-memory ring. Both cast x to bf16 and accumulate in fp32.
 3-bit bit-plane weights always take B2, as the TPU wrapper sends them to v1.
 `version=3` (or `L3Q_QMM_V=3`, read as JAX reads it) takes B3, the W·A8
 integer kernel of `ops/qmatmul_a8.py`, on the packed weight and its fp32
@@ -153,20 +153,36 @@ def qmm_gemv(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     return out
 
 
+#: B2's tile: 128 rows, 128 columns, 64 k per pipeline stage
+B2_BN, B2_KT = 128, 64
+
+
+def b2_ksplit(k: int, n: int) -> int:
+    """B2's K split, from (K, N) alone, so that a row's result does not
+    depend on how many rows share the call (batch-invariant prefills): none
+    when one 128-row tile of columns already covers 3/4 of the card's SMs,
+    else enough splits for one block per SM."""
+    tiles = -(-n // B2_BN)
+    sms = TARGET_BLOCKS // 2
+    return 1 if 4 * tiles >= 3 * sms else min(-(-sms // tiles), k // B2_KT)
+
+
 def qmm_gemm(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     """Kernel B2 on the card (M > 64)."""
     f = _check_weight(qt, x2d.device)
     gs = qt.group_size or qt.k
-    if qt.k % 32 or gs % 32:
-        raise ValueError(f"B2 needs K and group_size multiples of 32, got {qt.k}, {gs}")
+    run = 8 if f == PLANES3 else 8 * f  # a run of 8 k rows lies in one group
+    if qt.k % B2_KT or gs % run or qt.n % 16:
+        raise ValueError(f"B2 needs K % 64 == 0, group_size % {run} == 0 and N % 16 == 0, "
+                         f"got K={qt.k}, group_size={gs}, N={qt.n}")
     out_bf16 = _build.out_flag(out_dtype)
     m = x2d.shape[0]
     xb = x2d.to(torch.bfloat16).contiguous()
+    for name, t in (("x", xb), ("codes", qt.data), ("scale", qt.scale), ("zero", qt.zero)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"B2 copies {name} in 16-byte chunks: it must be 16-byte aligned")
     out = torch.empty((m, qt.n), dtype=out_dtype, device=x2d.device)
-    # the K split follows (K, N) alone, so a row's result does not depend
-    # on how many rows share the call (batch-invariant prefills)
-    tiles = -(-qt.n // 64)
-    ksplit = 1 if 2 * tiles >= TARGET_BLOCKS else min(-(-TARGET_BLOCKS // tiles), qt.k // 32)
+    ksplit = b2_ksplit(qt.k, qt.n)
     part = _scratch(ksplit, m, qt.n, x2d.device)
     err = _lib().l3q_qmm_gemm(
         xb.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), qt.zero.data_ptr(),

@@ -135,6 +135,106 @@ def test_b2_three_bit_planes_match_plain(cuda_device, m):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
+#: (bits, packed, group size) of the B2 layouts: 4- and 2-bit group-local
+#: nibbles, int8 and uint8 codes, 3-bit bit planes
+B2_LAYOUTS = [(4, True, 64), (4, True, 32), (2, True, 64), (8, False, 64), (8, True, 64),
+              (3, True, 64), (3, True, 32)]
+
+
+@pytest.mark.parametrize("bits,pack,gs", B2_LAYOUTS)
+@pytest.mark.parametrize("m", [65, 200])
+def test_b2_ragged_m_matches_plain(cuda_device, bits, pack, gs, m):
+    """B2 with a partly filled 128-row tile (M = 65, 200) and a partly
+    filled 128-column tile (N = 144), every layout: fp32 out within 1e-4 *
+    max|ref| (fp32 order), bf16 within 1e-2."""
+    rng = np.random.default_rng(bits * 100 + m + gs)
+    w = torch.from_numpy(rng.standard_normal((256, 144)).astype(np.float32)).to(cuda_device)
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=bits, group_size=gs), pack=pack)
+    x = torch.from_numpy(rng.standard_normal((m, 256)).astype(np.float32)).to(cuda_device)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        got, ref = fq.qmm_gemm(x, qt, dt), fq.qmm_gemm_plain(x, qt, dt)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=tol * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("bits,gs", [(4, 32), (4, 128), (3, 64)])
+def test_b2_batch_invariant(cuda_device, bits, gs):
+    """The K split follows (K, N) alone: rows 0..7 of an M = 128 call equal
+    the same rows of an M = 72 call bit for bit (N = 128: a split of K)."""
+    rng = np.random.default_rng(bits + gs)
+    w = torch.from_numpy(rng.standard_normal((512, 128)).astype(np.float32)).to(cuda_device)
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=bits, group_size=gs), pack=True)
+    assert fq.b2_ksplit(512, 128) > 1
+    x = torch.from_numpy(rng.standard_normal((128, 512)).astype(np.float32)).to(cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(fq.qmm_gemm(x, qt, dt)[:8], fq.qmm_gemm(x[:72].clone(), qt, dt)[:8])
+
+
+def test_b2_rejects_what_it_cannot_take(cuda_device):
+    """No fallback: K % 64 != 0 or N % 16 != 0 raise."""
+    spec = P.QuantSpec(n_bits=4, group_size=32)
+    qt = P.quantize_rtn(torch.randn((96, 64), device=cuda_device), spec, pack=True)
+    with pytest.raises(ValueError):
+        fq.qmm_gemm(torch.zeros((80, 96), device=cuda_device), qt, torch.float32)
+    qt = P.quantize_rtn(torch.randn((128, 40), device=cuda_device), spec, pack=True)
+    with pytest.raises(ValueError):
+        fq.qmm_gemm(torch.zeros((80, 128), device=cuda_device), qt, torch.float32)
+
+
+@pytest.mark.parametrize("b,t", [(8, 512), (1, 2048)])
+def test_xla_route_on_card_matches_cpu(cuda_device, b, t):
+    """The codes-direct int8 route (stacked, with m/l) on the card against
+    the same call on CPU copies: exact s32 dots, so o within 1e-5 * max|o|,
+    m within 1e-6 * |m|, l within 1e-5 * l (fp32 order, an ulp of exp)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b + t)
+    g, rep, d = 8, 4, 128
+    kv = torch.randn((2, 2, b, g, t, d), generator=gen, device=cuda_device)
+    kq, ks = P.kv_quantize(kv[0])
+    vq, vs = P.kv_quantize(kv[1])
+    q = torch.randn((b, 1, g * rep, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    mask = torch.zeros((b, t), device=cuda_device)
+    mask[:, t - t // 8:] = da.NEG
+    mask[0, : t // 3] = -3.0
+    if b > 1:
+        mask[1] = da.NEG
+    args = (q, kq, ks, vq, vs, mask)
+    go, gm, gl = da.xla_decode_gqa_s8_stacked(*args, 1, torch.float32, return_stats=True)
+    ro, rm, rl = da.xla_decode_gqa_s8_stacked(*(a.cpu() for a in args), 1, torch.float32,
+                                              return_stats=True)
+    torch.testing.assert_close(go.cpu(), ro, rtol=0, atol=1e-5 * float(ro.abs().max()))
+    torch.testing.assert_close(gm.cpu(), rm, rtol=1e-6, atol=0)
+    torch.testing.assert_close(gl.cpu(), rl, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t", [(1, 512), (1, 1024), (1, 2048), (1, 4096), (8, 512),
+                                 (8, 2048)])
+def test_fp_decode_split_matches_plain(cuda_device, dtype, b, t):
+    """The split B6 at the paths' shapes (G = 8, rep = 4, D = 128), one to
+    four T blocks, with (B = 8) an all-masked row and a row valid only in
+    its first T block: within 1e-5 * max|ref| (fp32 cache) or 1e-2 (bf16);
+    the split algorithm's plain twin gives the plain version's rounded p
+    bit for bit on the card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * 10 + t)
+    g, rep, d = 8, 4, 128
+    bt = 1024 if t % 1024 == 0 else 512
+    k = torch.randn((b, g, t, d), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((b, g, t, d), generator=gen, device=cuda_device).to(dtype)
+    q = torch.randn((b, 1, g * rep, d), generator=gen, device=cuda_device).to(dtype)
+    mask = torch.zeros((b, t), device=cuda_device)
+    mask[:, t - t // 8:] = da.NEG
+    if b > 1:
+        mask[0] = da.NEG
+        mask[1, min(bt, t - t // 8):] = da.NEG
+    got = da.flash_decode_gqa(q, k, v, mask, bt)
+    ref, p_ref = da.decode_fp_plain(q, k, v, mask, bt, return_p=True)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=tol * float(ref.float().abs().max()))
+    _, p_twin = da.decode_fp_split_plain(q, k, v, mask, bt, return_p=True)
+    assert torch.equal(p_twin, p_ref)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda_device, out_dtype):
     """B5 over two T blocks with masked slots. 2e-3 * max|out| in fp32 (a

@@ -19,6 +19,14 @@
   output one ulp apart, or, with W4 weights, an activation that B1/B2 round
   to the neighbouring bf16 value after an fp32 sum in another order (one
   such flip moves a K entry by 2.4e-3).
+- The split B6's algorithm (`decode_fp_split_plain`, the kernel's chunking
+  along T at the paths' shapes G = 8, rep = 4, D = 128, T = 512, 1024 and
+  2048, B = 1, 2 and 8) against the sequential `decode_fp_plain`: the
+  rounded probabilities that enter PV bit-equal, the output within
+  1e-5 * max|ref| in fp32 (the combine's fp32 order) and one bf16 ulp of
+  max|ref| in bf16; with an all-masked row (the mean of v), a row masked
+  only in its later T blocks, and a row whose first T block is pushed down
+  so that a later block raises the running max.
 - A prefill or verify of S tokens that runs past `max_len`: JAX's
   `dynamic_update_slice` clamps the write to the last S slots and keeps its
   mask; the port's logits and caches (fp32, int8 and int4) equal JAX's.
@@ -259,3 +267,53 @@ def test_prefill_past_max_len_matches_jax(both_models, kind, pos, s):
             if kind == 4:
                 got, ref = kv4_unpack_codes(got), kv4_unpack_codes(ref)
             assert int((got.int() - ref.int()).abs().max()) <= 1, key
+
+
+#: (B, T) of the split checks: batch-1 decode at three lengths, the
+#: 8-slot engine, and a batch of two rows at two T blocks of 1024
+SPLIT_CASES = [(1, 512), (1, 1024), (1, 2048), (8, 512), (2, 2048)]
+
+
+def _split_inputs(b, t, tdt, seed):
+    g, rep, d = 8, 4, 128
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, 1, g * rep, d), generator=gen).to(tdt)
+    k = torch.randn((b, g, t, d), generator=gen).to(tdt)
+    v = torch.randn((b, g, t, d), generator=gen).to(tdt)
+    mask = -2.0 * torch.rand((b, t), generator=gen)
+    bt = TT.decode_block_t(t)
+    mask[0, min(bt, t - t // 8):] = da.NEG  # row 0: masked in its later T blocks
+    if b > 1:
+        mask[1] = da.NEG  # row 1: all masked
+    if b > 2:
+        mask[2, : t // 2] -= 8.0  # row 2: the running max rises in a later block
+    return q, k, v, mask.contiguous(), bt
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,t", SPLIT_CASES)
+def test_split_plain_matches_sequential(b, t, dtype):
+    tdt = DTYPES[dtype][1]
+    q, k, v, mask, bt = _split_inputs(b, t, tdt, seed=b * 7 + t)
+    ref, p_ref = da.decode_fp_plain(q, k, v, mask, bt, return_p=True)
+    got, p_got = da.decode_fp_split_plain(q, k, v, mask, bt, return_p=True)
+    assert torch.equal(p_got, p_ref)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    _check(got, ref.float().numpy(), dtype)
+    if b > 1:  # the all-masked row: every p is 1, the output the mean of v
+        assert bool((p_got[1] == 1).all())
+        mean_v = v[1].float().mean(dim=1).repeat_interleave(4, dim=0)
+        _check(got[1, 0], mean_v.to(tdt).float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("bg,t,c", [(8, 512, 16), (8, 1024, 32), (8, 2048, 64), (8, 4096, 128),
+                                    (64, 512, 128), (64, 2048, 512), (16, 2048, 128),
+                                    (2, 48, 24), (2, 200, 25)])
+def test_split_chunk_fills_the_card(bg, t, c):
+    """The chunk follows (B * G, T) alone: the largest halving of the T
+    block that gives at least one block per SM, halving no chunk below 32
+    tokens (so at least 16)."""
+    bt = da.block_size(t, TT.decode_block_t(t))
+    assert da.fp_split_chunk(bg, t, bt) == c
+    assert bt % c == 0
+    assert bg * (t // c) >= da.SMS or c < 32 or c % 2

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package (a
 forward, serving engines on the int4 and the default fp cache, the W·A8
-backends, sampled and speculative decoding, a hooked decode and a
-microbench entry point run with both blocked), and an entry point called
+backends, sampled and speculative decoding, a hooked decode, the decode
+routes and a microbench entry point run with both blocked), and an entry
+point called
 without `device` on a machine without CUDA raises instead of running on
 the CPU."""
 
@@ -78,6 +79,23 @@ def test_port_runs_with_jax_blocked():
                                   v=P.QuantSpec(n_bits=4))
         out, _ = P.greedy_generate(params, fp(), toks[:, -1:], 0, 4, cfg, rq)
         assert out.shape == (1, 4) and P.fake_quant_dynamic(toks.float(), rq.k).shape == toks.shape
+        # the decode routes: eager with the kernels off, the codes-direct int8 route
+        try:
+            P.set_decode_kernel(False)
+            eng = ServingEngine(params, cfg, max_slots=2, max_len=64, quantized_cache=8,
+                                device="cpu")
+            eng.submit([1, 2, 3], 5)
+            eng.run_pipelined(4)
+            assert eng.dispatches["windowed"] == 0 and not windowed.windowed_ok(cfg, eng.cache)
+        finally:
+            P.set_decode_kernel("auto")
+        try:
+            P.set_decode_attn("xla")
+            cache = P.init_kv_cache(cfg, 1, 32, quantized=8, device="cpu")
+            out, _ = P.greedy_generate(params, cache, toks[:, -1:], 0, 4, cfg)
+            assert out.shape == (1, 4)
+        finally:
+            P.set_decode_attn("auto")
         from llama3_quantization_tpu_torch.microbench import w4_v4
         res = w4_v4.main(["512", "256", "256", "128", "--device", "cpu", "--steps", "1"])
         assert res["max_rel_err"] < 1e-5

@@ -89,3 +89,12 @@ def test_three_bit_planes_match_pallas_v1(m):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
     np.testing.assert_array_equal(fq.qmm_gemm_plain(torch.from_numpy(x), tq, torch.float32)
                                   .numpy(), got)
+
+
+@pytest.mark.parametrize("k,n,ksplit", [(4096, 4096, 5), (4096, 1024, 17), (4096, 14336, 1),
+                                        (14336, 4096, 5), (256, 128, 4)])
+def test_b2_ksplit_follows_k_and_n(k, n, ksplit):
+    """B2's K split depends on (K, N) alone (so a row's result does not
+    depend on M) and never exceeds the 64-row k tiles of K."""
+    assert fq.b2_ksplit(k, n) == ksplit
+    assert 1 <= ksplit <= k // fq.B2_KT
