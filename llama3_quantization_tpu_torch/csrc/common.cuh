@@ -1,9 +1,20 @@
 // Shared helpers for the port's hand-written Hopper kernels (sm_90a).
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// A timing switch, 0 in the normal build: each bit removes one phase of a
+// kernel so that the rest can be timed without it (the results are then
+// wrong). B3's tiled form: 1 the unpack, 2 the group epilogue, 4 the
+// wgmma; B7: 8 the V loads, 16 the exp, 32 the PV wgmma. `ops/_build.py`
+// passes it from the environment variable of the same name.
+#ifndef L3Q_ABLATE
+#define L3Q_ABLATE 0
+#endif
 
 namespace l3q {
 
@@ -82,11 +93,126 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
+// The same for 8 bytes (through L1: .cg takes 16-byte copies only).
+__device__ __forceinline__ void cp_async8_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Named barrier `id` over `n` threads: wait for all of them, or arrive
+// without waiting (0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// mbarrier and TMA (cp.async.bulk.tensor) helpers. A barrier completes a
+// phase when its one arrival (`mbar_expect_tx`) and the announced bytes
+// have come in; waiters pass the phase's parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(a), "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a) : "memory");
+}
+
+// One 4-D box of `map` at (c0 innermost, .., c3) into shared memory at
+// `dst`, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(d), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(b), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, 16-byte aligned) from global memory to
+// shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(d), "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start `p`, 128-byte swizzle (tiles
+// 1024-byte aligned), leading and stride byte offsets `lbo`, `sbo`.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+// One 2-D tile of `map` at (c0 innermost, c1) into shared memory at `dst`,
+// completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(d), "l"(reinterpret_cast<uint64_t>(map)), "r"(b),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Host side: a tiled tensor map of `rank` dimensions (innermost first;
+// `pitch` holds the byte strides of dimensions 1..rank-1), boxes `box`,
+// element strides 1, out-of-bounds elements read as zeros. The encoder is
+// looked up through the CUDA runtime's entry-point query, so nothing links
+// libcuda.
+inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                             const cuuint64_t* dims, const cuuint64_t* pitch, const cuuint32_t* box,
+                             CUtensorMapSwizzle swizzle) {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return (int)cudaErrorNotSupported;
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, pitch, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace l3q

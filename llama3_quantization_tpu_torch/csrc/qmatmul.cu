@@ -42,6 +42,8 @@
 
 namespace {
 
+using l3q::bar_arrive;
+using l3q::bar_sync;
 using l3q::store_out;
 
 // ---------------------------------------------------------------- B1 ----
@@ -236,13 +238,6 @@ __device__ __forceinline__ __nv_bfloat162 small_codes(uint32_t lo_hi) {
 constexpr int BAR_FULL = 1, BAR_EMPTY = 3, BAR_PROD = 5;
 constexpr int MMA_THREADS = 256, PROD_THREADS = 256;
 constexpr int GEMM_THREADS = MMA_THREADS + PROD_THREADS;
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
 
 // B2: grid (N/BN, M/BM, ksplit), 16 warps in two roles. Warps 8-15 produce:
 // a 4-stage cp.async ring of x tiles [BM][KT] and packed weight tiles, and

@@ -29,6 +29,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+
+
+def _flags() -> tuple:
+    """NVCC_FLAGS, plus the timing switch `L3Q_ABLATE` (csrc/common.cuh)
+    where the environment sets it: kernels built so give wrong results."""
+    ablate = os.environ.get("L3Q_ABLATE")
+    return NVCC_FLAGS + ((f"-DL3Q_ABLATE={int(ablate)}",) if ablate else ())
+
+
 #: the matmul kernels' GEMV forms serve M <= 64, their tiled forms above
 #: (the TPU kernel's decode/prefill switch, pallas_qmatmul.py:399-403)
 GEMV_MAX_M = 64
@@ -54,7 +63,7 @@ def _lib_path(name: str) -> Path:
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags()).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -69,7 +78,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if path.exists():
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, path)

@@ -222,13 +222,22 @@ def flash_decode_gqa_s8_stacked(
 def _xla_s8_core(qg, kq, ks, vq, vs, mask):
     """The codes-direct route's math (`decode_attention.py:491-524`): qg
     [B, G, rep, D] fp32; kq/vq int8 [B, G, T, D]; ks/vs fp32 [B, G, T];
-    mask fp32 [B, T]. q is quantized per row to s8 against
-    max(amax, 1e-8) / 127, the QK dot is exact in s32, the scores
-    `s32 * (qs * scale) * ks + mask` take one softmax over the whole T, the
-    probabilities `p * vs` are requantized per row against
-    max(amax, 1e-20) / 127, the PV dot is exact in s32, and
-    o = pv32 * ps / max(l, 1e-30). Returns (o [B, G, rep, D], m, l), m and
-    l fp32 [B, G, rep]."""
+    mask fp32 [B, T]. The PV dot over the codes of `xla_s8_probs` is exact
+    in s32, and o = pv32 * ps / max(l, 1e-30). Returns (o [B, G, rep, D],
+    m, l), m and l fp32 [B, G, rep]."""
+    pc, ps, m, l = xla_s8_probs(qg, kq, ks, vs, mask)
+    pv32 = s8_dot_long(pc, vq)  # [B, G, rep, D]: contracts T
+    o = pv32.float() * ps / l.clamp(min=1e-30)[..., None]
+    return o, m, l
+
+
+def xla_s8_probs(qg, kq, ks, vs, mask):
+    """The codes-direct route up to its PV dot: q is quantized per row to
+    s8 against max(amax, 1e-8) / 127, the QK dot is exact in s32, the
+    scores `s32 * (qs * scale) * ks + mask` take one softmax over the whole
+    T, and the probabilities `p * vs` are requantized per row against
+    max(amax, 1e-20) / 127. Returns (pc int8 [B, G, rep, T], ps fp32
+    [B, G, rep, 1], m, l)."""
     d = qg.shape[-1]
     scale = 1.0 / math.sqrt(d)
     qs = true_div(qg.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8), 127.0)
@@ -241,9 +250,7 @@ def _xla_s8_core(qg, kq, ks, vq, vs, mask):
     pv_f = p * vs[:, :, None, :]
     ps = true_div(pv_f.abs().amax(dim=-1, keepdim=True).clamp(min=1e-20), 127.0)
     pc = torch.round(pv_f / ps).clamp(-127, 127).to(torch.int8)
-    pv32 = s8_dot_long(pc, vq)  # [B, G, rep, D]: contracts T
-    o = pv32.float() * ps / l.clamp(min=1e-30)[..., None]
-    return o, m, l
+    return pc, ps, m, l
 
 
 def xla_decode_gqa_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16,

@@ -29,7 +29,7 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_l3q_typed", False):
-        lib.l3q_flash_attn_fwd.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
+        lib.l3q_flash_attn_fwd.argtypes = [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P]
         lib.l3q_flash_attn_fwd.restype = _I
         lib._l3q_typed = True
     return lib
@@ -57,6 +57,16 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+#: blocks a launch wants before 128-row q tiles pay (one per H100 SM)
+FULL_GRID = 132
+
+
+def q_tile(b: int, s: int, h: int) -> int:
+    """Query rows per block of B7: 128, or 64 where 128-row tiles would
+    leave SMs idle (S = 128 at batch 1 gives 32 blocks of 128 rows)."""
+    return 128 if -(-s // 128) * h * b >= FULL_GRID else 64
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel B7 on the card. Operands are rounded to bf16 (the activation
     dtype of the main path); the output is in q's dtype."""
@@ -64,14 +74,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     g = k.shape[2]
     if d not in (64, 128) or h % g or k.shape != (b, s, g, d) or v.shape != k.shape:
         raise ValueError(f"B7 takes D in (64, 128) and grouped K/V; got q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if not (k.device == v.device == q.device):
-        raise ValueError("q, k and v must be on one device")
+    if not (k.device == v.device == q.device) or q.device.type != "cuda":
+        raise ValueError(f"B7 runs on one CUDA device; got {q.device}, {k.device}, {v.device}")
     qb, kb, vb = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q.device)
     scale = float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32))
     err = _lib().l3q_flash_attn_fwd(
-        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), b, s, h, g, d, scale,
-        _build.stream_ptr(q.device),
+        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), b, s, h, g, d,
+        q_tile(b, s, h), scale, _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_attn_fwd (B7)")
     COUNTS["B7"] += 1

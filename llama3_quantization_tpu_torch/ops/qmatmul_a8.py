@@ -51,7 +51,7 @@ def _lib():
     if not getattr(lib, "_l3q_typed", False):
         lib.l3q_a8_gemv.argtypes = [_P] * 6 + [_I, _P, _P] + [_I] * 10 + [_P]
         lib.l3q_a8_gemv.restype = _I
-        lib.l3q_a8_gemm.argtypes = [_P] * 4 + [_I, _P, _P] + [_I] * 6 + [_P]
+        lib.l3q_a8_gemm.argtypes = [_P] * 4 + [_I, _P, _P, _P] + [_I] * 8 + [_P]
         lib.l3q_a8_gemm.restype = _I
         lib._l3q_typed = True
     return lib
@@ -127,6 +127,11 @@ def _check(xq, s_x, data, layout, scale, zero, gs: int) -> int:
     return f
 
 
+def _require_cuda(xq) -> None:
+    if xq.device.type != "cuda":
+        raise ValueError(f"B3's kernels run on a CUDA device, got {xq.device}")
+
+
 def _zmode(zero) -> int:
     if zero is None:
         return 0
@@ -160,6 +165,7 @@ def a8_gemv(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str) ->
     if n % 16 or k % 4:
         raise ValueError(f"B3's GEMV form needs N % 16 == 0 and K % 4 == 0, got {k}, {n}")
     rc, seg, mt = gemv_split(k, n, m, gs, f)
+    _require_cuda(xq)
     ysplit = -(-(k // f) // (8 * rc))
     chunks = ysplit * (8 * rc // seg)
     part = torch.empty((chunks, m, n), dtype=torch.int32, device=xq.device)
@@ -176,18 +182,45 @@ def a8_gemv(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str) ->
     return out
 
 
+#: k values per stage of the tiled form (one 128-byte row of its tiles)
+GEMM_STAGE_K = 128
+
+
+def gemm_plan(m: int, n: int, k: int, gs: int, f: int):
+    """(tile, rows) of B3's tiled form, from the shapes alone: 128x128
+    output tiles where they give the card at least 7/8 of a block per SM
+    (one block fits an SM), else 64x64; and the packed byte rows of one
+    pipeline stage. A stage holds every bit field of its byte rows: f *
+    rows k values, 32, 64 or 128 (the producers split a stage's activation
+    copies evenly). It either lies inside one group (rows divides gs / f)
+    or holds whole groups (rows a multiple of gs / f dividing K / f), so
+    each k step of 32 lies in one group. The most k per stage wins."""
+    if k % gs or gs % 32 or n % 16:
+        raise ValueError(f"B3's tiled form needs K % group_size == 0, group_size % 32 == 0 "
+                         f"and N % 16 == 0, got K={k}, group_size={gs}, N={n}")
+    tile = 128 if -(-m // 128) * -(-n // 128) >= 7 * TARGET_BLOCKS // 16 else 64
+    sub = gs // f
+    rows = max(r for r in (kv // f for kv in (32, 64, GEMM_STAGE_K))
+               if sub % r == 0 or (r % sub == 0 and (k // gs) % (r // sub) == 0))
+    return tile, rows
+
+
 def a8_gemm(xq, s_x, data, layout, scale, zero, gs: int, out_dtype) -> torch.Tensor:
     """B3's tiled form on the card (M > 64)."""
-    _check(xq, s_x, data, layout, scale, zero, gs)
+    f = _check(xq, s_x, data, layout, scale, zero, gs)
     m, k = xq.shape
     n = data.shape[-1]
-    if k % 32 or gs % 32:
-        raise ValueError(f"B3's tiled form needs K and group_size multiples of 32, got {k}, {gs}")
+    tile, rows = gemm_plan(m, n, k, gs, f)
+    _require_cuda(xq)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    # the activation sums per group (a zero point or u8 codes need them)
+    xsg = (torch.empty((k // gs, -(-m // 128) * 128), dtype=torch.int32, device=xq.device)
+           if zero is not None or layout == "u8" else None)
     err = _lib().l3q_a8_gemm(
         xq.data_ptr(), data.data_ptr(), scale.data_ptr(),
-        None if zero is None else zero.data_ptr(), _zmode(zero), s_x.data_ptr(), out.data_ptr(),
-        _build.out_flag(out_dtype), m, k, n, gs, LAYOUTS[layout][0], _build.stream_ptr(xq.device),
+        None if zero is None else zero.data_ptr(), _zmode(zero), s_x.data_ptr(),
+        None if xsg is None else xsg.data_ptr(), out.data_ptr(), _build.out_flag(out_dtype), m,
+        k, n, gs, LAYOUTS[layout][0], tile, rows, _build.stream_ptr(xq.device),
     )
     _build.check(err, "a8_gemm (B3.gemm)")
     COUNTS["B3.gemm"] += 1

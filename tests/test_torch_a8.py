@@ -380,3 +380,76 @@ def test_backend_switch():
     ref = functools.partial(jmm.qmatmul, jnp.asarray(x.numpy()), _jqt(4, 32, True))
     with jmm.backend("xla"):
         assert_rel(y.numpy(), np.asarray(ref(), np.float32), 1e-5)
+
+
+def _stage_ok(k, gs, f, rows):
+    """The tiled kernel's stage contract (`l3q_a8_gemm`)."""
+    sub = gs // f
+    whole = rows % sub == 0 and (k // f) % rows == 0
+    return (f * rows in (32, 64, 128) and rows % 8 == 0
+            and (sub % rows == 0 if rows <= sub else whole))
+
+
+@pytest.mark.parametrize("layout", sorted(qa.LAYOUTS))
+def test_gemm_plan_keeps_every_group_size(layout):
+    """Every (K, group size) the wrapper takes (multiples of 32, gs | K,
+    gs = K included) gets a stage the kernel accepts, the largest such;
+    the main path's shapes take full 128-k stages."""
+    f = qa.LAYOUTS[layout][1]
+    for k in (96, 160, 256, 288, 2304, 4096, 14336):
+        for gs in [g for g in range(32, k + 1, 32) if k % g == 0]:
+            tile, rows = qa.gemm_plan(130, 192, k, gs, f)
+            assert tile in (64, 128) and _stage_ok(k, gs, f, rows), (k, gs, rows)
+            better = [r for r in (32 // f, 64 // f, 128 // f) if r > rows]
+            assert not any(_stage_ok(k, gs, f, r) for r in better), (k, gs, rows)
+    for k, gs in ((4096, 128), (14336, 128), (4096, 4096), (14336, 14336)):
+        assert f * qa.gemm_plan(128, 28672, k, gs, f)[1] == qa.GEMM_STAGE_K
+
+
+@pytest.mark.parametrize("m,n,tile", [(128, 28672, 128), (128, 6144, 64), (128, 4096, 64),
+                                      (512, 4096, 128), (2048, 4096, 128), (65, 192, 64)])
+def test_gemm_plan_tile_from_shape(m, n, tile):
+    """128x128 tiles where they give the card about one block per SM (132
+    SMs), else 64x64; the same for every K and group size."""
+    for k, gs, f in ((4096, 128, 2), (14336, 14336, 1)):
+        assert qa.gemm_plan(m, n, k, gs, f)[0] == tile
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Any attempt to build or load a kernel library fails the test."""
+    from llama3_quantization_tpu_torch.ops import _build
+
+    def refuse(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+
+
+def _gemm_args(k=256, n=64, gs=64, layout="u4", m=80):
+    f = qa.LAYOUTS[layout][1]
+    codes = torch.zeros((k // f, n), dtype=torch.int8 if layout == "s8" else torch.uint8)
+    g = k // gs
+    return (torch.zeros((m, k), dtype=torch.int8), torch.ones((m, 1)), codes, layout,
+            torch.ones((g, n)), torch.zeros((g, n)), gs, torch.float32)
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"k": 96, "gs": 48}, "group_size % 32"),    # group size not a multiple of 32
+    ({"n": 40}, "N % 16"),
+    ({}, "CUDA"),                                # CPU tensors: the kernel runs on CUDA only
+])
+def test_a8_gemm_refuses_before_build(no_build, change, match):
+    with pytest.raises(ValueError, match=match):
+        qa.a8_gemm(*_gemm_args(**change))
+
+
+def test_a8_gemm_refuses_wrong_codes(no_build):
+    args = list(_gemm_args())
+    args[2] = args[2].view(torch.int8)  # u4 codes must be uint8
+    with pytest.raises(TypeError):
+        qa.a8_gemm(*args)
+    args = list(_gemm_args(k=256))
+    args[2] = torch.zeros((100, 64), dtype=torch.uint8)  # not [K / 2, N]
+    with pytest.raises(ValueError):
+        qa.a8_gemm(*args)

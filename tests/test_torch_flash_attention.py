@@ -42,3 +42,31 @@ def test_causal_mask_matches():
         np.testing.assert_array_equal(fa.causal_mask(s, t, off).numpy(),
                                       np.asarray(JT.causal_mask(s, t, off)))
 
+
+
+@pytest.mark.parametrize("b,s,h,bq", [(1, 2048, 32, 128), (1, 128, 32, 64), (8, 128, 32, 128),
+                                      (1, 512, 32, 64), (2, 1000, 4, 64)])
+def test_q_tile_fills_the_card(b, s, h, bq):
+    """128-row q tiles where they give at least one block per H100 SM."""
+    assert fa.q_tile(b, s, h) == bq
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    from llama3_quantization_tpu_torch.ops import _build
+
+    def refuse(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+
+
+@pytest.mark.parametrize("q,k", [((1, 128, 4, 96), (1, 128, 2, 96)),     # D = 96
+                                 ((1, 128, 3, 64), (1, 128, 2, 64)),     # H % G != 0
+                                 ((1, 128, 4, 64), (1, 160, 2, 64)),     # K/V of another S
+                                 ((1, 128, 4, 64), (1, 128, 2, 64))])    # CPU tensors
+def test_flash_kernel_refuses_before_build(no_build, q, k):
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(torch.zeros(q, dtype=torch.bfloat16),
+                                torch.zeros(k, dtype=torch.bfloat16),
+                                torch.zeros(k, dtype=torch.bfloat16))

@@ -136,3 +136,18 @@ def test_kernel_sources_ship(name):
     src = (_build.CSRC / f"{name}.cu").read_text()
     assert 'extern "C"' in src and "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "llama3_quantization_tpu_torch" in (ROOT / "pyproject.toml").read_text()
+
+
+def test_ablation_switch_stays_out_of_the_normal_build(monkeypatch):
+    """`L3Q_ABLATE` (phases removed, for timing only) reaches nvcc only when
+    the environment sets it, and such a build gets its own library name."""
+    from llama3_quantization_tpu_torch.ops import _build
+
+    monkeypatch.delenv("L3Q_ABLATE", raising=False)
+    assert _build._flags() == _build.NVCC_FLAGS
+    normal = _build._lib_path("flash_attention")
+    monkeypatch.setenv("L3Q_ABLATE", "9")
+    assert _build._flags()[-1] == "-DL3Q_ABLATE=9"
+    assert _build._lib_path("flash_attention") != normal
+    src = (_build.CSRC / "common.cuh").read_text()
+    assert "#ifndef L3Q_ABLATE\n#define L3Q_ABLATE 0" in src
