@@ -6,7 +6,9 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
     python3 chip_smoke.py --profile       # also profile decode steps and serving windows
     python3 chip_smoke.py --prefill-bench # --kernel-bench, B2 at M = 128-2048, forward_logits (pallas, s4, a8)
-    python3 chip_smoke.py --kernel-bench  # only time B2 W4/W3 gate/up (L2-warm and cold), B6, B3.gemm, B7
+    python3 chip_smoke.py --kernel-bench  # only time B2 W4/W3 gate/up (L2-warm and cold), B6, B3.gemm, B7,
+                                          # and the GEMVs (B1, B3.v3, B3.s4, B3.s8)
+    python3 chip_smoke.py --serve-profile # only one 8-slot serving window by kernel (pallas int8/fp, a8)
     python3 chip_smoke.py --decode-drift  # only the full-depth B5, B6 and B3 kernel-vs-plain decodes
     python3 chip_smoke.py --microbench    # only the weight-stream probes B8-B10 and their entry points
 
@@ -15,13 +17,17 @@ Phases, in order; any failure exits non-zero:
   2. build every kernel from `llama3_quantization_tpu_torch/csrc/` (one nvcc
      per source, in parallel);
   3. hold each kernel form against its plain PyTorch version on the card at
-     the main paths' shapes, with the tolerances stated below: B1 at M = 1
-     and 8, B2 at M = 65, 128, 200 and 512, B2 on 3-bit planes at the same
+     the main paths' shapes, with the tolerances stated below: B1 at M = 1,
+     2, 5, 8, 16, 33 and 64 on the four decoder linears and on 2-bit, 4-bit,
+     int8 and uint8 codes at group sizes 32, 64, 128 and K on a ragged N,
+     B1's batch invariance (rows of M = 8 and 64 bit-equal to the M = 1
+     calls), B2 at M = 65, 128, 200 and 512, B2 on 3-bit planes at the same
      M, B2's batch invariance (rows 0..7 of M = 128 and M = 72 bit-equal),
-     B3 (v3 on packed W4 g128, s4, per-column s8) at M = 1, 8 and 128 on
-     the W·A8 paths' o, qkv, gate-up and down and the s8 and s4 heads at
-     M = 1 and 8, B3's tiled form also at the ragged M = 65 and 200, at
-     M = 512 and on a ragged N (fp32 output bit-equal), B5 on the int8 cache with and without m/l statistics and
+     B3 (v3 on packed W4 g128, s4, per-column s8) at B1's M and 128 on the
+     W·A8 paths' o, qkv, gate-up and down and the s8 and s4 heads at B1's
+     M, B3's tiled form also at the ragged M = 65 and 200, at M = 512 and on
+     a ragged N (fp32 output bit-equal to the plain version in both forms),
+     B5 on the int8 cache with and without m/l statistics and
      on the int4 cache with and without them (one all-masked row), B6 on
      the bf16 fp cache (stacked at B = 1, per layer at B = 8 with per-row
      masks, an all-masked row and a row masked after its first T block, T =
@@ -101,6 +107,7 @@ phases removed (`csrc/common.cuh`) and give wrong results: only for timing
 those phases' share with `--kernel-bench`, e.g.
 
     L3Q_ABLATE=9 python3 chip_smoke.py --kernel-bench  # B3 without unpack, B7 without V loads
+    L3Q_ABLATE=256 python3 chip_smoke.py --kernel-bench  # the GEMVs' copies alone
 """
 
 from __future__ import annotations
@@ -203,17 +210,22 @@ def rand_weights(P, k: int, n: int, copies: int, gen):
     return [stacked.layer(i) for i in range(copies)]
 
 
-#: (kernel id, M) of every B1/B2 instantiation the paths run: B1 at M=1
-#: (batch-1 decode) and M=8 (the 8-slot engine's decode, two 4-row tiles);
-#: B2 at M=128 (a 128-token prefill, the engine's bucket-16 prefill) and
-#: M=512 (the engine's bucket-64 prefill: 8 slots x 64), and at the ragged
-#: M=65 and 200 (a partly filled 128-row tile)
-QMM_CASES = (("B1", 1), ("B1", 8), ("B2", 65), ("B2", 128), ("B2", 200), ("B2", 512))
+#: M of B1's and B3's GEMV-form checks: batch-1 decode, 2 rows, the
+#: speculative verify (5), the 8-slot engine, and 16, 33 and 64 rows (a
+#: part-filled and a full tile of the GEMV forms' largest, M <= 64)
+GEMV_MS = (1, 2, 5, 8, 16, 33, 64)
+#: (kernel id, M) of the B1/B2 checks on every decoder linear shape: B1 at
+#: GEMV_MS; B2 at M=128 (a 128-token prefill, the engine's bucket-16
+#: prefill) and M=512 (the engine's bucket-64 prefill: 8 slots x 64), and at
+#: the ragged M=65 and 200 (a partly filled 128-row tile)
+QMM_CASES = tuple(("B1", m) for m in GEMV_MS) + (("B2", 65), ("B2", 128), ("B2", 200),
+                                                 ("B2", 512))
 B2_M = (65, 128, 200, 512)
 
 
 def check_qmatmul(P, gen, results):
-    """B1 at M=1 and 8 and B2 at M=128 and 512 on every decoder linear shape."""
+    """B1 at GEMV_MS and B2 at M=65, 128, 200 and 512 on every decoder
+    linear shape (W4 g128)."""
     import torch
     from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 
@@ -230,6 +242,55 @@ def check_qmatmul(P, gen, results):
             err = compare(f"{kid} {label} M={m} bf16-out", kern(x, qt, torch.bfloat16),
                           plain(x, qt, torch.bfloat16), 1e-2)
             results.setdefault(kid, {})[f"{label} M={m}"] = err
+
+
+#: B1's code layouts beyond W4: (label, bits, pack); 8 bits unpacked are
+#: int8 codes, packed (one code a byte) uint8
+B1_LAYOUTS = (("w2", 2, True), ("w4", 4, True), ("int8", 8, False), ("uint8", 8, True))
+
+
+def check_b1_forms(P, gen):
+    """B1 on 2-bit, 4-bit, int8 and uint8 codes at group sizes 32, 64, 128
+    and K, on a ragged N = 4112 (a part-filled column tile), at GEMV_MS:
+    fp32 out within 1e-4 * max|ref|, bf16 within 1e-2."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    k, n = 4096, 4112
+    for label, bits, pack in B1_LAYOUTS:
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        for gs in (32, 64, 128, k):
+            qt = P.quantize_rtn(w, P.QuantSpec(n_bits=bits, group_size=gs), pack=pack)
+            worst = [0.0, 0.0]
+            for m in GEMV_MS:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                for i, (dt, tol) in enumerate(((torch.float32, 1e-4), (torch.bfloat16, 1e-2))):
+                    got, ref = fq.qmm_gemv(x, qt, dt).float(), fq.qmm_gemv_plain(x, qt, dt).float()
+                    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+                    if not bool(got.isfinite().all()) or err > tol * scale:
+                        raise AssertionError(f"B1 {label} g{gs} N={n} M={m} {dt}: error {err} "
+                                             f"above {tol} * {scale}")
+                    worst[i] = max(worst[i], err / scale)
+            log(f"  B1 {label} ({qt.data.dtype}) g{gs} N={n} M={GEMV_MS}: max_rel_err fp32 "
+                f"{worst[0]:.3e}, bf16 {worst[1]:.3e}  (tolerances 1e-4, 1e-2)")
+
+
+def check_b1_batch_invariance(P, gen):
+    """B1's tiles, split and order follow (K, N, gs, f) alone: row i of an
+    M = 8 and of an M = 64 call equals the M = 1 call on that row bit for
+    bit (fp32 out), on every decoder linear shape."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    for label, (k, n) in LINEAR_SHAPES.items():
+        qt = rand_weights(P, k, n, 1, gen)[0]
+        x = torch.randn((64, k), generator=gen, device="cuda").to(torch.bfloat16)
+        rows = torch.cat([fq.qmm_gemv(x[i:i + 1].clone(), qt, torch.float32) for i in range(64)])
+        for m in (8, 64):
+            if not torch.equal(fq.qmm_gemv(x[:m].clone(), qt, torch.float32), rows[:m]):
+                raise AssertionError(f"B1 {label}: rows of M={m} differ from the M=1 calls")
+        log(f"  B1 {label}: rows of M=8 and M=64 == the M=1 calls, bit for bit (plan "
+            f"{tuple(fq.gemv_plan(k, n, GS, 2))}, from (K, N, gs, f) alone)")
 
 
 def check_b2_batch_invariance(P, gen):
@@ -258,8 +319,9 @@ def check_b2_batch_invariance(P, gen):
 B3_SHAPES = {"o": (4096, 4096), "qkv": (4096, 6144), "gateup": (4096, 28672),
              "down": (14336, 4096)}
 HEAD_SHAPE = (4096, 128256)
-#: M of B3's paths: batch-1 decode, the 8-slot serving step, a 128-token prefill
-B3_MS = (1, 8, 128)
+#: M of B3's checks: the GEMV form's (batch-1 decode, the 8-slot serving
+#: step, ...) and a 128-token prefill
+B3_MS = GEMV_MS + (128,)
 
 
 def b3_forms(P, k, n, copies, gen):
@@ -301,14 +363,13 @@ def b3_call(key, w, xq, s_x, out_dtype):
 
 def check_b3(P, gen, results):
     """Every B3 form against its plain version at the paths' shapes: v3, s4
-    and per-column s8 at M = 1, 8 and 128 on o, qkv, gate-up and down, the
-    s8 and s4 heads at M = 1 and 8, and unpacked uint8 8-bit codes on o
-    (a8's "u8" layout, v3's int8 cast); the tiled form also at the ragged
-    M = 65 and 200, M = 512 and a ragged N = 4112 (a partly filled tile).
-    Tolerances: fp32 out 1e-5 * max|ref| (exact s32 partials, the fp32
-    order only; the tiled form sums each output's groups in the plain
-    version's order, so its fp32 output must equal it bit for bit), bf16
-    out 1e-2."""
+    and per-column s8 at B3_MS on o, qkv, gate-up and down, the s8 and s4
+    heads at GEMV_MS, and unpacked uint8 8-bit codes on o (a8's "u8"
+    layout, v3's int8 cast); the tiled form also at the ragged M = 65 and
+    200, M = 512 and a ragged N = 4112 (a partly filled tile). Both forms
+    sum every output's groups in the plain version's order from exact s32
+    partials, so their fp32 output must equal it bit for bit; bf16 out
+    within 1e-2."""
     import torch
     from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
 
@@ -318,8 +379,8 @@ def check_b3(P, gen, results):
         rkey = key if m <= qa.GEMV_MAX_M else "B3.gemm"
         name = f"{rkey} {label} {w[1]} M={m}"
         got, ref = b3_call(key, w, xq, s_x, torch.float32), qa.a8_plain(xq, s_x, *w, torch.float32)
-        compare(f"{name} fp32-out", got, ref, 1e-5)
-        if rkey == "B3.gemm" and not torch.equal(got, ref):
+        compare(f"{name} fp32-out", got, ref, 0.0)
+        if not torch.equal(got, ref):
             raise AssertionError(f"{name}: fp32 output differs from the plain version")
         err = compare(f"{name} bf16-out", b3_call(key, w, xq, s_x, torch.bfloat16),
                       qa.a8_plain(xq, s_x, *w, torch.bfloat16), 1e-2)
@@ -333,7 +394,7 @@ def check_b3(P, gen, results):
         for m in (65, 200, 512):
             one(key, "ragged", ws[0], m, 4096)
     for key, w in head_forms(P, gen).items():
-        for m in (1, 8):
+        for m in GEMV_MS:
             one(key, "head", w, m, HEAD_SHAPE[0])
     # unpacked uint8 8-bit codes (`quantize_rtn(bits=8, pack=True)`): the a8
     # route's promoted dot, the v3 route's int8 cast
@@ -1720,6 +1781,72 @@ def kernel_bench(P, card, gen):
             f"(CUDA graph, events), SDPA {lib_ms:.4f} ms  [{card}]")
     bench_b3_gemm(P, card, gen)
     bench_b7(card, gen)
+    bench_gemv(P, card, gen)
+
+
+#: M of the GEMV bench: batch-1 decode, the speculative verify, the 8-slot
+#: engine, a full 64-row tile
+GEMV_BENCH_MS = (1, 5, 8, 64)
+
+
+def bench_gemv(P, card, gen):
+    """B1 (W4 g128) at GEMV_BENCH_MS on the four decoder linears, B3.v3 and
+    B3.s4 at M = 1 and B3.s8 at M = 8 on the W·A8 paths' o, qkv, gate-up,
+    down and the heads; four weight copies cycling through the L2 (two for
+    the heads), beside the bound and one library call on the same inputs:
+    `torch.matmul` on the pre-dequantized bf16 weight, `torch._int_mm` on
+    the s8 codes where it takes the shape (M > 16)."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+    from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
+
+    for label, (k, n) in LINEAR_SHAPES.items():
+        qts = rand_weights(P, k, n, 4, gen)
+        wd = [fq.dequant_bf16(qt) for qt in qts]
+        for m in GEMV_BENCH_MS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            ms = time_ms(lambda i: fq.qmm_gemv(x, qts[i % 4], torch.bfloat16), 100)
+            lib_ms = time_ms(lambda i: torch.matmul(x, wd[i % 4]), 100)
+            b_ms, by = bound_ms(k * n // 2 + 2 * (k // GS) * n * 4 + m * k * 2 + m * n * 2,
+                                2.0 * m * k * n, BF16_FLOPS)
+            log(f"kernel bench: B1 {label} x[{m},{k}] W4g128[{k},{n}]: {ms:.4f} ms, "
+                f"torch.matmul bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by})  [{card}]")
+        del qts, wd
+    for label, (k, n) in list(B3_SHAPES.items()) + [("head", HEAD_SHAPE)]:
+        forms = head_forms(P, gen) if label == "head" else b3_forms(P, k, n, 4, gen)
+        for key, m in (("B3.v3", 1), ("B3.s4", 1), ("B3.s8", 8)):
+            if key not in forms:
+                continue
+            ws = forms[key] if isinstance(forms[key], list) else [forms[key]]
+            wd = [b3_dequant_bf16(w, k) for w in ws[:2]]
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            xq, s_x = qa.quantize_activations_s8(x)
+            ms = time_ms(lambda i: b3_call(key, ws[i % len(ws)], xq, s_x, torch.bfloat16), 100)
+            lib_ms = time_ms(lambda i: torch.matmul(x, wd[i % len(wd)]), 100)
+            b_ms, by = bound_ms(b3_bytes(ws[0], m, k), 2.0 * m * k * n, INT8_OPS)
+            log(f"kernel bench: {key} {label} x[{m},{k}] {ws[0][1]}[{k},{n}]: {ms:.4f} ms, "
+                f"torch.matmul bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by})  [{card}]")
+            del wd
+        del forms
+        torch.cuda.empty_cache()
+
+
+def serve_profile(P, card):
+    """Device time by kernel of one 8-slot serving window: the pallas engine
+    (synthetic W4 g128) on the int8 and the fp cache, and fused a8 serving
+    (per-column s8, s8 head)."""
+    import torch
+
+    cfg = P.LLAMA3_8B
+    reqs = serve_requests(16, cfg.vocab_size)
+    params = build_params(P)
+    profile_serving(P, params, cfg, reqs, 16, card, bits=(8, False))
+    del params
+    torch.cuda.empty_cache()
+    params = P.init_quantized_params(cfg, P.QuantSpec(n_bits=4, group_size=GS), seed=SEED,
+                                     pack=False, percol_s8=True, head_s8=True)
+    with P.backend("a8"):
+        profile_serving(P, params, cfg, reqs, 16, card, bits=(8,), fuse=True)
 
 
 #: (label, K, N) and M of the B3 tiled-form bench: the W·A8 paths' fused
@@ -1859,7 +1986,9 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
         g = k // GS
         for kid, m, kern, plain, name in (
             ("B1", 1, fq.qmm_gemv, fq.qmm_gemv_plain, "qmm_gemv"),
+            ("B1", 5, fq.qmm_gemv, fq.qmm_gemv_plain, "qmm_gemv M=5"),
             ("B1", 8, fq.qmm_gemv, fq.qmm_gemv_plain, "qmm_gemv M=8"),
+            ("B1", 64, fq.qmm_gemv, fq.qmm_gemv_plain, "qmm_gemv M=64"),
             ("B2", 128, fq.qmm_gemm, fq.qmm_gemm_plain, "qmm_gemm"),
         ):
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1942,9 +2071,11 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
     # instantiations, M=1 and M=8; B6 stacked at B=1 and per layer at B=8),
     # at the main path's heaviest shape (B1/B2: gate/up; B3: fused gate-up)
     # or its own length (B5 forms and B6: T=512, B7: S=128); the lines above
-    # hold the other shapes. The B1 rows share B1's one count, the B6 rows
-    # B6's.
+    # hold the other shapes and M. The B1 rows share B1's one count, the B6
+    # rows B6's.
     probe_rows = time_probes(P, card, launches_total, errs, add)
+    qmm_rows = {name: rows_ for name, rows_ in qmm_rows.items()
+                if name in ("qmm_gemv", "qmm_gemv M=8", "qmm_gemm")}
     return ([rows_[2] for rows_ in qmm_rows.values()] + [rows_[0] for rows_ in form_rows.values()]
             + [b6_rows[0], b6_rows[2], b7_rows[0]] + b3_rows + w3_rows + probe_rows)
 
@@ -2111,8 +2242,14 @@ def main() -> int:
     ap.add_argument("--kernel-bench", action="store_true",
                     help="only time B2 W4/W3 gate/up at M = 128 (L2-warm and cold), B6 beside "
                          "SDPA, B3's tiled form (s4, per-column s8: gate-up, o, down at M = 128, "
-                         "512, 2048) beside torch.matmul and B7 (S = 128 to 8192) beside SDPA "
-                         "(run it from two checkouts in one call to compare them)")
+                         "512, 2048) beside torch.matmul, B7 (S = 128 to 8192) beside SDPA, and "
+                         "the GEMV forms (B1 at M = 1, 5, 8, 64; B3.v3 and B3.s4 at M = 1, "
+                         "B3.s8 at M = 8) beside torch.matmul (run it from two checkouts in one "
+                         "call to compare them)")
+    ap.add_argument("--serve-profile", action="store_true",
+                    help="only profile one 8-slot serving window by kernel: pallas on the int8 "
+                         "and the fp cache, fused a8 (run it from two checkouts in one call to "
+                         "compare them)")
     ap.add_argument("--decode-drift", action="store_true",
                     help="only run the full-depth decode through the B5 kernel forms, B6 and "
                          "through B3 (s4 backend) against their plain versions")
@@ -2156,6 +2293,9 @@ def main() -> int:
     if args.kernel_bench:
         kernel_bench(P, card, torch.Generator(device="cuda").manual_seed(SEED + 6))
         return 0
+    if args.serve_profile:
+        serve_profile(P, card)
+        return 0
     if args.decode_drift:
         params = build_rtn_params(P)
         decode_drift(P, params, P.LLAMA3_8B, card)
@@ -2175,6 +2315,8 @@ def main() -> int:
         }}), flush=True)
         return 0
     check_qmatmul(P, gen, errs)
+    check_b1_forms(P, gen)
+    check_b1_batch_invariance(P, gen)
     check_b2_w3(P, gen, errs)
     check_b2_batch_invariance(P, gen)
     check_b3(P, gen, errs)

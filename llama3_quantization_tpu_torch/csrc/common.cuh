@@ -7,11 +7,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 // A timing switch, 0 in the normal build: each bit removes one phase of a
 // kernel so that the rest can be timed without it (the results are then
 // wrong). B3's tiled form: 1 the unpack, 2 the group epilogue, 4 the
-// wgmma; B7: 8 the V loads, 16 the exp, 32 the PV wgmma. `ops/_build.py`
-// passes it from the environment variable of the same name.
+// wgmma; B7: 8 the V loads, 16 the exp, 32 the PV wgmma; the GEMVs (B1
+// and B3's GEMV form): 64 the unpack, 128 the mma.sync, 256 all compute
+// (copies only). `ops/_build.py` passes it from the environment variable
+// of the same name.
 #ifndef L3Q_ABLATE
 #define L3Q_ABLATE 0
 #endif
@@ -50,6 +54,79 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
                : "r"(s));
 }
 
+// Two 8x8 b16 matrices: lanes 8i..8i+7 give the row addresses of matrix i
+// (lanes 16-31 are ignored).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
+// The same, transposed: lane (g, t) of matrix i gets elements (2t, g) and
+// (2t + 1, g), i.e. for byte rows of 16 bytes the bytes 2g, 2g + 1 of rows
+// 2t and 2t + 1.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x1_trans(uint32_t* r, const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+               : "=r"(r[0])
+               : "r"(s));
+}
+
+// n / d for n >= 0, by a shift where d is a power of 2.
+struct Div {
+  int d, sh;
+  __host__ __device__ explicit Div(int d_) : d(d_), sh(-1) {
+    if (d_ > 0 && (d_ & (d_ - 1)) == 0)
+      for (sh = 0; (1 << sh) < d_;) ++sh;
+  }
+  __device__ __forceinline__ int operator()(int n) const { return sh >= 0 ? n >> sh : n / d; }
+};
+
+// Launch `kernel` on `grid` with thread-block clusters of (1, cy, 1) blocks
+// (cy == 1: an ordinary launch).
+template <typename... Params, typename... Args>
+inline int launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                            int cy, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cy;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// Thread-block cluster: the barrier (release / acquire: shared memory
+// written before it is visible to the cluster after it), and a load from
+// the shared memory of block `rank` at the address of `p` in this one.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// (Not volatile: after cluster_sync the loads of one element from every
+// rank can be in flight together.)
+__device__ __forceinline__ uint32_t ld_cluster_u32(const void* p, unsigned rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  unsigned ra;
+  uint32_t v;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(rank));
+  asm("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(ra));
+  return v;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -76,6 +153,11 @@ __device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* c) {
   c[2] = __byte_perm(t2, t3, 0x5410);
   c[3] = __byte_perm(t2, t3, 0x7632);
 }
+
+// Bytes of a shared-memory row of `bytes`, padded to an odd number of
+// 16-byte chunks: rows 2 apart and 8 consecutive rows (ldmatrix) fall on
+// distinct banks.
+__host__ __device__ constexpr int odd_row(int bytes) { return 16 * (((bytes + 15) / 16) | 1); }
 
 // Asynchronous 16-byte copy from global to shared memory (L2 only), and its
 // group fence: `cp_async_wait<N>` returns once at most N groups of this
@@ -105,6 +187,16 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// cp_async_wait<n> for a run-time n in 0..N.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= N) {
+    cp_async_wait<N>();
+  } else if constexpr (N > 0) {
+    cp_async_wait_upto<N - 1>(n);
+  }
 }
 
 // Named barrier `id` over `n` threads: wait for all of them, or arrive
@@ -213,6 +305,81 @@ inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int ran
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 2-D u8 tensor map of rows x cols (row pitch `pitch` bytes), boxes of
+// box_rows x box_cols.
+inline int tensor_map_u8(CUtensorMap* map, const void* base, int rows, int cols, int pitch,
+                         int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides, box, swizzle);
+}
+
+// The swizzle that keeps a code tile of `bytes`-byte rows (a TMA box) free
+// of bank conflicts: 16-byte chunk c of row r lands at chunk c ^ swz(r).
+inline CUtensorMapSwizzle row_swizzle(int bytes) {
+  return bytes >= 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+// Byte offset of byte b of row r in such a tile (rows of `bytes` bytes, the
+// box's inner size; 1024-byte aligned base).
+__device__ __forceinline__ int swz_off(int r, int b, int bytes) {
+  return r * bytes + ((((b >> 4) ^ (r * bytes >> 7)) & (bytes / 16 - 1)) << 4) + (b & 15);
+}
+
+// Rounds per stage and ring depth of a GEMV launch (B1, B3's GEMV form):
+// each block gets the shared memory that lets the grid run in one wave
+// where the registers allow (`gemv_budget`), and in it the largest stage
+// (`stage(R)` = (bytes of a ring slot, code bytes) for R rounds, while
+// `fits(R)`), 3 deep where that fits, else 2, plus `extra(R)` bytes. Fewer
+// stages mean fewer block barriers per byte; measured on an H100, a deeper
+// ring than 2 or 3 moves nothing, and a block more on each SM does.
+struct GemvStages {
+  int rounds, ring;
+  size_t smem;
+};
+
+// The shared memory one block may take: the SM's, shared by as many blocks
+// as the grid puts on each SM in one wave, at most `regs_blocks` (what the
+// registers allow), at least two where K splits.
+inline size_t gemv_budget(int regs_blocks, long blocks, int ksplit) {
+  static int sms = 0, per_sm = 0, per_block = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    cudaDeviceGetAttribute(&per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  // a K split's cluster starts only where all its blocks fit at once: leave
+  // room for two blocks an SM
+  const long b = std::max(ksplit > 1 ? 2L : 1L, std::min<long>(regs_blocks, (blocks + sms - 1) / sms));
+  return std::min((size_t)per_sm / b - 1024, (size_t)per_block);  // 1 KB per block is the runtime's
+}
+
+// Blocks of `kernel` one SM holds by its registers.
+template <typename Kernel>
+int regs_blocks(Kernel kernel, int threads) {
+  int n = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0);
+  return std::max(n, 1);
+}
+
+template <typename Stage, typename Fits, typename Extra>
+GemvStages pick_stages(Stage stage, Fits fits, Extra extra, size_t budget) {
+  GemvStages best{1, 2, 2 * stage(1).first + extra(1)};
+  for (int R = 1; fits(R); R *= 2)
+    for (int ring = 3; ring >= 2; --ring) {
+      const size_t smem = ring * stage(R).first + extra(R);
+      if (smem <= budget) {
+        best = {R, ring, smem};
+        break;
+      }
+    }
+  return best;
 }
 
 }  // namespace l3q

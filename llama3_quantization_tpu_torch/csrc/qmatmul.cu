@@ -13,14 +13,28 @@
 // int8 or uint8 code per byte. scale and zero are fp32 [G, N].
 //
 // What bounds them on the H100:
-// B1 at M = 1 is a GEMV that must stream K*N/f weight bytes plus 8 bytes of
-// scale/zero per group column, so it is bound by HBM bytes (3.35 TB/s). The
-// design puts many 16-byte loads in flight: each thread owns 16 adjacent
-// columns (one 16-byte load per byte row), each warp a chunk of `rc` byte
-// rows inside one group, each block 8 such chunks of one 512-column tile.
-// Per chunk it forms dot = sum x*code and xsum = sum x in fp32 and adds
-// dot*s - xsum*z*s; the 8 warps are summed in shared memory and the blocks
-// along K by a fixed-order second pass, so results do not depend on timing.
+// B1 at M <= 64 is a GEMV bound by the HBM bytes of its weights (K*N/f
+// codes plus 8 bytes of scale/zero per group column, at 3.35 TB/s): at
+// M = 64 it does 2*64 operations per code, still under the bf16 tensor
+// cores' share of that time. So each packed byte is read from HBM once per
+// call at every M, and the dot runs on the tensor cores: mma.sync
+// m16n8k16 bf16 -> fp32 with the codes as the 16-row operand (16 output
+// columns) and the activation rows, padded to 8, 16, 32 or 64, as the
+// 8-column operand, so M = 8 fills one n8 tile. Codes become exact bf16
+// through bf16(128 + code) - 128 (two per instruction); a second MMA with
+// an all-ones A forms the x sums in the same fragment layout. A fresh fp32
+// dot per group gets its term dot*s - xsum*(z*s) in registers when the
+// group ends. Each block streams its units of byte rows through a ring of
+// stages (every packed byte copied once: a TMA box of code rows a round,
+// bulk copies of the groups' scales and zeros, cp.async copies of the x
+// values the rows meet), its depth and stage size set so that the grid's
+// blocks fit the SMs in one wave. A K split, chosen from (K, N, gs, f)
+// alone, fills the card when N is small: the split blocks form one
+// thread-block cluster and add their sums in rank order through
+// distributed shared memory inside the launch. Measured (PERF.md): at
+// M = 8 the stream runs ahead of the parent's CUDA-core form and of
+// torch.matmul; at M = 1 the tensor-core path (an x-sum MMA beside each
+// dot MMA, the code unpack) keeps the SMs busier than the stream needs.
 // B2 at M = 128 does 2*M FLOPs per weight element: with the weight stream
 // hidden it is bound by the tensor cores, and in practice by what feeds
 // them: the dequantization, which costs ALU work per weight element. The
@@ -38,6 +52,8 @@
 // chosen from (K, N) alone, fills the card when N is small; its partials
 // are summed in a fixed order. Not yet: TMA, wgmma.
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -46,120 +62,279 @@ using l3q::bar_arrive;
 using l3q::bar_sync;
 using l3q::store_out;
 
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ---------------------------------------------------------------- B1 ----
+// y[m, n] = sum_g s[g,n] * (x_g . c_g[:, n]) - (sum_k x_g[k]) * z[g,n]*s[g,n]
+// with x rounded to bf16 and the dots and x sums in fp32
+// (pallas_qmatmul.py:214-233), by mma.sync m16n8k16 with the weights as
+// the 16-row operand: D[n][m] = sum_k W[k][n] x[m][k].
+//
+// A unit is L byte rows of one group (L = 16, or 8 where a group's bit field
+// has 8 rows), L * f k values, L consecutive k per bit field. Its k16 steps
+// take field (16 q + i) / L, row (16 q + i) % L for MMA k index i, so the
+// MMA's k pairs (2t, 2t + 1) are two adjacent byte rows of one field, whose
+// x values are adjacent in x: ldmatrix.trans hands each lane exactly those
+// bytes of its two columns. Grid (ceil(N / bn), ksplit): block (i, q) owns
+// columns [i bn, (i + 1) bn) and split q's units; its 8 warps are bn / 16
+// column warps (16 columns, one m16 tile: lane group g holds columns 2g and
+// 2g + 1) times kw = 128 / bn warp rows along K. A round is kw runs of uw
+// units of one group, run r to warp row r, so each warp row walks its runs
+// in order, keeps one fp32 dot and x sum per group and adds the group's term
+// dot*s - xsum*(z*s) after its last run of that group. The warp rows' sums
+// are added in order in shared memory, the splits' (one thread-block
+// cluster) in rank order through distributed shared memory. Every order
+// follows the plan (bn, ksplit, uw: from K, N, gs, f alone), so a row's
+// result does not depend on M or on the other rows. The ring's stages
+// (rounds per stage, depth) follow M and the grid; each copies its units'
+// byte rows (one swizzled TMA box a round, read by ldmatrix.trans), the x
+// values they meet (real rows only: a pad row's outputs are dropped, and
+// the MMA keeps the rows apart) and the scales and zeros of its groups.
 constexpr int GEMV_THREADS = 256;
 constexpr int GEMV_WARPS = GEMV_THREADS / 32;
-constexpr int GEMV_COLS = 512;  // 32 lanes x 16 columns
+constexpr uint32_t BF16_ONES = 0x3F803F80u;
 
+// Column c's codes of field f in an ldmatrix.trans word [b(r, c0), b(r, c1),
+// b(r + 1, c0), b(r + 1, c1)] as an exact bf16 pair (row r low): packed
+// codes through bf16 128 + code less 128, one-byte codes through fp32.
 template <int F, bool SIGNED>
-__device__ __forceinline__ float code_of(uint32_t byte, int s) {
-  constexpr int BITS = 8 / F;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  if (SIGNED) return (float)(int)(int8_t)byte;
-  return (float)((byte >> (s * BITS)) & MASK);
+__device__ __forceinline__ uint32_t codes2(uint32_t w, int f, int c) {
+  if (L3Q_ABLATE & 64) return w;
+  if (F == 1) {
+    const uint32_t b0 = w >> (8 * c), b1 = w >> (8 * c + 16);
+    const float lo = SIGNED ? (float)(int8_t)b0 : (float)(b0 & 0xFFu);
+    const float hi = SIGNED ? (float)(int8_t)b1 : (float)(b1 & 0xFFu);
+    return l3q::pack_bf16x2(lo, hi);
+  } else {
+    constexpr int BITS = 8 / F;
+    constexpr uint32_t MASK2 = ((1u << BITS) - 1u) * 0x00010001u;
+    const uint32_t v = ((w >> (8 * c + f * BITS)) & MASK2) | 0x43004300u;
+    return as_u32(__hsub2(as_bf162(v), as_bf162(0x43004300u)));
+  }
 }
 
-// B1: y[m, n] = sum_g s[g,n] * (x_g . c_g[:, n]) - (sum_k x_g[k]) * z[g,n]*s[g,n]
-// with x rounded to bf16 and the dots and x sums in fp32
-// (pallas_qmatmul.py:214-233), taken chunk by chunk of a group.
-template <int F, bool SIGNED, int MT>
+template <int F, bool SIGNED, int L, int MT>
 __global__ void __launch_bounds__(GEMV_THREADS) qmm_gemv_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
-    const float* __restrict__ scale, const float* __restrict__ zero,
-    float* __restrict__ part, void* __restrict__ out, int out_bf16,
-    int M, int K, int N, int gs, int rc) {
-  extern __shared__ float red[];  // [GEMV_WARPS][MT][16][32]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * GEMV_COLS + lane * 16;
-  const int m0 = blockIdx.z * MT;
-  const int sub = gs / F;
-  const int rows = K / F;
-  const int chunk = blockIdx.y * GEMV_WARPS + warp;
-  const int r0 = chunk * rc;
-  float acc[MT][16];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 16; ++c) acc[m][c] = 0.f;
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ zero, void* __restrict__ out, int out_bf16, int M, int K, int N,
+    int gs, int bn, int uw, int rounds, int ring, const __grid_constant__ CUtensorMap tmw) {
+  constexpr int UK = L * F, KQ = UK / 16, MP = 8 * MT;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const l3q::Div ncd(bn / 16);
+  const int nc = ncd.d, kw = GEMV_WARPS / nc;
+  const int cw = warp & (nc - 1), kwi = warp >> ncd.sh;
+  const l3q::Div ug(gs / F / L), subd(gs / F);  // units, byte rows per group
+  const int runs = K / UK / uw, ks = gridDim.y, q = blockIdx.y;
+  const int u0 = (int)((long)q * runs / ks) * uw, u1 = (int)((long)(q + 1) * runs / ks) * uw;
+  const int ru = kw * uw, us = ru * rounds;  // units per round, per stage
+  const int nst = (u1 - u0 + us - 1) / us;
+  const int ngs = us / ug.d + 2;  // groups one stage can touch
+  const int xsb = l3q::odd_row(us * UK * 2);
+  const int wbytes = us * L * bn, xbytes = MP * xsb, sbytes = ngs * bn * 4;
+  const int stage_bytes = (wbytes + xbytes + 2 * sbytes + 1023) / 1024 * 1024;
+  const int col0 = blockIdx.x * bn, ncol = min(bn, N - col0);
+  const int cl = cw * 16 + 2 * gid;  // this lane's first column in the tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + max(ring * stage_bytes, kw * MP * bn * (int)sizeof(float)));
 
-  if (c0 < N && r0 < rows) {
-    const __nv_bfloat16* xrow[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) xrow[m] = x + (size_t)min(m0 + m, M - 1) * K;
-    const int g = r0 / sub;
-    const int kbase = g * gs + (r0 - g * sub);  // k of (row r0, field 0)
-    float dot[MT][16], xs[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      xs[m] = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) dot[m][c] = 0.f;
+  // stage s (units u0 + s us ..) into ring slot `slot`: by warp 0 on the
+  // slot's mbarrier the units' byte rows of the tile (one TMA box a round,
+  // swizzled) and the scales and zeros of the stage's groups (bulk copies);
+  // by every thread (cp.async) the x values of the units' k, real rows
+  // only, field by field, 8 k of one group per copy
+  auto load_stage = [&](int s, int slot) {
+    unsigned char* W = smem + (size_t)slot * stage_bytes;
+    unsigned char* X = W + wbytes;
+    float* S = reinterpret_cast<float*>(X + xbytes);
+    float* Z = S + ngs * bn;
+    const int ua = u0 + s * us, nu = min(us, u1 - ua), nr = (nu + ru - 1) / ru;
+    if (warp == 0) {
+      const int gf = ug(ua), ng = ug(ua + nu - 1) - gf + 1;
+      if (lane == 0) l3q::mbar_expect_tx(full + slot, nr * ru * L * bn + 2 * ng * ncol * 4);
+      __syncwarp();
+      if (lane < nr)
+        l3q::tma_load_2d(W + lane * ru * L * bn, &tmw, col0, (ua + lane * ru) * L, full + slot);
+      for (int i = lane; i < 2 * ng; i += 32) {
+        const int gi = i >> 1;
+        l3q::bulk_load((i & 1 ? Z : S) + gi * bn,
+                       (i & 1 ? zero : scale) + (size_t)(gf + gi) * N + col0, ncol * 4, full + slot);
+      }
     }
-    const uint8_t* wp = data + (size_t)r0 * N + c0;
-#pragma unroll 4
-    for (int j = 0; j < rc; ++j) {
-      const uint4 w = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)j * N));
-      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+    const int cr = nu * L / 8;  // copies per (row, field)
+    const l3q::Div crd(cr);
+    for (int i = tid; i < M * F * cr; i += GEMV_THREADS) {
+      const int mf = crd(i), c = i - mf * cr, m = mf / F, f = mf - m * F;
+      const int row = ua * L + 8 * c, g = subd(row);
+      l3q::cp_async16(X + m * xsb + (f * us * L + 8 * c) * 2,
+                      x + (size_t)m * K + g * gs + f * subd.d + row - g * subd.d);
+    }
+  };
+
+  float acc[MT][4], dot[MT][4], xs[MT][4];
 #pragma unroll
-      for (int s = 0; s < F; ++s) {
-        const int k = kbase + s * sub + j;
-        float xv[MT];
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          xv[m] = __bfloat162float(xrow[m][k]);
-          xs[m] += xv[m];
-        }
+    for (int e = 0; e < 4; ++e) acc[i][e] = dot[i][e] = xs[i][e] = 0.f;
+  // D fragment e: column cl + e / 2, row 2t + e % 2 (and its x sum)
+  auto apply = [&](const float* sp, const float* zp) {
+    const float2 sv = *reinterpret_cast<const float2*>(sp);
+    const float2 zv = *reinterpret_cast<const float2*>(zp);
+    const float zs0 = zv.x * sv.x, zs1 = zv.y * sv.y;
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          const float cf = code_of<F, SIGNED>((words[c >> 2] >> (8 * (c & 3))) & 0xFFu, s);
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int m = 0; m < MT; ++m) dot[m][c] = fmaf(xv[m], cf, dot[m][c]);
+      for (int e = 0; e < 4; ++e) {
+        acc[i][e] += dot[i][e] * (e < 2 ? sv.x : sv.y) - xs[i][e] * (e < 2 ? zs0 : zs1);
+        dot[i][e] = xs[i][e] = 0.f;
+      }
+  };
+
+  // A unit's fragments: the codes' row pairs (ldmatrix.trans) and x for
+  // each k16 pair and row tile; loaded one unit ahead of its MMAs.
+  struct Frag {
+    uint32_t p[2], b[(KQ + 1) / 2][MT][4];
+  };
+  auto fetch = [&](const unsigned char* W, const unsigned char* X, int lu, Frag& fr) {
+    const unsigned char* wr = W + l3q::swz_off(lu * L + (lane & 15), cw * 16, bn);
+    if (L == 16) {
+      l3q::ldmatrix_x2_trans(fr.p, wr);
+    } else {
+      l3q::ldmatrix_x1_trans(fr.p, wr);
+      fr.p[1] = fr.p[0];
+    }
+    // matrix j of k16 steps kp, kp + 1: MMA k 8j.. of the pair, field
+    // (16 kp + 8j) / L at row (16 kp + 8j) % L of the unit (field-major x)
+    const unsigned char* xr = X + (lane & 7) * xsb + lu * L * 2;
+#pragma unroll
+    for (int kp = 0; kp < KQ; kp += 2) {
+      const int e = 16 * kp + 8 * (lane >> 3);
+      const unsigned char* xp = xr + ((e / L) * us * L + e % L) * 2;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (KQ == 1) {
+          l3q::ldmatrix_x2(fr.b[kp / 2][i], xp + i * 8 * xsb);
+        } else {
+          l3q::ldmatrix_x4(fr.b[kp / 2][i], xp + i * 8 * xsb);
         }
       }
     }
-    const float4* sp = reinterpret_cast<const float4*>(scale + (size_t)g * N + c0);
-    const float4* zp = reinterpret_cast<const float4*>(zero + (size_t)g * N + c0);
+  };
+  auto mma_unit = [&](const Frag& fr) {
+    const uint32_t ones[4] = {BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 s4 = __ldg(sp + q), z4 = __ldg(zp + q);
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, zv[4] = {z4.x, z4.y, z4.z, z4.w};
+    for (int kp = 0; kp < KQ; kp += 2) {
+      uint32_t a[2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float zs = zv[i] * sv[i];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m][4 * q + i] = dot[m][4 * q + i] * sv[i] - xs[m] * zs;
+      for (int h = 0; h < 2 && kp + h < KQ; ++h) {
+        const int kq = kp + h, fa = L == 16 ? kq : 2 * kq, fb = L == 16 ? kq : 2 * kq + 1;
+        a[h][0] = codes2<F, SIGNED>(fr.p[0], fa, 0), a[h][1] = codes2<F, SIGNED>(fr.p[0], fa, 1);
+        a[h][2] = codes2<F, SIGNED>(fr.p[1], fb, 0), a[h][3] = codes2<F, SIGNED>(fr.p[1], fb, 1);
       }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2 && kp + h < KQ; ++h) {
+          const uint32_t* b = fr.b[kp / 2][i] + 2 * h;
+          if (L3Q_ABLATE & 128) {
+            dot[i][0] += __uint_as_float((a[h][0] ^ a[h][1] ^ a[h][2] ^ a[h][3] ^ b[0] ^ b[1]) & 0x3FFFFFu);
+          } else {
+            l3q::mma_bf16_16816(dot[i], a[h], b);
+            l3q::mma_bf16_16816(xs[i], ones, b);
+          }
+        }
+    }
+  };
+  // the units of one run, each unit's fragments fetched while the one
+  // before runs its MMAs
+  auto run = [&](const unsigned char* W, const unsigned char* X, int lr) {
+    if (L3Q_ABLATE & 256) return;
+    Frag f0, f1;
+    fetch(W, X, lr, f0);
+    for (int v = 0; v < uw; v += 2) {
+      if (v + 1 < uw) fetch(W, X, lr + v + 1, f1);
+      mma_unit(f0);
+      if (v + 1 < uw) {
+        if (v + 2 < uw) fetch(W, X, lr + v + 2, f0);
+        mma_unit(f1);
+      }
+    }
+  };
+
+  auto compute = [&](int s, int slot) {
+    const unsigned char* W = smem + (size_t)slot * stage_bytes;
+    const unsigned char* X = W + wbytes;
+    const float* S = reinterpret_cast<const float*>(X + xbytes);
+    const float* Z = S + ngs * bn;
+    const int ua = u0 + s * us, nu = min(us, u1 - ua), gf = ug(ua);
+    for (int j = 0; j < rounds; ++j) {
+      const int lr = j * ru + kwi * uw;  // this warp row's run in round j
+      if (lr >= nu) break;
+      run(W, X, lr);
+      // the group's term after this warp row's last run of it
+      const int a = ua + lr, g = ug(a);
+      if (a + ru >= u1 || ug(a + ru) != g) apply(S + (g - gf) * bn + cl, Z + (g - gf) * bn + cl);
+    }
+  };
+
+  if (tid == 0)
+    for (int i = 0; i < ring; ++i) l3q::mbar_init(full + i, 1);
+  __syncthreads();
+  for (int s = 0; s < ring - 1; ++s) {
+    if (s < nst) load_stage(s, s);
+    l3q::cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    l3q::cp_async_wait_upto<5>(ring - 2);  // this thread's x copies of stage s
+    __syncthreads();  // everyone's; and slot (s - 1) % ring is free
+    if (s + ring - 1 < nst) load_stage(s + ring - 1, (s + ring - 1) % ring);
+    l3q::cp_async_commit();
+    l3q::mbar_wait(full + s % ring, (s / ring) & 1);  // its codes, scales and zeros
+    compute(s, s % ring);
+  }
+  l3q::cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp rows' sums in order, then the splits' in rank order
+  float* red = reinterpret_cast<float*>(smem);  // [kw][MP][bn]
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(kwi * MP + 8 * i + 2 * t + (e & 1)) * bn + cl + (e >> 1)] = acc[i][e];
+  __syncthreads();
+  for (int i = tid; i < M * bn; i += GEMV_THREADS) {
+    float v = red[i];
+    for (int w = 1; w < kw; ++w) v += red[w * MP * bn + i];
+    const int m = i / bn, col = col0 + i - m * bn;
+    if (ks == 1) {
+      if (col < N) store_out(out, (size_t)m * N + col, v, out_bf16);
+    } else {
+      red[i] = v;
     }
   }
-
+  if (ks == 1) return;
+  l3q::cluster_sync();
+  const int lo = (int)((long)q * M * bn / ks), hi = (int)((long)(q + 1) * M * bn / ks);
+  for (int i = lo + tid; i < hi; i += GEMV_THREADS) {
+    uint32_t p[8];  // every rank's partial in flight, then added in rank order
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 16; ++c) red[((warp * MT + m) * 16 + c) * 32 + lane] = acc[m][c];
-  __syncthreads();
-  for (int e = threadIdx.x; e < MT * GEMV_COLS; e += GEMV_THREADS) {
-    const int m = e / GEMV_COLS, cl = e % GEMV_COLS;  // cl = c*32 + lane
-    const int row = m0 + m, col = blockIdx.x * GEMV_COLS + (cl & 31) * 16 + (cl >> 5);
-    if (row >= M || col >= N) continue;
+    for (int r = 0; r < 8; ++r)
+      if (r < ks) p[r] = l3q::ld_cluster_u32(red + i, r);
     float v = 0.f;
 #pragma unroll
-    for (int w = 0; w < GEMV_WARPS; ++w) v += red[(w * MT + m) * GEMV_COLS + cl];
-    if (gridDim.y == 1) {
-      store_out(out, (size_t)row * N + col, v, out_bf16);
-    } else {
-      part[((size_t)blockIdx.y * M + row) * N + col] = v;
-    }
+    for (int r = 0; r < 8; ++r)
+      if (r < ks) v += __uint_as_float(p[r]);
+    const int m = i / bn, col = col0 + i - m * bn;
+    if (col < N) store_out(out, (size_t)m * N + col, v, out_bf16);
   }
-}
-
-// Sums the K-split partials [ksplit, M*N] in a fixed order and casts.
-__global__ void qmm_splitk_reduce(const float* __restrict__ part, void* __restrict__ out,
-                                  int out_bf16, int mn, int ksplit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float v = 0.f;
-  for (int y = 0; y < ksplit; ++y) v += part[(size_t)y * mn + i];
-  store_out(out, i, v, out_bf16);
+  l3q::cluster_sync();  // no block leaves while the others read its shared memory
 }
 
 // ---------------------------------------------------------------- B2 ----
@@ -218,12 +393,6 @@ struct RunCursor {
 __device__ __forceinline__ int swz_b(int n, int kc) { return n * KT + ((kc ^ ((n ^ (n >> 2)) & 7)) << 3); }
 __device__ __forceinline__ int swz_a(int m, int kc) { return m * KT + ((kc ^ (m & 7)) << 3); }
 
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Two codes (k rows i and i+1 of one column) as an exact bf16 pair: the
 // small codes through the bf16 pattern of 128 + code, less 128.
@@ -457,28 +626,58 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) qmm_gemm_kernel(
       }
 }
 
-template <int F, bool SIGNED, int MT>
-int launch_gemv(const void* x, const void* data, const void* scale, const void* zero,
-                void* out, void* part, int M, int K, int N, int gs, int out_bf16, int ksplit,
-                int rc, cudaStream_t st) {
-  const size_t smem = (size_t)GEMV_WARPS * MT * GEMV_COLS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      qmm_gemv_kernel<F, SIGNED, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS, ksplit, (M + MT - 1) / MT);
-  qmm_gemv_kernel<F, SIGNED, MT><<<grid, GEMV_THREADS, smem, st>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)data, (const float*)scale,
-      (const float*)zero, (float*)part, out, out_bf16, M, K, N, gs, rc);
-  return (int)cudaGetLastError();
+// Rounds per stage and ring depth of a B1 launch. The stage size does not
+// change the order of any sum (warp rows walk their runs in order), so it
+// follows M and the grid (`l3q::pick_stages`): stages of up to 32 KB of
+// codes and 32 KB of x.
+template <int F, bool SIGNED, int L, int MT>
+int launch_gemv(const void* x, const void* data, const void* scale, const void* zero, void* out,
+                int M, int K, int N, int gs, int out_bf16, int bn, int ksplit, int uw,
+                cudaStream_t st) {
+  constexpr int UK = L * F, MP = 8 * MT;
+  auto kernel = qmm_gemv_kernel<F, SIGNED, L, MT>;
+  const int kw = GEMV_WARPS * 16 / bn, ru = kw * uw, ug = gs / UK;
+  const int split_units = K / UK / uw / ksplit * uw;
+  auto stage = [&](int R) {  // (bytes of a ring slot, code bytes of a stage)
+    const int us = ru * R;
+    const size_t b = (size_t)us * L * bn + (size_t)MP * l3q::odd_row(us * UK * 2) +
+                     2 * (size_t)(us / ug + 2) * bn * 4;
+    return std::make_pair((b + 1023) / 1024 * 1024, (size_t)us * L * bn);
+  };
+  auto fits = [&](int R) {
+    const int us = ru * R;
+    return R == 1 || (us <= split_units && (size_t)us * L * bn <= 32768 &&
+                      (size_t)MP * l3q::odd_row(us * UK * 2) <= 32768);
+  };
+  const long blocks = (long)(N + bn - 1) / bn * ksplit;
+  const size_t red = (size_t)kw * MP * bn * 4;
+  static const int per_sm = l3q::regs_blocks(kernel, GEMV_THREADS);
+  l3q::GemvStages sg = l3q::pick_stages(stage, fits, [](int) { return (size_t)64; },
+                                        l3q::gemv_budget(per_sm, blocks, ksplit));
+  sg.smem = std::max(sg.smem - 64, red) + 64;  // the warp rows' sums reuse the ring
+  CUtensorMap tmw{};  // the codes [K / f, N] in boxes of one round's rows x bn
+  int e = l3q::tensor_map_u8(&tmw, data, K / F, N, N, ru * L, bn, l3q::row_swizzle(bn));
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sg.smem);
+  if (e) return e;
+  e = l3q::launch_clustered(kernel, dim3((N + bn - 1) / bn, ksplit), GEMV_THREADS, sg.smem,
+                            ksplit, st, (const __nv_bfloat16*)x, (const float*)scale,
+                            (const float*)zero, out, out_bf16, M, K, N, gs, bn, uw, sg.rounds,
+                            sg.ring, tmw);
+  return e ? e : (int)cudaGetLastError();
 }
 
-template <int F, bool SIGNED>
+template <int F, bool SIGNED, int L>
 int launch_gemv_mt(const void* x, const void* data, const void* scale, const void* zero,
-                   void* out, void* part, int M, int K, int N, int gs, int out_bf16,
-                   int ksplit, int rc, int mt, cudaStream_t st) {
-  if (mt == 1) return launch_gemv<F, SIGNED, 1>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, rc, st);
-  if (mt == 2) return launch_gemv<F, SIGNED, 2>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, rc, st);
-  return launch_gemv<F, SIGNED, 4>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, rc, st);
+                   void* out, int M, int K, int N, int gs, int out_bf16, int bn, int ksplit,
+                   int uw, cudaStream_t st) {
+#define L3Q_GEMV(MT) \
+  launch_gemv<F, SIGNED, L, MT>(x, data, scale, zero, out, M, K, N, gs, out_bf16, bn, ksplit, uw, st)
+  if (M <= 8) return L3Q_GEMV(1);
+  if (M <= 16) return L3Q_GEMV(2);
+  if (M <= 32) return L3Q_GEMV(4);
+  return L3Q_GEMV(8);
+#undef L3Q_GEMV
 }
 
 template <int F, bool SIGNED>
@@ -499,6 +698,16 @@ int launch_gemm(const void* x, const void* data, const void* scale, const void* 
   return (int)cudaGetLastError();
 }
 
+// Sums the K-split partials [ksplit, M*N] in a fixed order and casts.
+__global__ void qmm_splitk_reduce(const float* __restrict__ part, void* __restrict__ out,
+                                  int out_bf16, int mn, int ksplit) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float v = 0.f;
+  for (int y = 0; y < ksplit; ++y) v += part[(size_t)y * mn + i];
+  store_out(out, i, v, out_bf16);
+}
+
 int reduce_splits(const void* part, void* out, int out_bf16, int M, int N, int ksplit,
                   cudaStream_t st) {
   const int mn = M * N;
@@ -509,22 +718,29 @@ int reduce_splits(const void* part, void* out, int out_bf16, int M, int N, int k
 }  // namespace
 
 // f: values per byte (4 = 2-bit, 2 = 4-bit, 1 = one code per byte);
-// is_signed: int8 (1) or uint8 (0) codes when f == 1. B1: `rc` byte rows per
-// warp chunk (divides gs/f), ksplit = ceil(K/f / (8*rc)) blocks along K,
-// mt rows per block (1, 2 or 4). part: fp32 [ksplit, M, N] scratch, unused
-// when ksplit == 1. Needs N % 16 == 0.
+// is_signed: int8 (1) or uint8 (0) codes when f == 1. B1 (M <= 64, one
+// launch): column tiles of bn = 16, 32, 64 or 128, ksplit <= 8 blocks along
+// K in one cluster, units of L = 16 or 8 byte rows inside a group (L * f a
+// multiple of 16), runs of uw units inside a group (a round of 128 / bn runs
+// at most 256 rows). Needs N % 16 == 0 and 16-byte aligned x, codes, scales
+// and zeros.
 extern "C" int l3q_qmm_gemv(const void* x, const void* data, const void* scale,
-                            const void* zero, void* out, void* part, int M, int K, int N,
-                            int gs, int f, int is_signed, int out_bf16, int ksplit, int rc,
-                            int mt, void* stream) {
+                            const void* zero, void* out, int M, int K, int N, int gs, int f,
+                            int is_signed, int out_bf16, int bn, int ksplit, int L, int uw,
+                            void* stream) {
+  const int kw = (bn == 16 || bn == 32 || bn == 64 || bn == 128) ? GEMV_WARPS * 16 / bn : 0;
+  if (M < 1 || M > 64 || N % 16 || !kw || ksplit < 1 || ksplit > 8 || (L != 8 && L != 16) ||
+      (f != 1 && f != 2 && f != 4) || gs % f || K % gs || (gs / f) % L || (L * f) % 16 ||
+      uw < 1 || (gs / f / L) % uw || K / (L * f) / uw < ksplit || kw * uw * L > 256)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err;
-  if (f == 4) err = launch_gemv_mt<4, false>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, rc, mt, st);
-  else if (f == 2) err = launch_gemv_mt<2, false>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, rc, mt, st);
-  else if (is_signed) err = launch_gemv_mt<1, true>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, rc, mt, st);
-  else err = launch_gemv_mt<1, false>(x, data, scale, zero, out, part, M, K, N, gs, out_bf16, ksplit, rc, mt, st);
-  if (err != 0 || ksplit == 1) return err;
-  return reduce_splits(part, out, out_bf16, M, N, ksplit, st);
+#define L3Q_B1(FF, SG, LL) \
+  launch_gemv_mt<FF, SG, LL>(x, data, scale, zero, out, M, K, N, gs, out_bf16, bn, ksplit, uw, st)
+  if (f == 4) return L == 16 ? L3Q_B1(4, false, 16) : L3Q_B1(4, false, 8);
+  if (f == 2) return L == 16 ? L3Q_B1(2, false, 16) : L3Q_B1(2, false, 8);
+  if (L != 16) return (int)cudaErrorInvalidValue;
+  return is_signed ? L3Q_B1(1, true, 16) : L3Q_B1(1, false, 16);
+#undef L3Q_B1
 }
 
 // B2: needs K % 64 == 0, N % 16 == 0, gs % (8 * f) == 0 (gs % 8 for the

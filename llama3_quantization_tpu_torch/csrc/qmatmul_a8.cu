@@ -29,16 +29,18 @@
 // JAX's `a8_matmul`.
 //
 // What bounds it on the H100. At M <= 64 (every decode and serving step)
-// it is a GEMV bound by the weight bytes over HBM (3.35 TB/s): the GEMV
-// form keeps B1's load pattern (16 adjacent columns per thread, one 16-byte
-// load per byte row, a warp per `rc` byte rows inside one group), unpacks
-// nibbles with per-byte SIMD, byte-transposes four rows so that four
-// consecutive k of one column form one word, and runs `__dp4a` against the
-// s8 activation word. Each block sums its warps' s32 partials per group
-// segment in shared memory and writes them out; a second pass adds the
-// segments of each group (integers: any order is exact), applies the fp32
-// epilogue group by group in order and scales by s_x, so the result does
-// not depend on timing or on the split. At M > 64 (prefills) it does
+// it is a GEMV bound by the weight bytes over HBM (3.35 TB/s): 2*64 int8
+// operations per code at M = 64 stay under the int8 tensor cores' share of
+// that time. The GEMV form reads each packed byte from HBM once per call at
+// every M (a ring of cp.async stages per block) and runs the dot on the
+// tensor cores, mma.sync m16n8k32 s8 with the codes as the 16-row operand
+// and the activation rows as the 8-column one (a byte transpose of four
+// rows gives four consecutive k of one column per register). The exact s32
+// dots and x sums of each group are summed across warps in shared memory
+// and the fp32 group terms folded in group order inside the same launch
+// (see the GEMV section), so its fp32 output equals the plain version's bit
+// for bit and does not depend on timing. At M > 64
+// (prefills) it does
 // 2*M*K*N int8 operations on K*N/f code bytes: at M = 128 the int8 tensor
 // cores (1,979 TOP/s) and the bytes (3.35 TB/s) bound it alike, and in
 // practice what feeds the tensor cores does, and with group scales the
@@ -90,191 +92,383 @@ __device__ __forceinline__ uint32_t field4(uint32_t w, int s) {
   return v;
 }
 
-// The group epilogue term (dot - xsum * z) * s, one rounding per operation.
-__device__ __forceinline__ float group_term(int dot, int xs, const float* scale,
-                                            const void* zero, int zmode, size_t gi) {
-  float t = (float)dot;
-  if (zmode == 1) {
-    t = __fsub_rn(t, __fmul_rn((float)xs, reinterpret_cast<const float*>(zero)[gi]));
-  } else if (zmode == 2) {
-    t = __fsub_rn(t, __fmul_rn((float)xs, (float)reinterpret_cast<const int8_t*>(zero)[gi]));
-  }
-  return __fmul_rn(t, scale[gi]);
-}
-
 // ------------------------------------------------------------ GEMV form ----
+// One launch at M <= 64: mma.sync m16n8k32 s8 x s8 -> s32 with the codes
+// as the 16-row operand (16 output columns; lane group g holds columns 2g
+// and 2g + 1) and xq's rows, padded to 8, 16, 32 or 64, as the 8-column
+// operand; a second MMA with an all-ones A forms the exact activation sums.
+// A unit is L byte rows of one group (L = 32, or 16 / 8 where a group's bit
+// field is shorter), L * f k values: its k32 steps take field (32 q + i) / L,
+// row (32 q + i) % L for MMA k index i, so the four k of one A register are
+// four adjacent byte rows of one field (a byte transpose of four rows) and
+// their x values four adjacent bytes of xq.
+//
+// Grid ceil(N / bn), tiles and runs from `gemv_plan`; K does not split, so
+// each block folds every group term of its columns in order. Block: bn / 16
+// column warps times kw = 128 / bn warp rows. A
+// round is kw runs of uw units, run r to warp row r, each run inside one
+// group. Each warp keeps exact s32 dots and x sums in registers: one set
+// while its stages stay inside one group, one per round in a stage that
+// holds several groups. When a group ends, or such a stage does, the warps
+// put their sets in shared memory, tagged with their group, and every
+// thread folds its outputs' slots in the runs' order: partials of one
+// group add up in s32 (a group that goes on carries its s32 sums to the
+// next fold), and each finished group's term (f32(dot) - f32(xsum) * z) * s
+// joins the fp32 sum, one rounding per operation, in group order. So the
+// fp32 output is `a8_plain`'s bit for bit. The ring's stages copy their
+// units' byte rows (one swizzled
+// TMA box a round), the xq bytes they meet (real rows only, cp.async) and
+// the scales and zeros of their groups (bulk copies).
 constexpr int GEMV_THREADS = 256;
 constexpr int GEMV_WARPS = GEMV_THREADS / 32;
-constexpr int GEMV_COLS = 512;  // 32 lanes x 16 columns
 
-// Stage 1: s32 partial dots and activation sums per group segment.
-// part [chunks, M, N], xpart [chunks, M]; block y covers byte rows
-// [y * 8 * rc, (y + 1) * 8 * rc), cut into segments of `seg` rows (a whole
-// group when the group is shorter), chunk = y * (8 * rc / seg) + segment.
-template <int C, int MT>
+// Rounds a stage at most (each warp keeps a run's s32 sums per round).
+__host__ __device__ constexpr int gemv_rmax(int mt) { return mt == 1 ? 4 : mt == 2 ? 2 : 1; }
+// Bytes of the fold's shared memory: the slots, the state, 8-byte aligned.
+__host__ __device__ constexpr int gemv_fold_bytes(int nslot, int mp, int bn, int m) {
+  return ((nslot * mp * bn + nslot * mp + nslot + 2 * m * bn + 2 * mp) * 4 + 7) / 8 * 8;
+}
+
+// The group epilogue term (dot - xsum * z) * s, one rounding per operation.
+__device__ __forceinline__ float group_term(int dot, int xs, float s, float z, int zmode) {
+  float t = (float)dot;
+  if (zmode) t = __fsub_rn(t, __fmul_rn((float)xs, z));
+  return __fmul_rn(t, s);
+}
+
+template <int C, int L, int MT>
 __global__ void __launch_bounds__(GEMV_THREADS) a8_gemv_kernel(
-    const int8_t* __restrict__ xq, const uint8_t* __restrict__ data, int* __restrict__ part,
-    int* __restrict__ xpart, int M, int K, int N, int gs, int rc, int seg) {
+    const int8_t* __restrict__ xq, const float* __restrict__ scale,
+    const void* __restrict__ zero, int zmode, const float* __restrict__ sx, void* __restrict__ out,
+    int out_bf16, int M, int K, int N, int gs, int bn, int uw, int rounds, int ring,
+    const __grid_constant__ CUtensorMap tmw) {
   constexpr int F = PackOf<C>::F;
-  extern __shared__ int red[];  // [GEMV_WARPS][MT][GEMV_COLS], then xred [GEMV_WARPS][MT]
-  int* xred = red + GEMV_WARPS * MT * GEMV_COLS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * GEMV_COLS + lane * 16;
-  const int m0 = blockIdx.z * MT;
-  const int rows = K / F, sub = gs / F;
-  const int r0 = (blockIdx.y * GEMV_WARPS + warp) * rc;
-  int dot[MT][16], xs[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    xs[m] = 0;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) dot[m][c] = 0;
-  }
+  constexpr int UK = L * F, KQ = UK / 32, MP = 8 * MT, RMAX = gemv_rmax(MT);
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const l3q::Div ncd(bn / 16), bnd(bn);
+  const int nc = ncd.d, kw = GEMV_WARPS / nc;
+  const int cw = warp & (nc - 1), kwi = warp >> ncd.sh;
+  const l3q::Div ug(gs / F / L), subd(gs / F);  // units, byte rows per group
+  const int u0 = 0, u1 = K / UK;  // every unit: K does not split
+  const int ru = kw * uw, us = ru * rounds;  // units per round, per stage
+  const int nst = (u1 - u0 + us - 1) / us;
+  const int ngs = us / ug.d + 2;  // groups one stage can touch
+  const int zb = zmode == 2 ? 1 : 4;  // bytes per zero
+  const int xsb = l3q::odd_row(us * UK);
+  const int wbytes = us * L * bn, xbytes = MP * xsb, sbytes = ngs * bn * 4;
+  const int stage_bytes = (wbytes + xbytes + 2 * sbytes + 1023) / 1024 * 1024;
+  const int col0 = blockIdx.x * bn, ncol = min(bn, N - col0);
+  const int cl = cw * 16 + 2 * gid;
+  // after the ring: the slots of a stage's runs (round j, warp row r) [R][kw]
+  // of s32 dots [MP][bn], x sums [MP] and group tags; the fold's state: fp32
+  // sums and the running s32 dot of each output [M][bn], the running s32 x
+  // sum of each row [2][MP] (read one buffer, write the other); the ring's
+  // mbarriers
+  const int nslot = rounds * kw;
+  int* sdot = reinterpret_cast<int*>(smem + (size_t)ring * stage_bytes);
+  int* sxs = sdot + nslot * MP * bn;
+  int* stag = sxs + nslot * MP;
+  float* accs = reinterpret_cast<float*>(stag + nslot);
+  int* accd = reinterpret_cast<int*>(accs + M * bn);
+  int* accx = accd + M * bn;
+  const int fold_bytes = gemv_fold_bytes(nslot, MP, bn, M);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)ring * stage_bytes + fold_bytes);
 
-  if (r0 < rows) {
-    const int g = r0 / sub, j0 = r0 - g * sub;
-    const int8_t* xrow[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) xrow[m] = xq + (size_t)min(m0 + m, M - 1) * K;
-    const uint8_t* wp = data + (size_t)r0 * N + c0;
-    for (int q = 0; q < rc; q += 4) {
-      uint32_t w[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const uint4 v = c0 < N ? __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(q + r) * N))
-                               : make_uint4(0, 0, 0, 0);
-        w[r][0] = v.x; w[r][1] = v.y; w[r][2] = v.z; w[r][3] = v.w;
-      }
-#pragma unroll
-      for (int s = 0; s < F; ++s) {
-        const int k = g * gs + s * sub + j0 + q;
-        int xw[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          xw[m] = __ldg(reinterpret_cast<const int*>(xrow[m] + k));
-          xs[m] = __dp4a(xw[m], 0x01010101, xs[m]);
-        }
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          const uint32_t rw[4] = {field4<C>(w[0][h], s), field4<C>(w[1][h], s),
-                                  field4<C>(w[2][h], s), field4<C>(w[3][h], s)};
-          uint32_t cw[4];
-          transpose4(rw, cw);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int m = 0; m < MT; ++m) dot[m][4 * h + i] = __dp4a((int)cw[i], xw[m], dot[m][4 * h + i]);
+  // stage s into ring slot `slot`: by warp 0 on the slot's mbarrier the
+  // units' byte rows of the tile (one TMA box a round, swizzled) and the
+  // scales and zeros of the stage's groups (bulk copies); by every thread
+  // (cp.async) the xq bytes of the units' k, real rows only, CH k of one
+  // group per copy: field-major, or unit-major for L = 8, where a field's
+  // run in a unit is shorter than an ldmatrix row
+  auto load_stage = [&](int s, int slot) {
+    unsigned char* W = smem + (size_t)slot * stage_bytes;
+    unsigned char* X = W + wbytes;
+    unsigned char* S = X + xbytes;
+    unsigned char* Z = S + sbytes;
+    const int ua = u0 + s * us, nu = min(us, u1 - ua), nr = (nu + ru - 1) / ru;
+    if (warp == 0) {
+      const int gf = ug(ua), ng = ug(ua + nu - 1) - gf + 1, zrow = zmode ? ncol * zb : 0;
+      if (lane == 0) l3q::mbar_expect_tx(full + slot, nr * ru * L * bn + ng * (ncol * 4 + zrow));
+      __syncwarp();
+      if (lane < nr)
+        l3q::tma_load_2d(W + lane * ru * L * bn, &tmw, col0, (ua + lane * ru) * L, full + slot);
+      for (int i = lane; i < (zmode ? 2 : 1) * ng; i += 32) {
+        const int gi = zmode ? i >> 1 : i;
+        const size_t g = gf + gi;
+        if (zmode && (i & 1)) {
+          l3q::bulk_load(Z + gi * bn * zb, static_cast<const unsigned char*>(zero) + (g * N + col0) * zb,
+                         zrow, full + slot);
+        } else {
+          l3q::bulk_load(S + gi * bn * 4, scale + g * N + col0, ncol * 4, full + slot);
         }
       }
     }
-  }
-  if (C == U8) {  // back to the promoted dot: sum (c - 128) x + 128 sum x
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < 16; ++c) dot[m][c] += 128 * xs[m];
-  }
+    constexpr int CH = L < 16 ? L : 16;
+    const int cr = nu * L / CH;  // copies per (row, field)
+    const l3q::Div crd(cr);
+    for (int i = tid; i < M * F * cr; i += GEMV_THREADS) {
+      const int mf = crd(i), c = i - mf * cr, m = mf / F, f = mf - m * F;
+      const int row = ua * L + CH * c, g = subd(row);
+      const int8_t* sp = xq + (size_t)m * K + g * gs + f * subd.d + row - g * subd.d;
+      if (CH == 16) {
+        l3q::cp_async16(X + m * xsb + f * us * L + CH * c, sp);
+      } else {
+        l3q::cp_async8_zfill(X + m * xsb + c * UK + f * L, sp, true);
+      }
+    }
+  };
 
+  for (int i = tid; i < M * bn; i += GEMV_THREADS) accs[i] = 0.f, accd[i] = 0;
+  for (int i = tid; i < 2 * MP; i += GEMV_THREADS) accx[i] = 0;
+  // this warp's s32 sums of its runs since the last fold (set j: round j of
+  // a stage with several groups, else every run in set 0) and their groups
+  int dots[RMAX][MT][4], xss[RMAX][MT][4], tags[RMAX];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
+  for (int j = 0; j < RMAX; ++j) {
+    tags[j] = -1;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) red[(warp * MT + m) * GEMV_COLS + c * 32 + lane] = dot[m][c];
-    if (lane == 0) xred[warp * MT + m] = xs[m];
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dots[j][i][e] = xss[j][i][e] = 0;
   }
+  int nfold = 0;  // folds so far (the x sums' buffer parity)
+
+  auto unit = [&](const unsigned char* W, const unsigned char* X, int lu, int (&dot)[MT][4],
+                  int (&xs)[MT][4]) {
+    if (L3Q_ABLATE & 256) return;
+    // this lane's two columns of rows (4t + 16j) % L .. + 3, byte-transposed
+    uint32_t col[2][2];
+#pragma unroll
+    for (int j = 0; j < (L == 32 ? 2 : 1); ++j) {
+      const int r0 = lu * L + (4 * t + 16 * j) % L;
+      uint32_t r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r[i] = *reinterpret_cast<const uint16_t*>(W + l3q::swz_off(r0 + i, cl, bn));
+      const uint32_t w01 = __byte_perm(r[0], r[1], 0x5410), w23 = __byte_perm(r[2], r[3], 0x5410);
+      col[j][0] = __byte_perm(w01, w23, 0x6420);
+      col[j][1] = __byte_perm(w01, w23, 0x7531);
+    }
+    if (L != 32) col[1][0] = col[0][0], col[1][1] = col[0][1];
+    // matrix j of k32 steps kp, kp + 1: MMA k 16j.. of the pair, field
+    // (32 kp + 16j) / L at row (32 kp + 16j) % L of the unit
+    const unsigned char* xr = X + (lane & 7) * xsb;
+    auto xpos = [&](int kp) {
+      const int e = 32 * kp + 16 * (lane >> 3);
+      return L < 16 ? xr + lu * UK + e : xr + (e / L) * us * L + lu * L + e % L;
+    };
+    const uint32_t ones[4] = {0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u};
+#pragma unroll
+    for (int kp = 0; kp < KQ; kp += 2) {  // x for k32 steps kp and kp + 1 in one ldmatrix
+      uint32_t a[2][4];
+#pragma unroll
+      for (int h = 0; h < 2 && kp + h < KQ; ++h) {
+        const int fa = (32 * (kp + h) + 4 * t) / L, fb = (32 * (kp + h) + 16 + 4 * t) / L;
+        if (L3Q_ABLATE & 64) {
+          a[h][0] = col[0][0], a[h][1] = col[0][1], a[h][2] = col[1][0], a[h][3] = col[1][1];
+        } else {
+          a[h][0] = field4<C>(col[0][0], fa), a[h][1] = field4<C>(col[0][1], fa);
+          a[h][2] = field4<C>(col[1][0], fb), a[h][3] = field4<C>(col[1][1], fb);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t b[4];
+        if (KQ == 1) {
+          l3q::ldmatrix_x2(b, xpos(kp) + i * 8 * xsb);
+        } else {
+          l3q::ldmatrix_x4(b, xpos(kp) + i * 8 * xsb);
+        }
+#pragma unroll
+        for (int h = 0; h < 2 && kp + h < KQ; ++h) {
+          if (L3Q_ABLATE & 128) {
+            dot[i][0] ^= (int)(a[h][0] ^ a[h][1] ^ a[h][2] ^ a[h][3] ^ b[2 * h] ^ b[2 * h + 1]);
+          } else {
+            l3q::mma_s8_16832(dot[i], a[h], b + 2 * h);
+            l3q::mma_s8_16832(xs[i], ones, b + 2 * h);
+          }
+        }
+      }
+    }
+  };
+
+  // the stage's slots, round by round and warp row by warp row (the runs'
+  // order): s32 sums of one group add up, a group's term joins the fp32 sum
+  // when the next group starts, and the last group's when the stage ends at
+  // a group boundary (`done`). The last fold stores.
+  int cg = -1;  // the group being summed (the same for every output)
+  auto fold = [&](const unsigned char* S, const unsigned char* Z, int gf, int nsets, bool done,
+                  bool last, int par) {
+    for (int i = tid; i < M * bn; i += GEMV_THREADS) {
+      const int m = bnd(i), c = i - m * bn, col = col0 + c;
+      auto term = [&](int g, int d, int xsum) {
+        if (C == U8) d += 128 * xsum;  // back to the promoted dot
+        const int o = (g - gf) * bn + c;
+        const float z = zmode == 1   ? reinterpret_cast<const float*>(Z)[o]
+                        : zmode == 2 ? (float)reinterpret_cast<const int8_t*>(Z)[o]
+                                     : 0.f;
+        return group_term(d, xsum, reinterpret_cast<const float*>(S)[o], z, zmode);
+      };
+      float acc = accs[i];
+      int d = accd[i], xsum = accx[par * MP + m], g = cg;
+      for (int j = 0; j < nsets * kw; ++j) {
+        const int tg = stag[j];
+        if (tg < 0) continue;
+        if (tg != g) {
+          if (g >= 0 && col < N) acc = __fadd_rn(acc, term(g, d, xsum));
+          g = tg, d = 0, xsum = 0;
+        }
+        d += sdot[(j * MP + m) * bn + c];
+        xsum += sxs[j * MP + m];
+      }
+      if (done && col < N) {
+        acc = __fadd_rn(acc, term(g, d, xsum));
+        d = xsum = 0;
+      }
+      if (last) {
+        if (col < N) store_out(out, (size_t)m * N + col, __fmul_rn(acc, sx[m]), out_bf16);
+      } else {
+        accs[i] = acc, accd[i] = d;
+        if (c == 0) accx[(par ^ 1) * MP + m] = xsum;
+      }
+    }
+    for (int j = 0; j < nsets * kw; ++j)  // every thread follows the same tags
+      if (stag[j] >= 0) cg = stag[j];
+    if (done) cg = -1;
+  };
+
+  if (tid == 0)
+    for (int i = 0; i < ring; ++i) l3q::mbar_init(full + i, 1);
   __syncthreads();
-  const int nseg = GEMV_WARPS * rc / seg, wps = seg / rc;
-  for (int e = threadIdx.x; e < nseg * MT * GEMV_COLS; e += GEMV_THREADS) {
-    const int sidx = e / (MT * GEMV_COLS), rem = e - sidx * MT * GEMV_COLS;
-    const int m = rem / GEMV_COLS, cl = rem - m * GEMV_COLS;  // cl = c * 32 + lane
-    const int row = m0 + m, col = blockIdx.x * GEMV_COLS + (cl & 31) * 16 + (cl >> 5);
-    if (row >= M || col >= N) continue;
-    int v = 0;
-    for (int w = sidx * wps; w < (sidx + 1) * wps; ++w) v += red[(w * MT + m) * GEMV_COLS + cl];
-    part[((size_t)(blockIdx.y * nseg + sidx) * M + row) * N + col] = v;
+  for (int s = 0; s < ring - 1; ++s) {
+    if (s < nst) load_stage(s, s);
+    l3q::cp_async_commit();
   }
-  if (blockIdx.x == 0 && threadIdx.x < nseg * MT) {
-    const int sidx = threadIdx.x / MT, m = threadIdx.x - sidx * MT, row = m0 + m;
-    if (row < M) {
-      int v = 0;
-      for (int w = sidx * wps; w < (sidx + 1) * wps; ++w) v += xred[w * MT + m];
-      xpart[(blockIdx.y * nseg + sidx) * M + row] = v;
+  for (int s = 0; s < nst; ++s) {
+    l3q::cp_async_wait_upto<5>(ring - 2);  // this thread's xq copies of stage s
+    __syncthreads();  // everyone's; and slot (s - 1) % ring is free
+    if (s + ring - 1 < nst) load_stage(s + ring - 1, (s + ring - 1) % ring);
+    l3q::cp_async_commit();
+    l3q::mbar_wait(full + s % ring, (s / ring) & 1);  // its codes, scales and zeros
+    const unsigned char* W = smem + (size_t)(s % ring) * stage_bytes;
+    const unsigned char* X = W + wbytes;
+    const unsigned char* S = X + xbytes;
+    const int ua = u0 + s * us, nu = min(us, u1 - ua), gf = ug(ua), nr = (nu + ru - 1) / ru;
+    // a stage inside one group adds every run into sums 0 and folds only
+    // when the group ends or a stage with several groups follows; such a
+    // stage keeps each round's sums apart and folds at its end
+    auto multi_at = [&](int a) { return ug(a) != ug(a + min(us, u1 - a) - 1); };
+    const bool multi = multi_at(ua), last = s + 1 == nst;
+    const bool done = (ua + nu) % ug.d == 0 || last;
+#pragma unroll
+    for (int j = 0; j < RMAX; ++j) {
+      const int lr = j * ru + kwi * uw;  // this warp row's run in round j
+      if (j < nr && lr < nu) {
+        if (multi) {
+          tags[j] = ug(ua + lr);
+          for (int v = 0; v < uw; ++v) unit(W, X, lr + v, dots[j], xss[j]);
+        } else {
+          tags[0] = ug(ua + lr);
+          for (int v = 0; v < uw; ++v) unit(W, X, lr + v, dots[0], xss[0]);
+        }
+      }
     }
+    if (!multi && !done && !multi_at(ua + us)) continue;
+    const int nsets = multi ? nr : 1;
+#pragma unroll
+    for (int j = 0; j < RMAX; ++j) {
+      if (j >= nsets) break;
+      const int sl = j * kw + kwi;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sdot[(sl * MP + 8 * i + 2 * t + (e & 1)) * bn + cl + (e >> 1)] = dots[j][i][e];
+          dots[j][i][e] = 0;
+        }
+      if (cw == 0 && gid == 0) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          sxs[sl * MP + 8 * i + 2 * t] = xss[j][i][0];
+          sxs[sl * MP + 8 * i + 2 * t + 1] = xss[j][i][1];
+        }
+        if (t == 0) stag[sl] = tags[j];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xss[j][i][e] = 0;
+      tags[j] = -1;
+    }
+    __syncthreads();
+    fold(S, S + sbytes, gf, nsets, done, last, nfold++ & 1);
   }
 }
 
-// Stage 2: per output element, the segments of each group summed in s32
-// (integers: any order is exact), the fp32 group terms added in group
-// order, times s_x. Two schedules of that one function, chosen by the
-// number of groups G:
-//
-// G >= EPI_WARPS (grouped weights: 32 or 112 groups of one or two
-// segments): one block per (row m, 32 adjacent columns). Groups go in
-// passes of EPI_GROUPS: the 8 warps share the pass's (group, segment)
-// partials and add them into shared s32 sums, then form the group terms
-// side by side, and warp 0 adds them in order; so a pass's loads are in
-// flight together, where one thread per output would wait on each group.
-//
-// G < EPI_WARPS (per-column weights: one group of up to 32 segments): one
-// thread per output element, which keeps every warp busy.
-constexpr int EPI_THREADS = 256;
-constexpr int EPI_WARPS = EPI_THREADS / 32;
-constexpr int EPI_GROUPS = 64;
-
-__global__ void __launch_bounds__(EPI_THREADS) a8_epilogue_rows_kernel(
-    const int* __restrict__ part, const int* __restrict__ xpart, const float* __restrict__ scale,
-    const void* __restrict__ zero, int zmode, const float* __restrict__ sx,
-    void* __restrict__ out, int out_bf16, int M, int N, int G, int cpg) {
-  const int i = blockIdx.x * EPI_THREADS + threadIdx.x;
-  if (i >= M * N) return;
-  const int m = i / N, n = i - m * N;
-  const size_t mn = (size_t)M * N;
-  float v = 0.f;
-  for (int g = 0; g < G; ++g) {
-    int dot = 0, xs = 0;
-#pragma unroll 4
-    for (int c = g * cpg; c < (g + 1) * cpg; ++c) {
-      dot += part[(size_t)c * mn + i];
-      xs += xpart[c * M + m];
-    }
-    v = __fadd_rn(v, group_term(dot, xs, scale, zero, zmode, (size_t)g * N + n));
-  }
-  store_out(out, i, __fmul_rn(v, sx[m]), out_bf16);
+// Rounds per stage and ring depth of a B3 GEMV launch (`l3q::pick_stages`):
+// stages of up to 32 KB of codes and 32 KB of xq and at most gemv_rmax
+// rounds. Any choice gives the same result (exact s32 sums, terms in group
+// order).
+template <int C, int L, int MT>
+int launch_gemv(const void* xq, const void* data, const void* scale, const void* zero, int zmode,
+                const void* sx, void* out, int out_bf16, int M, int K, int N, int gs, int bn,
+                int uw, cudaStream_t st) {
+  constexpr int F = PackOf<C>::F, UK = L * F, MP = 8 * MT;
+  auto kernel = a8_gemv_kernel<C, L, MT>;
+  const int kw = GEMV_WARPS * 16 / bn, ru = kw * uw, ug = gs / F / L;
+  auto stage = [&](int R) {  // (bytes of a ring slot, code bytes of a stage)
+    const int us = ru * R;
+    const size_t b = (size_t)us * L * bn + (size_t)MP * l3q::odd_row(us * UK) +
+                     2 * (size_t)(us / ug + 2) * bn * 4;
+    return std::make_pair((b + 1023) / 1024 * 1024, (size_t)us * L * bn);
+  };
+  auto fits = [&](int R) {
+    const int us = ru * R;
+    return R == 1 || (R <= gemv_rmax(MT) && us <= K / UK && (size_t)us * L * bn <= 32768 &&
+                      (size_t)MP * l3q::odd_row(us * UK) <= 32768);
+  };
+  auto fold = [&](int R) { return (size_t)gemv_fold_bytes(R * kw, MP, bn, M) + 64; };
+  static const int per_sm = l3q::regs_blocks(kernel, GEMV_THREADS);
+  const l3q::GemvStages sg =
+      l3q::pick_stages(stage, fits, fold, l3q::gemv_budget(per_sm, (long)(N + bn - 1) / bn, 1));
+  CUtensorMap tmw{};  // the codes [K / f, N] in boxes of one round's rows x bn
+  int e = l3q::tensor_map_u8(&tmw, data, K / F, N, N, ru * L, bn, l3q::row_swizzle(bn));
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sg.smem);
+  if (e) return e;
+  kernel<<<(N + bn - 1) / bn, GEMV_THREADS, sg.smem, st>>>(
+      (const int8_t*)xq, (const float*)scale, zero, zmode, (const float*)sx, out, out_bf16, M, K, N,
+      gs, bn, uw, sg.rounds, sg.ring, tmw);
+  return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(EPI_THREADS) a8_epilogue_kernel(
-    const int* __restrict__ part, const int* __restrict__ xpart, const float* __restrict__ scale,
-    const void* __restrict__ zero, int zmode, const float* __restrict__ sx,
-    void* __restrict__ out, int out_bf16, int M, int N, int G, int cpg) {
-  __shared__ int sdot[EPI_GROUPS][32];
-  __shared__ int sxs[EPI_GROUPS];
-  __shared__ float terms[EPI_GROUPS][32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m = blockIdx.y, n = blockIdx.x * 32 + lane;
-  const bool n_ok = n < N;
-  const size_t mn = (size_t)M * N, row = (size_t)m * N + n;
-  float v = 0.f;
-  for (int g0 = 0; g0 < G; g0 += EPI_GROUPS) {
-    const int gn = min(EPI_GROUPS, G - g0);
-    for (int e = threadIdx.x; e < gn * 32; e += EPI_THREADS) sdot[e >> 5][e & 31] = 0;
-    if (threadIdx.x < gn) sxs[threadIdx.x] = 0;
-    __syncthreads();
-#pragma unroll 4
-    for (int u = warp; u < gn * cpg; u += EPI_WARPS) {
-      const int j = u / cpg, c = g0 * cpg + u;
-      if (n_ok) atomicAdd(&sdot[j][lane], part[(size_t)c * mn + row]);
-      if (lane == 0) atomicAdd(&sxs[j], xpart[c * M + m]);
-    }
-    __syncthreads();
-    for (int j = warp; j < gn; j += EPI_WARPS)
-      terms[j][lane] = n_ok ? group_term(sdot[j][lane], sxs[j], scale, zero, zmode,
-                                         (size_t)(g0 + j) * N + n)
-                            : 0.f;
-    __syncthreads();
-    if (warp == 0)
-      for (int j = 0; j < gn; ++j) v = __fadd_rn(v, terms[j][lane]);
-    __syncthreads();
-  }
-  if (warp == 0 && n_ok) store_out(out, row, __fmul_rn(v, sx[m]), out_bf16);
+template <int C, int L>
+int launch_gemv_mt(const void* xq, const void* data, const void* scale, const void* zero,
+                   int zmode, const void* sx, void* out, int out_bf16, int M, int K, int N,
+                   int gs, int bn, int uw, cudaStream_t st) {
+#define L3Q_GEMV(MT) \
+  launch_gemv<C, L, MT>(xq, data, scale, zero, zmode, sx, out, out_bf16, M, K, N, gs, bn, uw, st)
+  if (M <= 8) return L3Q_GEMV(1);
+  if (M <= 16) return L3Q_GEMV(2);
+  if (M <= 32) return L3Q_GEMV(4);
+  return L3Q_GEMV(8);
+#undef L3Q_GEMV
+}
+
+template <int C>
+int launch_gemv_l(const void* xq, const void* data, const void* scale, const void* zero, int zmode,
+                  const void* sx, void* out, int out_bf16, int M, int K, int N, int gs, int bn,
+                  int L, int uw, cudaStream_t st) {
+  constexpr int F = PackOf<C>::F;
+#define L3Q_GEMV_L(LL) \
+  launch_gemv_mt<C, LL>(xq, data, scale, zero, zmode, sx, out, out_bf16, M, K, N, gs, bn, uw, st)
+  if (L == 32) return L3Q_GEMV_L(32);
+  if (F >= 2 && L == 16) return L3Q_GEMV_L(F >= 2 ? 16 : 32);
+  if (F == 4 && L == 8) return L3Q_GEMV_L(F == 4 ? 8 : 32);
+  return (int)cudaErrorInvalidValue;
+#undef L3Q_GEMV_L
 }
 
 // ----------------------------------------------------------- tiled form ----
@@ -611,37 +805,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) a8_gemm_kernel(
     }
 }
 
-template <int C, int MT>
-int launch_gemv(const void* xq, const void* data, void* part, void* xpart, int M, int K, int N,
-                int gs, int rc, int seg, int ysplit, cudaStream_t st) {
-  const size_t smem = (size_t)GEMV_WARPS * MT * (GEMV_COLS + 1) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(a8_gemv_kernel<C, MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS, ysplit, (M + MT - 1) / MT);
-  a8_gemv_kernel<C, MT><<<grid, GEMV_THREADS, smem, st>>>(
-      (const int8_t*)xq, (const uint8_t*)data, (int*)part, (int*)xpart, M, K, N, gs, rc, seg);
-  return (int)cudaGetLastError();
-}
-
-template <int C>
-int launch_gemv_mt(const void* xq, const void* data, void* part, void* xpart, int M, int K,
-                   int N, int gs, int rc, int seg, int ysplit, int mt, cudaStream_t st) {
-  if (mt == 1) return launch_gemv<C, 1>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, st);
-  if (mt == 2) return launch_gemv<C, 2>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, st);
-  return launch_gemv<C, 4>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, st);
-}
-
-// A 2-D u8 tensor map of rows x cols (row pitch `pitch` bytes), boxes of
-// box_rows x box_cols.
-int tensor_map_u8(CUtensorMap* map, const void* base, int rows, int cols, int pitch, int box_rows,
-                  int box_cols, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)pitch};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  return l3q::encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides, box,
-                                swizzle);
-}
-
 template <int C, int BM, int BN>
 int launch_gemm_tile(const void* xq, const void* data, const void* scale, const void* zero,
                      int zmode, const void* sx, const void* xsg, int mpad, void* out, int out_bf16,
@@ -657,8 +820,8 @@ int launch_gemm_tile(const void* xq, const void* data, const void* scale, const 
   // (dense). Rows and columns past the matrix come as zeros.
   int err = 0;
   if (F * rows == KS && (F == 1 || rows >= gs / F))
-    err = tensor_map_u8(&tmx, xq, M, K, K, BM, KS, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!err) err = tensor_map_u8(&tmw, data, K / F, N, N, rows, BN, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = l3q::tensor_map_u8(&tmx, xq, M, K, K, BM, KS, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err) err = l3q::tensor_map_u8(&tmw, data, K / F, N, N, rows, BN, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
   err = (int)cudaFuncSetAttribute(a8_gemm_kernel<C, BM, BN>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -724,37 +887,30 @@ int launch_gemm(const void* xq, const void* data, const void* scale, const void*
 
 // code: 0 = int8 containers, 1 = packed unsigned 4-bit, 2 = signed 4-bit
 // (s4 storage), 3 = packed unsigned 2-bit, 4 = unpacked unsigned 8-bit. zmode: 0 = no zero point, 1 =
-// fp32 zero [G, N], 2 = int8 zero [G, N]. GEMV form: `rc` byte rows per
-// warp (a multiple of 4), segments of `seg` byte rows (seg = min(gs/f,
-// 8*rc)), ysplit = ceil(K/f / (8*rc)) blocks along K, mt rows per block (1,
-// 2 or 4); part int32 [ysplit * 8*rc/seg, M, N] and xpart int32
-// [ysplit * 8*rc/seg, M] scratch. Needs N % 16 == 0, K % 4 == 0 and
-// (gs/f) % 4 == 0.
-extern "C" int l3q_a8_gemv(const void* xq, const void* data, void* part, void* xpart,
-                           const void* scale, const void* zero, int zmode, const void* sx,
-                           void* out, int out_bf16, int M, int K, int N, int gs, int code, int rc,
-                           int seg, int ysplit, int mt, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  int err;
-  if (code == S8) err = launch_gemv_mt<S8>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
-  else if (code == U4) err = launch_gemv_mt<U4>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
-  else if (code == S4) err = launch_gemv_mt<S4>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
-  else if (code == U2) err = launch_gemv_mt<U2>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
-  else if (code == U8) err = launch_gemv_mt<U8>(xq, data, part, xpart, M, K, N, gs, rc, seg, ysplit, mt, st);
-  else return (int)cudaErrorInvalidValue;
-  if (err != 0) return err;
+// fp32 zero [G, N], 2 = int8 zero [G, N]. GEMV form (M <= 64, one launch):
+// column tiles of bn = 16, 32, 64 or 128, units of L = 32, 16 or 8 byte
+// rows inside a group (L * f a multiple of 32), runs of uw units inside a
+// group (a round of 128 / bn runs at most 256 rows). Needs N % 16 == 0 and
+// 16-byte aligned codes, activations, scales and zeros.
+extern "C" int l3q_a8_gemv(const void* xq, const void* data, const void* scale, const void* zero,
+                           int zmode, const void* sx, void* out, int out_bf16, int M, int K, int N,
+                           int gs, int code, int bn, int L, int uw, void* stream) {
   const int f = (code == S8 || code == U8) ? 1 : (code == U2 ? 4 : 2);
-  const int G = K / gs, cpg = (gs / f) / seg;
-  if (G < EPI_WARPS) {
-    a8_epilogue_rows_kernel<<<(M * N + EPI_THREADS - 1) / EPI_THREADS, EPI_THREADS, 0, st>>>(
-        (const int*)part, (const int*)xpart, (const float*)scale, zero, zmode, (const float*)sx,
-        out, out_bf16, M, N, G, cpg);
-  } else {
-    a8_epilogue_kernel<<<dim3((N + 31) / 32, M), EPI_THREADS, 0, st>>>(
-        (const int*)part, (const int*)xpart, (const float*)scale, zero, zmode, (const float*)sx,
-        out, out_bf16, M, N, G, cpg);
-  }
-  return (int)cudaGetLastError();
+  const int kw = (bn == 16 || bn == 32 || bn == 64 || bn == 128) ? GEMV_WARPS * 16 / bn : 0;
+  const int ug = (f > 0 && L > 0 && gs > 0) ? gs / f / L : 0;
+  if (M < 1 || M > 64 || N % 16 || !kw || (L != 8 && L != 16 && L != 32) || gs < 1 || gs % f ||
+      K % gs || (gs / f) % L || (L * f) % 32 || uw < 1 || ug % uw || kw * uw * L > 256)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define L3Q_B3(CODE) \
+  launch_gemv_l<CODE>(xq, data, scale, zero, zmode, sx, out, out_bf16, M, K, N, gs, bn, L, uw, st)
+  if (code == S8) return L3Q_B3(S8);
+  if (code == U4) return L3Q_B3(U4);
+  if (code == S4) return L3Q_B3(S4);
+  if (code == U2) return L3Q_B3(U2);
+  if (code == U8) return L3Q_B3(U8);
+#undef L3Q_B3
+  return (int)cudaErrorInvalidValue;
 }
 
 // Tiled form: `tile` 128 (128x128 output tiles) or 64 (64x64); stages of

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, NamedTuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,6 +43,56 @@ def _flags() -> tuple:
 GEMV_MAX_M = 64
 #: blocks a matmul launch wants in flight (two per H100 SM)
 TARGET_BLOCKS = 264
+#: the GEMV forms' column tiles (16-column warps, 8 warps a block), most
+#: blocks along K (one thread-block cluster, the portable limit), and the
+#: most code bytes and bytes of one activation row that one round moves
+GEMV_TILES = (128, 64, 32, 16)
+GEMV_MAX_SPLIT = 8
+GEMV_ROUND_CODES = 8192
+GEMV_ROUND_X = 512
+
+
+class GemvPlan(NamedTuple):
+    """Tiles and order of a GEMV form (B1, B3's GEMV form), from the shapes
+    alone: the units of byte rows are walked in rounds of kw runs of uw
+    units, run r of each round by warp row r."""
+
+    bn: int      #: output columns per block (bn / 16 column warps)
+    ksplit: int  #: blocks along K, one cluster, summed in rank order
+    kw: int      #: warp rows along K in a block (8 warps / column warps)
+    unit: int    #: byte rows per unit: a unit lies in one group
+    uw: int      #: units per run: a run lies in one group
+
+
+def gemv_run(gs: int, f: int, unit: int, bn: int, xbytes: int) -> int:
+    """Units per run of a GEMV plan: the most units of one group whose
+    round (one TMA box: at most 256 rows) stays within GEMV_ROUND_CODES
+    code bytes and GEMV_ROUND_X bytes of an activation row (`xbytes` a
+    value)."""
+    ug, kw = gs // f // unit, 128 // bn
+    fits = [u for u in range(ug, 0, -1) if ug % u == 0 and kw * u * unit <= 256]
+    small = [u for u in fits if kw * u * unit * bn <= GEMV_ROUND_CODES
+             and kw * u * unit * f * xbytes <= GEMV_ROUND_X]
+    return small[0] if small else fits[-1]
+
+
+def gemv_tiles(n: int, k: int, gs: int, f: int, unit: int, xbytes: int) -> GemvPlan:
+    """The widest column tile of at least 64 columns (64-byte code rows:
+    narrower rows stream the codes at well under the HBM rate) that reaches
+    TARGET_BLOCKS blocks with the fewest splits (at most GEMV_MAX_SPLIT, on
+    whole runs, a run per warp row of each split); where none does, the
+    most blocks."""
+    plans = []
+    for bn in [t for t in GEMV_TILES if 64 <= t <= n] or [16]:
+        kw = 128 // bn
+        uw = gemv_run(gs, f, unit, bn, xbytes)
+        most = max(1, min(GEMV_MAX_SPLIT, k // (unit * f) // uw // kw))
+        ks = next((s for s in range(1, most + 1) if -(-n // bn) * s >= TARGET_BLOCKS), None)
+        if ks:
+            return GemvPlan(bn, ks, kw, unit, uw)
+        plans.append(GemvPlan(bn, most, kw, unit, uw))
+    return max(plans, key=lambda p: -(-n // p.bn) * p.ksplit)
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -2,7 +2,8 @@
 
 Port of `llama3_quantization_tpu/ops/pallas_qmatmul.fused_dequant_matmul`.
 B1 (`csrc/qmatmul.cu` `qmm_gemv_kernel`, the TPU `_qmm_v2_kernel`) serves
-M <= 64 and applies scale and zero after the dot; B2 (`qmm_gemm_kernel`,
+M <= 64 and applies scale and zero after the dot (tensor-core dots, one
+launch per call, its tiles and K split from `gemv_plan`); B2 (`qmm_gemm_kernel`,
 the TPU `_qmm_kernel` v1) serves M > 64 and dequantizes each weight tile
 to bf16 before a bf16 MMA, in a pipelined shared-memory ring. Both cast x to bf16 and accumulate in fp32.
 3-bit bit-plane weights always take B2, as the TPU wrapper sends them to v1.
@@ -18,6 +19,7 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -36,7 +38,7 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("qmatmul")
     if not getattr(lib, "_l3q_typed", False):
-        lib.l3q_qmm_gemv.argtypes = [_P] * 6 + [_I] * 10 + [_P]
+        lib.l3q_qmm_gemv.argtypes = [_P] * 5 + [_I] * 11 + [_P]
         lib.l3q_qmm_gemv.restype = _I
         lib.l3q_qmm_gemm.argtypes = [_P] * 6 + [_I] * 8 + [_P]
         lib.l3q_qmm_gemm.restype = _I
@@ -121,32 +123,46 @@ def _scratch(ksplit: int, m: int, n: int, device):
     return torch.empty((ksplit, m, n), dtype=torch.float32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def gemv_plan(k: int, n: int, gs: int, f: int) -> _build.GemvPlan:
+    """B1's tiles, K split and order from (K, N, gs, f) alone, so that a
+    row's result does not depend on how many rows share the call. A unit is
+    16 byte rows of one group, or 8 where a group's bit field has 8 (L * f k
+    values, a multiple of the MMA's 16); tiles, runs and split follow
+    `_build.gemv_tiles`."""
+    sub = gs // f
+    if k % gs or gs % f or gs % 16 or sub % 8:
+        raise ValueError(f"B1 needs group_size % 16 == 0 and group_size / {f} % 8 == 0 "
+                         f"dividing K, got K={k}, group_size={gs}")
+    return _build.gemv_tiles(n, k, gs, f, 16 if sub % 16 == 0 else 8, 2)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy where its data is not 16-byte aligned (cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def qmm_gemv(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
-    """Kernel B1 on the card (M <= 64)."""
+    """Kernel B1 on the card (M <= 64): one launch, every packed byte read
+    once whatever M is."""
     f = _check_weight(qt, x2d.device)
     if f == PLANES3:
         raise NotImplementedError("B1 has no 3-bit plane form; 3-bit weights take B2")
-    if qt.n % 16:
-        raise ValueError(f"B1 needs N % 16 == 0, got N={qt.n}")
-    out_bf16 = _build.out_flag(out_dtype)
     m = x2d.shape[0]
-    xb = x2d.to(torch.bfloat16).contiguous()
-    out = torch.empty((m, qt.n), dtype=out_dtype, device=x2d.device)
+    if qt.n % 16 or not 1 <= m <= GEMV_MAX_M:
+        raise ValueError(f"B1 needs N % 16 == 0 and 1 <= M <= {GEMV_MAX_M}, got N={qt.n}, M={m}")
+    for name, t in (("codes", qt.data), ("scale", qt.scale), ("zero", qt.zero)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"B1 copies {name} in 16-byte chunks: it must be 16-byte aligned")
     gs = qt.group_size or qt.k
-    mt = 1 if m == 1 else 2 if m == 2 else 4
-    rows, sub = qt.k // f, gs // f
-    # byte rows per warp: the largest of 16, 8, 4, 2, 1 that divides the
-    # group and still gives the card enough blocks
-    col_tiles = -(-qt.n // 512) * -(-m // mt)
-    rcs = [r for r in (16, 8, 4, 2, 1) if sub % r == 0]
-    rc = next((r for r in rcs if col_tiles * -(-rows // (8 * r)) >= TARGET_BLOCKS), rcs[-1])
-    ksplit = -(-rows // (8 * rc))
-    part = _scratch(ksplit, m, qt.n, x2d.device)
+    plan = gemv_plan(qt.k, qt.n, gs, f)
+    out_bf16 = _build.out_flag(out_dtype)
+    xb = _aligned(x2d.to(torch.bfloat16).contiguous())
+    out = torch.empty((m, qt.n), dtype=out_dtype, device=x2d.device)
     err = _lib().l3q_qmm_gemv(
         xb.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), qt.zero.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(),
-        m, qt.k, qt.n, gs, f, int(qt.data.dtype == torch.int8), out_bf16, ksplit, rc, mt,
-        _build.stream_ptr(x2d.device),
+        out.data_ptr(), m, qt.k, qt.n, gs, f, int(qt.data.dtype == torch.int8), out_bf16,
+        plan.bn, plan.ksplit, plan.unit, plan.uw, _build.stream_ptr(x2d.device),
     )
     _build.check(err, "qmm_gemv (B1)")
     COUNTS["B1"] += 1

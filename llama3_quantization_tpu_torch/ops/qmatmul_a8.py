@@ -29,6 +29,7 @@ version; CUDA tensors take the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -49,7 +50,7 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("qmatmul_a8")
     if not getattr(lib, "_l3q_typed", False):
-        lib.l3q_a8_gemv.argtypes = [_P] * 6 + [_I, _P, _P] + [_I] * 10 + [_P]
+        lib.l3q_a8_gemv.argtypes = [_P] * 4 + [_I, _P, _P] + [_I] * 9 + [_P]
         lib.l3q_a8_gemv.restype = _I
         lib.l3q_a8_gemm.argtypes = [_P] * 4 + [_I, _P, _P, _P] + [_I] * 8 + [_P]
         lib.l3q_a8_gemm.restype = _I
@@ -138,43 +139,47 @@ def _zmode(zero) -> int:
     return 1 if zero.dtype == torch.float32 else 2
 
 
-def gemv_split(k: int, n: int, m: int, gs: int, f: int):
-    """(rc, seg, mt) of the GEMV form: byte rows per warp (16, 8 or 4: the
-    largest that still gives the card enough blocks), the byte rows of one
-    summed segment (a group, or 8 warps' rows inside one) and the rows per
-    M tile (1, 2 or 4)."""
-    rows, sub = k // f, gs // f
-    mt = 1 if m == 1 else 2 if m == 2 else 4
+#: column tiles B3's GEMV form wants: about one block an SM (132 on an H100)
+GEMV_MIN_TILES = 128
 
-    def tiles_group(r):  # 8 warps of r rows cover whole segments of one group
-        return sub % (8 * r) == 0 if sub >= 8 * r else sub % r == 0 and (8 * r) % sub == 0
 
-    ok = [r for r in (16, 8, 4) if tiles_group(r)]
-    if not ok:
-        raise ValueError(f"B3 needs group_size / {f} a multiple of 4, got {gs}")
-    tiles = -(-n // 512) * -(-m // mt)
-    rc = next((r for r in ok if tiles * -(-rows // (8 * r)) >= TARGET_BLOCKS), ok[-1])
-    return rc, min(sub, 8 * rc), mt
+@functools.lru_cache(maxsize=None)
+def gemv_plan(k: int, n: int, gs: int, f: int) -> _build.GemvPlan:
+    """Tiles and order of B3's GEMV form from (K, N, gs, f) alone. A unit
+    is 32 byte rows of one group, or 16 / 8 where a group's bit field is
+    shorter (L * f k values, a multiple of the MMA's 32). K does not split:
+    one block folds every group term of its columns in order. The tile is
+    the widest of 128, 64 and 32 columns that gives GEMV_MIN_TILES blocks,
+    else 32 (measured on an H100: fewer, busier blocks beat both narrower
+    tiles and a K split there); runs follow `_build.gemv_run`."""
+    if k % gs or gs % 32:
+        raise ValueError(f"B3's GEMV form needs group_size % 32 == 0 dividing K, "
+                         f"got K={k}, group_size={gs}")
+    sub = gs // f
+    unit = next(u for u in (32, 16, 8) if sub % u == 0 and u * f % 32 == 0)
+    bn = next((t for t in (128, 64, 32) if -(-n // t) >= GEMV_MIN_TILES), 32 if n >= 32 else 16)
+    return _build.GemvPlan(bn, 1, 128 // bn, unit, _build.gemv_run(gs, f, unit, bn, 1))
 
 
 def a8_gemv(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str) -> torch.Tensor:
-    """B3's GEMV form on the card (M <= 64); counts one launch under `key`."""
+    """B3's GEMV form on the card (M <= 64): one launch, every packed byte
+    read once; counts one launch under `key`."""
     f = _check(xq, s_x, data, layout, scale, zero, gs)
     m, k = xq.shape
     n = data.shape[-1]
-    if n % 16 or k % 4:
-        raise ValueError(f"B3's GEMV form needs N % 16 == 0 and K % 4 == 0, got {k}, {n}")
-    rc, seg, mt = gemv_split(k, n, m, gs, f)
+    if n % 16 or not 1 <= m <= GEMV_MAX_M:
+        raise ValueError(f"B3's GEMV form needs N % 16 == 0 and 1 <= M <= {GEMV_MAX_M}, "
+                         f"got N={n}, M={m}")
+    plan = gemv_plan(k, n, gs, f)
     _require_cuda(xq)
-    ysplit = -(-(k // f) // (8 * rc))
-    chunks = ysplit * (8 * rc // seg)
-    part = torch.empty((chunks, m, n), dtype=torch.int32, device=xq.device)
-    xpart = torch.empty((chunks, m), dtype=torch.int32, device=xq.device)
+    for name, t in (("xq", xq), ("codes", data), ("scale", scale), ("zero", zero)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"B3 copies {name} in 16-byte chunks: it must be 16-byte aligned")
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     err = _lib().l3q_a8_gemv(
-        xq.data_ptr(), data.data_ptr(), part.data_ptr(), xpart.data_ptr(), scale.data_ptr(),
+        xq.data_ptr(), data.data_ptr(), scale.data_ptr(),
         None if zero is None else zero.data_ptr(), _zmode(zero), s_x.data_ptr(), out.data_ptr(),
-        _build.out_flag(out_dtype), m, k, n, gs, LAYOUTS[layout][0], rc, seg, ysplit, mt,
+        _build.out_flag(out_dtype), m, k, n, gs, LAYOUTS[layout][0], plan.bn, plan.unit, plan.uw,
         _build.stream_ptr(xq.device),
     )
     _build.check(err, f"a8_gemv ({key})")

@@ -52,6 +52,48 @@ def test_qmatmul_kernels_match_plain(cuda_device, bits, pack, m):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
+#: M of the GEMV forms' checks (B1, B3 at M <= 64)
+GEMV_MS = [1, 2, 5, 8, 16, 33, 64]
+
+
+@pytest.mark.parametrize("bits,pack", [(4, True), (2, True), (8, False), (8, True)])
+@pytest.mark.parametrize("gs", [32, 64, 128, None])
+def test_b1_gemv_matches_plain(cuda_device, bits, pack, gs):
+    """B1 (one launch, tensor-core dots) on 2-bit, 4-bit, int8 (8 bits
+    unpacked) and uint8 (8 bits, one code a byte) codes at group sizes 32,
+    64, 128 and K, on a ragged N (a part-filled column tile), at every M of
+    the GEMV form: fp32 out within 1e-4 * max|ref| (the fp32 summation
+    order), bf16 out within 1e-2."""
+    k, n = 512, 4112
+    rng = np.random.default_rng(bits + (gs or 0))
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=bits, group_size=gs or k), pack=pack)
+    for m in GEMV_MS:
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
+        before = launches.snapshot()["B1"]
+        got = fq.qmm_gemv(x, qt, torch.float32)
+        assert launches.snapshot()["B1"] == before + 1
+        ref = fq.qmm_gemv_plain(x, qt, torch.float32)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+        got16, ref16 = fq.qmm_gemv(x, qt, torch.bfloat16), fq.qmm_gemv_plain(x, qt, torch.bfloat16)
+        torch.testing.assert_close(got16.float(), ref16.float(), rtol=0,
+                                   atol=1e-2 * float(ref16.float().abs().max()))
+
+
+@pytest.mark.parametrize("k,n,gs", [(4096, 1024, 128), (2048, 4096, 128), (1024, 4112, 1024)])
+def test_b1_batch_invariant(cuda_device, k, n, gs):
+    """B1's tiles, split and order follow (K, N, gs, f) alone: row i of an
+    M = 8 and of an M = 64 call equals the M = 1 call on that row bit for
+    bit (fp32 out)."""
+    rng = np.random.default_rng(k + n)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True)
+    x = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32)).to(cuda_device)
+    rows = torch.cat([fq.qmm_gemv(x[i:i + 1], qt, torch.float32) for i in range(64)])
+    for m in (8, 64):
+        assert torch.equal(fq.qmm_gemv(x[:m], qt, torch.float32), rows[:m])
+
+
 def _b3_weight(kind, k, n, gs, rng, device):
     """(data, layout, scale, zero, group size) of one B3 weight form; gs
     None is one group of K rows (per column)."""
@@ -77,18 +119,17 @@ B3_KINDS = ["u4", "u2", "s4", "s8", "s8_nozp", "u8", "s8_percol", "s4_head"]
 
 
 @pytest.mark.parametrize("kind", B3_KINDS)
-@pytest.mark.parametrize("m", [1, 3, 8, 65, 130, 200, 512])
+@pytest.mark.parametrize("m", [1, 3, 5, 8, 64, 65, 130, 200, 512])
 @pytest.mark.parametrize("k,gs,n", [(256, 64, 192), (2304, 32, 192), (512, 128, 192),
                                     (256, None, 192), (512, 128, 28672), (256, None, 28672)])
 def test_b3_forms_match_plain(cuda_device, kind, m, k, gs, n):
     """B3's GEMV form (M <= 64) and tiled form on every weight layout
     (unpacked uint8 8-bit codes included), zero-point kind and group size
     (32, 64, 128, K), N ragged (192) or the fused gate-up's 28672: exact
-    s32 partials and the same fp32 epilogue order, so the tiled form's fp32
-    output equals the plain version bit for bit and the GEMV form's within
-    1e-5 * max|ref| (its second pass sums in the same order); bf16 output
-    within 1e-2. 4 groups take the GEMV epilogue's per-output schedule, 72
-    its per-block one in two passes."""
+    s32 partials and the fp32 group terms folded in the plain version's
+    order, so both forms' fp32 output equals the plain version bit for bit;
+    bf16 output within 1e-2. 72 groups (K = 2304) fold over many stages,
+    one group (gs = K) carries its s32 sums from stage to stage."""
     rng = np.random.default_rng(m)
     data, layout, scale, zero, g = _b3_weight(kind, k, n, gs, rng, cuda_device)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
@@ -98,10 +139,7 @@ def test_b3_forms_match_plain(cuda_device, kind, m, k, gs, n):
     got = qa.w_a8_matmul(x, data, layout, scale, zero, g, torch.float32, "B3.s8")
     assert launches.snapshot()[key] == before + 1
     ref = qa.a8_plain(xq, s_x, data, layout, scale, zero, g, torch.float32)
-    if m > qa.GEMV_MAX_M:
-        assert torch.equal(got, ref), float((got - ref).abs().max())
-    else:
-        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(got, ref), float((got - ref).abs().max())
     got16 = qa.w_a8_matmul(x.to(torch.bfloat16), data, layout, scale, zero, g, torch.bfloat16,
                            "B3.s8")
     xq16, s_x16 = qa.quantize_activations_s8(x.to(torch.bfloat16))

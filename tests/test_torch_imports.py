@@ -125,6 +125,38 @@ def test_port_runs_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_gemv_plans_and_wrappers_run_with_jax_blocked():
+    """The GEMV forms' plans, their CPU routes and the wrappers' checks (B1
+    in `ops/fused_qmatmul.py`, B3's GEMV form in `ops/qmatmul_a8.py`, the
+    shared tiling in `ops/_build.py`) need neither JAX nor the JAX package."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["llama3_quantization_tpu"] = None
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch.ops import _build, fused_qmatmul as fq, qmatmul_a8 as qa
+
+        for k, n in ((4096, 14336), (4096, 1024), (14336, 4096)):
+            assert fq.gemv_plan(k, n, 128, 2).bn in _build.GEMV_TILES
+            assert qa.gemv_plan(k, n, k, 1).ksplit >= 1
+        qt = P.quantize_rtn(torch.randn(256, 64), P.QuantSpec(n_bits=4, group_size=64), pack=True)
+        x = torch.randn(5, 256)
+        y = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32)  # B1's plain version
+        assert y.shape == (5, 64) and bool(y.isfinite().all())
+        y = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32, version=3)  # B3's
+        assert y.shape == (5, 64) and bool(y.isfinite().all())
+        assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("name", ["qmatmul", "qmatmul_a8", "decode_attention", "decode_fp",
                                   "flash_attention", "w4_stream", "w4_bd", "qmm_u8"])
 def test_kernel_sources_ship(name):
