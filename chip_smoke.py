@@ -6,8 +6,8 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
     python3 chip_smoke.py --profile       # also profile decode steps and serving windows
     python3 chip_smoke.py --prefill-bench # --kernel-bench, B2 at M = 128-2048, forward_logits (pallas, s4, a8)
-    python3 chip_smoke.py --kernel-bench  # only time B2 W4/W3 gate/up (L2-warm and cold), B6, B3.gemm, B7,
-                                          # and the GEMVs (B1, B3.v3, B3.s4, B3.s8)
+    python3 chip_smoke.py --kernel-bench  # only time the B5 forms, B2 W4/W3 gate/up (L2-warm and cold),
+                                          # B6, B3.gemm, B7, and the GEMVs (B1, B3.v3, B3.s4, B3.s8)
     python3 chip_smoke.py --serve-profile # only one 8-slot serving window by kernel (pallas int8/fp, a8)
     python3 chip_smoke.py --decode-drift  # only the full-depth B5, B6 and B3 kernel-vs-plain decodes
     python3 chip_smoke.py --microbench    # only the weight-stream probes B8-B10 and their entry points
@@ -28,7 +28,11 @@ Phases, in order; any failure exits non-zero:
      M, B3's tiled form also at the ragged M = 65 and 200, at M = 512 and on
      a ragged N (fp32 output bit-equal to the plain version in both forms),
      B5 on the int8 cache with and without m/l statistics and
-     on the int4 cache with and without them (one all-masked row), B6 on
+     on the int4 cache with and without them (one all-masked row), B5's
+     batch invariance (rows of B = 8 bit-equal to B = 1 calls, int8 and
+     int4, T = 512 and 2048) and determinism (two calls bit-equal), its
+     split algorithm in PyTorch against its plain version (m, codes and PV
+     sums bit-equal, o and l within 1e-6), B6 on
      the bf16 fp cache (stacked at B = 1, per layer at B = 8 with per-row
      masks, an all-masked row and a row masked after its first T block, T =
      512 to 4096) and on an fp32 cache, B7 at S = 128, 2048 and the ragged
@@ -108,6 +112,7 @@ those phases' share with `--kernel-bench`, e.g.
 
     L3Q_ABLATE=9 python3 chip_smoke.py --kernel-bench  # B3 without unpack, B7 without V loads
     L3Q_ABLATE=256 python3 chip_smoke.py --kernel-bench  # the GEMVs' copies alone
+    L3Q_ABLATE=512 python3 chip_smoke.py --kernel-bench  # B5's copies alone
 """
 
 from __future__ import annotations
@@ -498,6 +503,52 @@ def check_decode_forms(P, gen, results):
                     err = compare(f"{label} bf16-out", da.decode_s8(*args, torch.bfloat16, block_t),
                                   da.decode_s8_plain(*args, torch.bfloat16, block_t), 1e-2)
                 results.setdefault(key, {})[f"B={b} T={t}"] = err
+
+
+def check_b5_split(P, gen):
+    """B5's split across a thread-block cluster: row b of a B=8 call equals,
+    bit for bit in o, m and l, a B=1 call on that row (int8 and int4, T =
+    512 and 2048, every row's own mask, one all masked); two calls on the
+    same inputs are bit-equal in every form; and the split algorithm in
+    PyTorch (`decode_s8_split_plain`) against `decode_s8_plain` on the card:
+    m, every probability code and every s32 PV sum bit-equal, o and l
+    within 1e-6 of max|o| and of l."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import decode_attention as da
+
+    g, rep, d = 8, 4, 128
+    for int4 in (False, True):
+        for t in (512, 2048):
+            block_t = 1024 if t % 1024 == 0 else 512
+            kq, ks, vq, vs = (x[0] for x in rand_cache(P, 8, g, t, d, 1, gen, int4))
+            q = torch.randn((8, 1, g * rep, d), generator=gen, device="cuda").to(torch.bfloat16)
+            lens = torch.tensor([0, 1, 17, 100, t // 2, t - 100, t - 1, t], device="cuda")
+            mask = torch.where(torch.arange(t, device="cuda")[None, :] < lens[:, None], 0.0,
+                               da.NEG).float().contiguous()
+            label = f"B5 {'int4' if int4 else 'int8'} T={t} ({da.s8_split_plan(t, block_t, d, int4)})"
+            args = (q, kq, ks, vq, vs, mask)
+            full = da.decode_s8(*args, torch.float32, block_t, True)
+            for b in range(8):
+                one = da.decode_s8(*(x[b : b + 1].contiguous() for x in args), torch.float32,
+                                   block_t, True)
+                if not all(torch.equal(x[b : b + 1], y) for x, y in zip(full, one)):
+                    raise AssertionError(f"{label}: row {b} of B=8 differs from its B=1 call")
+            for stats in (False, True):
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    a = da.decode_s8(*args, out_dtype, block_t, stats)
+                    b2 = da.decode_s8(*args, out_dtype, block_t, stats)
+                    if not all(torch.equal(x, y) for x, y in zip(a if stats else (a,),
+                                                                  b2 if stats else (b2,))):
+                        raise AssertionError(f"{label}: two calls differ (stats={stats})")
+            ref = da.decode_s8_plain(*args, torch.float32, block_t, True, True)
+            spl = da.decode_s8_split_plain(*args, torch.float32, block_t, True, True)
+            if not (torch.equal(spl[1], ref[1]) and torch.equal(spl[3], ref[3])
+                    and torch.equal(spl[4], ref[4])):
+                raise AssertionError(f"{label}: split plain m, codes or PV sums differ")
+            compare(f"{label} split plain o", spl[0], ref[0], 1e-6)
+            compare_rel(f"{label} split plain l", spl[2], ref[2], 1e-6)
+            log(f"  {label}: B=8 rows bit-equal to B=1 calls, two calls bit-equal, split plain "
+                "m / codes / PV sums bit-equal to plain")
 
 
 def check_window_merge(P, gen):
@@ -1753,8 +1804,10 @@ def clock_line() -> str:
 
 
 def kernel_bench(P, card, gen):
-    """B2 on W4 and W3 (bit planes) gate/up at M = 128 with one weight
-    (L2-warm: 29 MB and 22 MB of codes fit the 50 MB L2) and with four
+    """The four B5 forms at T = 512 and 2048 (`time_b5`) and B5 under other
+    cluster caps (`bench_b5_clusters`); B2 on W4 and W3
+    (bit planes) gate/up at M = 128 with one weight (L2-warm: 29 MB and 22
+    MB of codes fit the 50 MB L2) and with four
     copies cycling (cold), with the SM clock beside; B6 at its timed shapes
     beside SDPA; B3's tiled form (s4 and per-column s8 fused gate-up, o and
     down at M = 128, 512 and 2048) beside bf16 `torch.matmul`; B7 at S =
@@ -1764,6 +1817,10 @@ def kernel_bench(P, card, gen):
     import torch
     from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 
+    for key, b, t, ms, _, nbytes, ops, shape in time_b5(P, gen):
+        b_ms, by = bound_ms(nbytes, ops, INT8_OPS)
+        log(f"kernel bench: {key} {shape}: {ms:.4f} ms, bound {b_ms:.5f} ms ({by})  [{card}]")
+    bench_b5_clusters(P, card, gen)
     k, n = LINEAR_SHAPES["gate/up"]
     for bits in (4, 3):
         qts = [P.quantize_rtn(torch.randn((k, n), generator=gen, device="cuda"),
@@ -1782,6 +1839,35 @@ def kernel_bench(P, card, gen):
     bench_b3_gemm(P, card, gen)
     bench_b7(card, gen)
     bench_gemv(P, card, gen)
+
+
+def bench_b5_clusters(P, card, gen):
+    """B5 with stats at B = 8 (T = 512 and 2048) and B5 at B = 1 (T = 512),
+    G=8, rep=4, D=128, with the split plan's cluster capped at 16, 8, 4, 2
+    and 1 blocks (the plan's own cap is `S8_MAX_CLUSTER`): what the cap was
+    chosen from. A checkout without the split plan skips it."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import decode_attention as da
+
+    if not hasattr(da, "S8_MAX_CLUSTER"):
+        return
+    cap = da.S8_MAX_CLUSTER
+    try:
+        for s in (16, 8, 4, 2, 1):
+            da.S8_MAX_CLUSTER = s
+            for b, t, stats in ((8, 512, True), (8, 2048, True), (1, 512, False)):
+                layers, bt = 8, 1024 if t % 1024 == 0 else 512
+                kq, ks, vq, vs = rand_cache(P, b, 8, t, 128, layers, gen)
+                q = torch.randn((b, 1, 32, 128), generator=gen, device="cuda").to(torch.bfloat16)
+                mask = decode_mask(b, t)
+                ms = time_ms(lambda i: da.decode_s8(
+                    q, kq[i % layers], ks[i % layers], vq[i % layers], vs[i % layers], mask,
+                    torch.float32 if stats else torch.bfloat16, bt, stats), 200)
+                log(f"kernel bench: {da.launch_key(False, stats)} B={b} T={t} int8, cluster "
+                    f"{da.s8_split_plan(t, bt, 128, False).cluster} (cap {s}): {ms:.4f} ms  [{card}]")
+                del kq, ks, vq, vs
+    finally:
+        da.S8_MAX_CLUSTER = cap
 
 
 #: M of the GEMV bench: batch-1 decode, the speculative verify, the 8-slot
@@ -2004,42 +2090,18 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
             qmm_rows.setdefault(name, []).append(row)
         del qts, wd
 
-    # every B5 form at its path's batch (B5: batch-1 decode; the others:
-    # the 8-slot engine), T = 512 and 2048; enough layers of cache (32 MB
-    # and up) cycle through that each call reads its layer cold
-    g, rep, d = 8, 4, 128
     form_rows = {}
-    for int4, stats in FORMS:
-        key = da.launch_key(int4, stats)
-        b, layers = (1, 32) if key == "B5" else (8, 8)
-        out_dtype = torch.float32 if stats else torch.bfloat16  # as the paths ask
-        for t in (512, 2048):
-            block_t = 1024 if t % 1024 == 0 else 512
-            kq, ks, vq, vs = rand_cache(P, b, g, t, d, layers, gen, int4)
-            q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(torch.bfloat16)
-            mask = decode_mask(b, t)
-
-            def call(fn, i):
-                li = i % layers
-                return fn(q, kq[li], ks[li], vq[li], vs[li], mask, out_dtype, block_t, stats)
-
-            ms = time_ms(lambda i: call(da.decode_s8, i), 200)
-            plain_ms = time_ms(lambda i: call(da.decode_s8_plain, i), 10)
-            code_bytes = d // 2 if int4 else d
-            nbytes = (2 * b * g * t * (code_bytes + 4) + b * g * rep * d * 2 + b * t * 4
-                      + b * g * rep * d * (4 if stats else 2) + (2 * b * g * rep * 4 if stats else 0))
-            form_rows.setdefault(key, []).append(add(
-                key, "decode_s8" + ("_int4" if int4 else "") + ("_stats" if stats else ""),
-                "llama3_quantization_tpu_torch/csrc/decode_attention.cu",
-                "llama3_quantization_tpu/ops/decode_attention.py:274",
-                f"B={b} G={g} rep={rep} D={d} T={t} {'int4' if int4 else 'int8'}"
-                f"{' stats' if stats else ''}", ms, plain_ms, nbytes,
-                4.0 * b * g * rep * t * d, INT8_OPS, None, errs[key][f"B={b} T={t}"]))
-            del kq, ks, vq, vs
+    for key, b, t, ms, plain_ms, nbytes, ops, shape in time_b5(P, gen, plain=True):
+        form_rows.setdefault(key, []).append(add(
+            key, "decode_s8" + key[2:].replace(".", "_"),
+            "llama3_quantization_tpu_torch/csrc/decode_attention.cu",
+            "llama3_quantization_tpu/ops/decode_attention.py:274", shape, ms, plain_ms, nbytes,
+            ops, INT8_OPS, None, errs[key][f"B={b} T={t}"]))
 
     # B6 at the fp paths' shapes: stacked at B=1 (decode), T=512 and 2048,
     # per layer at B=8 (the engine), T=512; 32 / 8 layers of cache (64 MB
     # and up) cycle through so that each call reads its layer cold
+    g, rep, d = 8, 4, 128
     b6_rows = []
     for b, t, stacked, ms, plain_ms, lib_ms in time_b6(gen, plain=True):
         nbytes = 2 * b * g * t * d * 2 + 2 * b * g * rep * d * 2 + b * t * 4
@@ -2078,6 +2140,41 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
                 if name in ("qmm_gemv", "qmm_gemv M=8", "qmm_gemm")}
     return ([rows_[2] for rows_ in qmm_rows.values()] + [rows_[0] for rows_ in form_rows.values()]
             + [b6_rows[0], b6_rows[2], b7_rows[0]] + b3_rows + w3_rows + probe_rows)
+
+
+def time_b5(P, gen, plain=False):
+    """Every B5 form at its path's batch (B5: batch-1 decode; the others:
+    the 8-slot engine), G=8, rep=4, D=128, T = 512 and 2048, the output
+    dtype its path asks for; enough layers of cache (32 MB and up) cycle
+    through that each call reads its layer cold. Yields (key, B, T, kernel
+    ms, plain ms or None, bytes and operations of the bound, shape)."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import decode_attention as da
+
+    g, rep, d = 8, 4, 128
+    for int4, stats in FORMS:
+        key = da.launch_key(int4, stats)
+        b, layers = (1, 32) if key == "B5" else (8, 8)
+        out_dtype = torch.float32 if stats else torch.bfloat16  # as the paths ask
+        for t in (512, 2048):
+            block_t = 1024 if t % 1024 == 0 else 512
+            kq, ks, vq, vs = rand_cache(P, b, g, t, d, layers, gen, int4)
+            q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(torch.bfloat16)
+            mask = decode_mask(b, t)
+
+            def call(fn, i):
+                li = i % layers
+                return fn(q, kq[li], ks[li], vq[li], vs[li], mask, out_dtype, block_t, stats)
+
+            ms = time_ms(lambda i: call(da.decode_s8, i), 200)
+            plain_ms = time_ms(lambda i: call(da.decode_s8_plain, i), 10) if plain else None
+            code_bytes = d // 2 if int4 else d
+            nbytes = (2 * b * g * t * (code_bytes + 4) + b * g * rep * d * 2 + b * t * 4
+                      + b * g * rep * d * (4 if stats else 2) + (2 * b * g * rep * 4 if stats else 0))
+            shape = (f"B={b} G={g} rep={rep} D={d} T={t} {'int4' if int4 else 'int8'}"
+                     f"{' stats' if stats else ''}")
+            yield key, b, t, ms, plain_ms, nbytes, 4.0 * b * g * rep * t * d, shape
+            del kq, ks, vq, vs
 
 
 #: (B, T, layers of cache, stacked) of the B6 timings: batch-1 decode at T
@@ -2240,7 +2337,8 @@ def main() -> int:
                          "S = 512, 2048 under the pallas, s4 and a8 backends (run it from two "
                          "checkouts in one call to compare them)")
     ap.add_argument("--kernel-bench", action="store_true",
-                    help="only time B2 W4/W3 gate/up at M = 128 (L2-warm and cold), B6 beside "
+                    help="only time the B5 forms at T = 512 and 2048, B2 W4/W3 gate/up at M = "
+                         "128 (L2-warm and cold), B6 beside "
                          "SDPA, B3's tiled form (s4, per-column s8: gate-up, o, down at M = 128, "
                          "512, 2048) beside torch.matmul, B7 (S = 128 to 8192) beside SDPA, and "
                          "the GEMV forms (B1 at M = 1, 5, 8, 64; B3.v3 and B3.s4 at M = 1, "
@@ -2321,6 +2419,7 @@ def main() -> int:
     check_b2_batch_invariance(P, gen)
     check_b3(P, gen, errs)
     check_decode_forms(P, gen, errs)
+    check_b5_split(P, gen)
     check_fp_decode(P, gen, errs)
     check_flash(P, gen, errs)
     check_window_merge(P, gen)

@@ -14,8 +14,9 @@
 // wrong). B3's tiled form: 1 the unpack, 2 the group epilogue, 4 the
 // wgmma; B7: 8 the V loads, 16 the exp, 32 the PV wgmma; the GEMVs (B1
 // and B3's GEMV form): 64 the unpack, 128 the mma.sync, 256 all compute
-// (copies only). `ops/_build.py` passes it from the environment variable
-// of the same name.
+// (copies only); B4/B5: 512 all compute and the cluster exchanges (copies
+// only). `ops/_build.py` passes it from the environment variable of the
+// same name.
 #ifndef L3Q_ABLATE
 #define L3Q_ABLATE 0
 #endif
@@ -72,6 +73,12 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* smem)
                : "=r"(r[0]), "=r"(r[1])
                : "r"(s));
 }
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
 __device__ __forceinline__ void ldmatrix_x1_trans(uint32_t* r, const void* smem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
@@ -125,6 +132,30 @@ __device__ __forceinline__ uint32_t ld_cluster_u32(const void* p, unsigned rank)
   asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(rank));
   asm("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(ra));
   return v;
+}
+
+// The cluster barrier split in two: arrive without ordering memory, and
+// wait (acquire). Between them a block may work on; remote shared memory
+// may be touched only once every block of the cluster has arrived.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// An asynchronous 4-byte store to the shared memory of block `rank` at the
+// address of `p` in this one, counted as 4 bytes of the transaction on the
+// mbarrier at the address of `bar` there: a point-to-point exchange that
+// needs no cluster barrier (the receiver waits on its own mbarrier).
+__device__ __forceinline__ void st_async_u32(void* p, uint64_t* bar, unsigned rank, uint32_t v) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  const unsigned m = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned ra, rm;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rm) : "r"(m), "r"(rank));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(ra), "r"(v), "r"(rm) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -214,6 +245,16 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Barriers `bar[0..n)` each with one arrival, behind a single fence (the
+// fence costs hundreds of cycles: one for all of them).
+__device__ __forceinline__ void mbar_init_n(uint64_t* bar, int n) {
+  for (int i = 0; i < n; ++i) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(bar + i);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");
+  }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 

@@ -9,7 +9,10 @@ version with the same blocking and rounding points: q and the per-block
 `p * v_s` are quantized to s8 (round half to even) against amax 127 for
 int8 and 119 for int4 (`:133-135`), both dots are exact integer dots, and
 the T blocks run in order with an online softmax. The stacked form B5 is B4
-on the layer view `cache[l]`.
+on the layer view `cache[l]`. The kernel splits each T block over a
+thread-block cluster (`s8_split_plan`); `decode_s8_split_plain` is that
+algorithm in PyTorch, which differs from `decode_s8_plain` only in the
+order of the fp32 sum l.
 
 The TPU feeds int4 codes to its MXU by splitting each s8 activation into
 two int4 rows (`_split_s8_rows`, `:78-84`); that dot is exact, so the plain
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -55,7 +59,7 @@ def _lib():
     lib = _build.load("decode_attention")
     if not getattr(lib, "_l3q_typed", False):
         lib.l3q_decode_s8.argtypes = (
-            [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_F, _F, _P]
+            [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 8 + [_F, _F, _P]
         )
         lib.l3q_decode_s8.restype = _I
         lib._l3q_typed = True
@@ -106,18 +110,47 @@ def _amax(int4: bool) -> float:
     return 119.0 if int4 else 127.0
 
 
-def decode_s8_plain(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=1024,
-                    return_stats=False):
-    """B4's function. q [B, 1, Hq, D]; k_q/v_q int8 [B, G, T, D] or the
-    int4 pack uint8 [B, G, T/2, D]; k_s/v_s fp32 [B, G, T, 1]; mask fp32
-    [B, T] (finite). Returns o [B, 1, Hq, D], and with `return_stats` also
-    the running max m and sum l, fp32 [B, G, rep]."""
+class S8SplitPlan(NamedTuple):
+    """How B4/B5's kernel splits each T block: one thread-block cluster of
+    `cluster` blocks per (b, g) pair, block r taking the `slice`
+    consecutive tokens from r * slice of every T block."""
+
+    cluster: int  #: blocks per (b, g) pair (one cluster)
+    slice: int    #: tokens of each T block per block (bt / cluster)
+
+
+#: the largest cluster the plan gives (8, the portable size on an H100: the
+#: kernel also takes 16, slower at B = 8 in the cluster sweep of
+#: `chip_smoke.py --kernel-bench`) and the fewest tokens of a slice (one
+#: 16-row MMA operand)
+S8_MAX_CLUSTER = 8
+S8_MIN_SLICE = 16
+
+
+def s8_split_plan(t: int, bt: int, d: int, int4: bool) -> S8SplitPlan:
+    """The split of B4/B5 for a cache of `t` tokens in T blocks of `bt`, head
+    dim `d`: the largest cluster S <= S8_MAX_CLUSTER whose slices bt / S are
+    whole multiples of 16 tokens (so even: no int4 T-pair is split), down
+    to S = 1 (one slice of the whole block, any length). Made from these four
+    alone, never from B: a row's o, m and l do not depend on how many
+    slots the batch holds."""
+    if bt <= 0 or t % bt or d % 16 or (int4 and bt % 2):
+        raise ValueError(f"no B4/B5 split for T={t}, block={bt}, D={d}, int4={int4}")
+    s = S8_MAX_CLUSTER
+    while s > 1 and bt % (s * S8_MIN_SLICE):
+        s //= 2
+    return S8SplitPlan(s, bt // s)
+
+
+def _s8_prologue(q, k_q, k_s, v_s, mask, block_t):
+    """What the plain B4 versions share: whether the cache is the int4 pack,
+    its amax, the T block, the s8 q codes and their score scale qs /
+    sqrt(D), and the per-token scales and mask shaped to broadcast against
+    [B, G, rep, T]."""
     b, s, hq, d = q.shape
     int4 = k_q.dtype == torch.uint8
-    if int4:
-        k_q, v_q = kv4_unpack_codes(k_q), kv4_unpack_codes(v_q)
     amax = _amax(int4)
-    g, t = k_q.shape[1], k_q.shape[2]
+    g, t = k_s.shape[1], k_s.shape[2]
     rep = hq // g
     bt = block_size(t, block_t)
     if s != 1 or t % bt:
@@ -126,13 +159,37 @@ def decode_s8_plain(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block
     qf = q.reshape(b, g, rep, d).float()
     qs = true_div(qf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8), amax)
     qc = torch.round(qf / qs).clamp(-amax, amax).to(torch.int8)
-    qsc = qs * scale
-    ks = k_s.reshape(b, g, 1, t)
-    vs = v_s.reshape(b, g, 1, t)
-    msk = mask.float()[:, None, None, :]
-    m = torch.full((b, g, rep, 1), NEG, dtype=torch.float32, device=q.device)
+    return (int4, amax, bt, qc, qs * scale, k_s.reshape(b, g, 1, t), v_s.reshape(b, g, 1, t),
+            mask.float()[:, None, None, :])
+
+
+def _s8_epilogue(q, acc, m, l, codes, sums, out_dtype, return_stats, return_codes):
+    b, _, hq, d = q.shape
+    out = (acc / l.clamp(min=1e-30)).reshape(b, 1, hq, d).to(out_dtype)
+    res = (out,)
+    if return_stats:
+        res += (m[..., 0], l[..., 0])
+    if return_codes:
+        res += (torch.cat(codes, dim=-1), torch.stack(sums, dim=-2))
+    return res if len(res) > 1 else out
+
+
+def decode_s8_plain(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=1024,
+                    return_stats=False, return_codes=False):
+    """B4's function. q [B, 1, Hq, D]; k_q/v_q int8 [B, G, T, D] or the
+    int4 pack uint8 [B, G, T/2, D]; k_s/v_s fp32 [B, G, T, 1]; mask fp32
+    [B, T] (finite). Returns o [B, 1, Hq, D], and with `return_stats` also
+    the running max m and sum l, fp32 [B, G, rep]; with `return_codes`
+    also every T block's probability codes, int8 [B, G, rep, T], and its
+    s32 PV sums, int32 [B, G, rep, T / bt, D]."""
+    int4, amax, bt, qc, qsc, ks, vs, msk = _s8_prologue(q, k_q, k_s, v_s, mask, block_t)
+    if int4:
+        k_q, v_q = kv4_unpack_codes(k_q), kv4_unpack_codes(v_q)
+    t = ks.shape[-1]
+    m = torch.full(qsc.shape, NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, g, rep, d), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((*qc.shape[:3], q.shape[-1]), dtype=torch.float32, device=q.device)
+    codes, sums = [], []
     for t0 in range(0, t, bt):
         sl = slice(t0, t0 + bt)
         s32 = s8_dot(qc, k_q[:, :, sl].transpose(-1, -2))  # [B, G, rep, bt]
@@ -146,11 +203,58 @@ def decode_s8_plain(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block
         ps = true_div(pv_f.abs().amax(dim=-1, keepdim=True).clamp(min=1e-20), amax)
         pc = torch.round(pv_f / ps).clamp(-amax, amax).to(torch.int8)
         pv32 = s8_dot(pc, v_q[:, :, sl])  # [B, G, rep, D]
+        codes.append(pc)
+        sums.append(pv32)
         acc = acc * alpha + pv32.float() * ps
-    out = (acc / l.clamp(min=1e-30)).reshape(b, 1, hq, d).to(out_dtype)
-    if return_stats:
-        return out, m[..., 0], l[..., 0]
-    return out
+    return _s8_epilogue(q, acc, m, l, codes, sums, out_dtype, return_stats, return_codes)
+
+
+def decode_s8_split_plain(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=1024,
+                          return_stats=False, return_codes=False):
+    """The kernel's split algorithm in PyTorch (not on any path: the tests
+    and `chip_smoke.py` hold it against `decode_s8_plain`). Same arguments
+    and results. Each T block is cut into the plan's slices: per-slice row
+    maxima and amaxima of `p * v_s`, whose maxima are the block's (so m,
+    every probability code and every s32 PV sum are `decode_s8_plain`'s
+    bit for bit); the block's l is the slice sums of p added in rank
+    order, its PV sum the slices' s32 partials added in rank order."""
+    int4, amax, bt, qc, qsc, ks, vs, msk = _s8_prologue(q, k_q, k_s, v_s, mask, block_t)
+    if int4:
+        k_q, v_q = kv4_unpack_codes(k_q), kv4_unpack_codes(v_q)
+    b, g, rep, _ = qc.shape
+    t, d = ks.shape[-1], q.shape[-1]
+    n, sl = s8_split_plan(t, bt, d, int4)
+    m = torch.full(qsc.shape, NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, g, rep, d), dtype=torch.float32, device=q.device)
+    codes, sums = [], []
+    for t0 in range(0, t, bt):
+        sl_ = slice(t0, t0 + bt)
+        s32 = s8_dot(qc, k_q[:, :, sl_].transpose(-1, -2))
+        sc = s32.float() * qsc * ks[..., sl_] + msk[..., sl_]
+        smax = sc.reshape(b, g, rep, n, sl).amax(dim=-1)  # 1. slice row maxima
+        m_new = torch.maximum(m, smax.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        lp = p.reshape(b, g, rep, n, sl).sum(dim=-1)  # 2. slice sums, added in rank order
+        lb = lp[..., 0]
+        for r in range(1, n):
+            lb = lb + lp[..., r]
+        l = l * alpha + lb[..., None]
+        m = m_new
+        pv_f = p * vs[..., sl_]
+        pa = pv_f.abs().reshape(b, g, rep, n, sl).amax(dim=-1).amax(dim=-1, keepdim=True)
+        ps = true_div(pa.clamp(min=1e-20), amax)
+        pc = torch.round(pv_f / ps).clamp(-amax, amax).to(torch.int8)
+        part = s8_dot(pc.reshape(b, g, rep, n, sl).transpose(2, 3),  # 3. PV partials
+                      v_q[:, :, sl_].reshape(b, g, n, sl, d))     # [B, G, S, rep, D]
+        pv32 = part[:, :, 0]
+        for r in range(1, n):
+            pv32 = pv32 + part[:, :, r]
+        codes.append(pc)
+        sums.append(pv32)
+        acc = acc * alpha + pv32.float() * ps
+    return _s8_epilogue(q, acc, m, l, codes, sums, out_dtype, return_stats, return_codes)
 
 
 def decode_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=1024,
@@ -169,6 +273,7 @@ def decode_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=102
         raise ValueError(f"B4 needs D % 16 == 0, D <= 256 and T % block == 0 (D={d}, T={t})")
     if q.dtype not in (torch.bfloat16, torch.float32) or not q.is_contiguous():
         raise TypeError("q must be contiguous bfloat16 or float32")
+    plan = s8_split_plan(t, bt, d, int4)
     code_dtype = torch.uint8 if int4 else torch.int8
     for name, x, dt, shape in (
         ("k_q", k_q, code_dtype, (b, g, rows, d)), ("v_q", v_q, code_dtype, (b, g, rows, d)),
@@ -179,6 +284,8 @@ def decode_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=102
             raise ValueError(f"{name} must be contiguous {dt} {shape} on {dev}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"output dtype must be bfloat16 or float32, got {out_dtype}")
+    if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+        raise ValueError("B4 reads k_q and v_q as TMA boxes: 16-byte aligned buffers")
     out = torch.empty((b, 1, hq, d), dtype=out_dtype, device=dev)
     m = l = None
     if return_stats:
@@ -188,7 +295,7 @@ def decode_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=102
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(), k_s.data_ptr(),
         v_q.data_ptr(), v_s.data_ptr(), mask.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), None if m is None else m.data_ptr(),
-        None if l is None else l.data_ptr(), b, g, rep, t, d, bt, int(int4),
+        None if l is None else l.data_ptr(), b, g, rep, t, d, bt, plan.cluster, int(int4),
         float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)), _amax(int4),
         _build.stream_ptr(dev),
     )

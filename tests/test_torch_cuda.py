@@ -366,6 +366,79 @@ def test_decode_kernel_forms_match_plain(cuda_device, int4, stats):
         assert bool((got[1][2] == da.NEG).all()) and bool((got[2][2] == 2 * BT).all())
 
 
+#: (T block, D) pairs that give every cluster the split plan can take:
+#: S = 8 (64-token slices), 4, 2, 1 (a 16-token block and a 24-token one),
+#: 8 again (16-token slices), and 1 on an 18-token block (its scale slices,
+#: not whole 16-byte rows, are loaded without bulk copies)
+S8_SPLITS = [(512, 128), (64, 64), (32, 128), (16, 64), (24, 128), (128, 64), (18, 64)]
+
+
+def _s8_case(gen, b, t, d, int4, rep=4, g=2):
+    quantize = P.kv4_quantize if int4 else P.kv_quantize
+    kq, ks = quantize(torch.randn((b, g, t, d), generator=gen, device=gen.device))
+    vq, vs = quantize(torch.randn((b, g, t, d), generator=gen, device=gen.device))
+    q = torch.randn((b, 1, g * rep, d), generator=gen, device=gen.device).to(torch.bfloat16)
+    return q, kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("bt,d", S8_SPLITS)
+def test_decode_kernel_split_plans_match_plain(cuda_device, int4, bt, d):
+    """B5 with stats at every cluster size of the plan, two T blocks, B=3:
+    row 0 masked in its tail, row 1 all masked, row 2 masked after its first
+    T block. o within 2e-3 * max|o| of `decode_s8_plain`, m within 1e-6 *
+    |m|, l within 1e-5 * l, and the split algorithm in PyTorch likewise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(bt + d + int4)
+    t = 2 * bt
+    args = (*_s8_case(gen, 3, t, d, int4), torch.zeros((3, t), device=cuda_device))
+    mask = args[-1]
+    mask[0, -5:] = da.NEG
+    mask[1] = da.NEG
+    mask[2, bt:] = da.NEG
+    got = da.decode_s8(*args, torch.float32, bt, True)
+    for plain in (da.decode_s8_plain, da.decode_s8_split_plain):
+        ref = plain(*args, torch.float32, bt, True)
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=2e-3 * float(ref[0].abs().max()))
+        torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=0)
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=0)
+    assert bool((got[1][1] == da.NEG).all()) and bool((got[2][1] == t).all())
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("t", [512, 2048])
+def test_decode_kernel_batch_invariant(cuda_device, int4, t):
+    """Row b of a B=8 call equals, bit for bit in o, m and l, a B=1 call on
+    that row (G=8, rep=4, D=128, the paths' T blocks): the split plan does
+    not depend on B."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t + int4)
+    bt = 1024 if t % 1024 == 0 else 512
+    q, kq, ks, vq, vs = _s8_case(gen, 8, t, 128, int4, g=8)
+    mask = torch.zeros((8, t), device=cuda_device)
+    mask[:, t - t // 8:] = da.NEG
+    mask[0] = da.NEG
+    mask[3, 100:] = da.NEG
+    full = da.decode_s8(q, kq, ks, vq, vs, mask, torch.float32, bt, True)
+    for b in range(8):
+        one = da.decode_s8(*(x[b : b + 1].contiguous() for x in (q, kq, ks, vq, vs, mask)),
+                           torch.float32, bt, True)
+        for x, y in zip(full, one):
+            assert torch.equal(x[b : b + 1], y)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("stats", [False, True])
+def test_decode_kernel_deterministic(cuda_device, int4, stats):
+    """Two calls on the same inputs are bit-equal (no atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7 + int4 + 2 * stats)
+    q, kq, ks, vq, vs = _s8_case(gen, 8, 2048, 128, int4, g=8)
+    mask = torch.zeros((8, 2048), device=cuda_device)
+    mask[:, 1900:] = da.NEG
+    a = da.decode_s8(q, kq, ks, vq, vs, mask, torch.bfloat16, 1024, stats)
+    b = da.decode_s8(q, kq, ks, vq, vs, mask, torch.bfloat16, 1024, stats)
+    for x, y in zip(a if stats else (a,), b if stats else (b,)):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("d", [64, 136])

@@ -157,6 +157,36 @@ def test_gemv_plans_and_wrappers_run_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_s8_split_runs_with_jax_blocked():
+    """B4/B5's split plan and its algorithm in PyTorch (`s8_split_plan`,
+    `decode_s8_split_plain` in `ops/decode_attention.py`) need neither JAX
+    nor the JAX package."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["llama3_quantization_tpu"] = None
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch.ops import decode_attention as da
+
+        assert da.s8_split_plan(512, 512, 128, True) == (8, 64)
+        kq, ks = P.kv4_quantize(torch.randn(1, 2, 64, 32))
+        vq, vs = P.kv4_quantize(torch.randn(1, 2, 64, 32))
+        q, mask = torch.randn(1, 1, 4, 32), torch.zeros(1, 64)
+        o, m, l = da.decode_s8_split_plain(q, kq, ks, vq, vs, mask, torch.float32, 32, True)
+        ref = da.decode_s8_plain(q, kq, ks, vq, vs, mask, torch.float32, 32, True)
+        assert torch.equal(m, ref[1]) and bool(torch.allclose(o, ref[0], rtol=0, atol=1e-5))
+        assert not any(m_ == "jax" or m_.startswith(("jax.", "llama3_quantization_tpu."))
+                       for m_ in sys.modules if sys.modules[m_] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("name", ["qmatmul", "qmatmul_a8", "decode_attention", "decode_fp",
                                   "flash_attention", "w4_stream", "w4_bd", "qmm_u8"])
 def test_kernel_sources_ship(name):
