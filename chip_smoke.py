@@ -45,9 +45,11 @@ Phases, in order; any failure exits non-zero:
      a row, o within 1e-5 * max|o| beyond the flips' exact share); B3 on
      unpacked uint8 8-bit codes; and the
      weight-stream probes at the microbench scripts' default shapes
-     (`check_probes`): B8 (w4, tiled, depth 1/2/4/8) and B10 dot2 / cat
-     exactly, B9 (v4, tiled, dot4, noscale, cast8, multi S = 1/2/4) within
-     1e-6 * max|ref|, B10 bf16 within 1e-2;
+     (`check_probes`): B8 (w4, tiled, depth 1/2/4/8), B9 (v4, tiled, dot4,
+     noscale, cast8, multi S = 1/2/4) and B10 dot2 / cat bit for bit, B10
+     bf16 within 1e-2, every B9 and B10 form bit-equal between two calls,
+     and B10 dot2 / cat bit-equal to B3's `a8_plain` at the unpack default
+     [4096, 14336] and on a ragged K = 384;
   4. drive the first main path at full Llama-3-8B width and depth (W4 g128
      packed synthetic weights, bf16, 32 layers, the pallas backend):
      `forward_logits` on [1, 128] tokens, a 128-token prefill into an int8
@@ -113,6 +115,10 @@ those phases' share with `--kernel-bench`, e.g.
     L3Q_ABLATE=9 python3 chip_smoke.py --kernel-bench  # B3 without unpack, B7 without V loads
     L3Q_ABLATE=256 python3 chip_smoke.py --kernel-bench  # the GEMVs' copies alone
     L3Q_ABLATE=512 python3 chip_smoke.py --kernel-bench  # B5's copies alone
+    L3Q_ABLATE=1024 python3 chip_smoke.py --microbench   # B9's and B10's copies alone
+
+Under `L3Q_ABLATE`, `--microbench` skips the probes' checks and oracles
+(their results are wrong) and only times them.
 """
 
 from __future__ import annotations
@@ -650,26 +656,26 @@ def probe_cases(P, gen, copies):
         wbytes + obytes, 0)
     add("B9.tiled", "w4_tiled.py:39", f"{mb} bn=512 tiles, x[1,K] as xh, xl",
         lambda i: w4_bd.w4_bd(xh, xl, s[i], wt[i], bk, tiled=True),
-        lambda: w4_bd.bd_plain("v4", (xh, xl), (w[0],), s[0], bk), 1e-6,
+        lambda: w4_bd.bd_plain("v4", (xh, xl), (w[0],), s[0], bk), 0,
         wbytes + sbytes + 2 * k + obytes, 4.0 * k * n, lib)
     add("B9.dot4", "w4_variants.py:70", f"{mb} bd[{2 * gt},K] int4 rows",
         lambda i: w4_bd.w4_dot4(bd2, s[i], w[i], bk),
-        lambda: w4_bd.bd_plain("dot4", (bd2[:2 * gt],), (w[0],), s[0], bk), 1e-6,
+        lambda: w4_bd.bd_plain("dot4", (bd2[:2 * gt],), (w[0],), s[0], bk), 0,
         wbytes + sbytes + 2 * gt * k + obytes, 2.0 * 2 * gt * k * n, lib)
     add("B9.noscale", "w4_variants.py:139", f"{mb} bd[{2 * gt},K] int4 rows, no scales",
         lambda i: w4_bd.w4_noscale(bd2, w[i], bk),
-        lambda: w4_bd.bd_plain("noscale", (bd2[:2 * gt],), (w[0],), None, bk), 1e-6,
+        lambda: w4_bd.bd_plain("noscale", (bd2[:2 * gt],), (w[0],), None, bk), 0,
         wbytes + 2 * gt * k + obytes, 2.0 * 2 * gt * k * n, lib)
     add("B9.cast8", "w4_variants.py:120", f"{mb} bd[{gt},K] s8 rows",
         lambda i: w4_bd.w4_cast8(bd1, s[i], w[i], bk),
-        lambda: w4_bd.bd_plain("cast8", (bd1[:gt],), (w[0],), s[0], bk), 1e-6,
+        lambda: w4_bd.bd_plain("cast8", (bd1[:gt],), (w[0],), s[0], bk), 0,
         wbytes + sbytes + gt * k + obytes, 2.0 * gt * k * n, lib)
     for st in (1, 2, 4):
         ws = [[ints(-128, 128, (k // 2 // st, n)) for _ in range(st)] for _ in range(copies)]
         bds = [ints(-8, 8, (2 * gt // st, k // st)) for _ in range(st)]
         add("B9.multi", "w4_multidma.py:24", f"{mb} S={st} streams",
             lambda i, ws=ws, bds=bds: w4_bd.w4_multi(bds, ws[i], bk),
-            lambda ws=ws, bds=bds: w4_bd.bd_plain("multi", bds, ws[0], None, bk), 1e-6,
+            lambda ws=ws, bds=bds: w4_bd.bd_plain("multi", bds, ws[0], None, bk), 0,
             wbytes + 2 * gt * k + obytes, 2.0 * 2 * gt * k * n / st, lib)
     v4_cases(P, gen, copies, ints, scales, dequant, add)
     return cases
@@ -690,7 +696,7 @@ def v4_cases(P, gen, copies, ints, scales, dequant, add):
     wd4 = [dequant(w[i], s[i]) for i in range(copies)]
     add("B9.v4", "w4_v4.py:30", f"[{k}x{n}] bk={bk} x[1,K] as xh, xl",
         lambda i: w4_bd.w4_bd(xh, xl, s[i], w[i], bk),
-        lambda: w4_bd.bd_plain("v4", (xh, xl), (w[0],), s[0], bk), 1e-6,
+        lambda: w4_bd.bd_plain("v4", (xh, xl), (w[0],), s[0], bk), 0,
         k * n // 2 + 4 * g * n + 2 * k + 4 * n, 4.0 * k * n,
         lambda i: torch.matmul(xb, wd4[i]))
     qts = [P.quantize_rtn(torch.randn((k, n), generator=gen, device="cuda") * 0.02,
@@ -708,12 +714,22 @@ def v4_cases(P, gen, copies, ints, scales, dequant, add):
 
 def check_probes(P, gen, results):
     """Every B8, B9 and B10 form against its plain version at the
-    microbench scripts' default shapes: B8 and B10 dot2 / cat exactly, B9
-    within 1e-6 * max|ref| (exact s32 partials, the fp32 epilogue in the
-    same order), B10 bf16 within 1e-2 (the order inside a bf16 dot)."""
+    microbench scripts' default shapes: B8, B9 (exact s32 partials, the
+    fp32 epilogue in the plain version's order) and B10 dot2 / cat bit for
+    bit, B10 bf16 within 1e-2 (the order inside a bf16 dot); each B9 and B10
+    form's second call bit-equal to its first; B10 dot2 / cat bit-equal to
+    B3's `a8_plain` (s_x = 1) at the unpack default and on a ragged K. Under
+    L3Q_ABLATE (wrong results by design) nothing is compared."""
     import torch
-    from llama3_quantization_tpu_torch.ops import w4_stream
+    from llama3_quantization_tpu_torch.ops import qmm_u8, w4_stream
+    from llama3_quantization_tpu_torch.ops.qmatmul_a8 import a8_plain
 
+    if os.environ.get("L3Q_ABLATE"):
+        log("  probes not checked: L3Q_ABLATE builds give wrong results")
+        for c in probe_cases(P, gen, 1):
+            results.setdefault(c["key"], {})[c["shape"]] = None
+        results["B8.depth"] = {depth: None for depth in w4_stream.DEPTHS}
+        return
     x = torch.randint(-128, 128, (DEPTH_ROWS, DEPTH_WIDTH), generator=gen, device="cuda",
                       dtype=torch.int16).to(torch.int8)
     ref = w4_stream.dma_depth_plain(x, DEPTH_CHUNK)
@@ -723,8 +739,21 @@ def check_probes(P, gen, results):
         results.setdefault("B8.depth", {})[depth] = err
     del x
     for c in probe_cases(P, gen, 1):
-        err = compare(f"{c['key']} {c['shape']}", c["run"](0), c["plain"](), c["tol"])
+        got = c["run"](0)
+        err = compare(f"{c['key']} {c['shape']}", got, c["plain"](), c["tol"])
         results.setdefault(c["key"], {})[c["shape"]] = err
+        if c["key"].startswith(("B9", "B10")) and not torch.equal(c["run"](0), got):
+            raise AssertionError(f"{c['key']} {c['shape']}: two calls differ")
+    ones = torch.ones((qmm_u8.BM, 1), dtype=torch.float32, device="cuda")
+    for k, n in ((V4_SHAPE[0], V4_SHAPE[1]), (384, V4_SHAPE[1])):
+        qt = P.quantize_rtn(torch.randn((k, n), generator=gen, device="cuda") * 0.02,
+                            P.QuantSpec(n_bits=4, group_size=GS), pack=True)
+        xq = torch.randint(-127, 128, (qmm_u8.BM, k), generator=gen, device="cuda",
+                           dtype=torch.int16).to(torch.int8)
+        ref = a8_plain(xq, ones, qt.data, "u4", qt.scale, qt.zero, GS, torch.float32)
+        for v in ("dot2", "cat"):
+            compare(f"B10.{v} x[8,{k}] u4 g128 [{k},{n}] against a8_plain",
+                    qmm_u8.u8_qmm(xq, qt.data, qt.scale, qt.zero, v), ref, 0)
     torch.cuda.empty_cache()
 
 
@@ -760,6 +789,9 @@ def drive_microbench(P, card):
         log(f"  (microbench {name}: {dt:.1f} s host clock, set-up and capture included)")
     err = out["w4_v4"]["max_rel_err"]
     log(f"w4_v4 against its oracle: max rel err {err:.3e} (limit {V4_ORACLE_LIMIT:g})")
+    if os.environ.get("L3Q_ABLATE"):
+        log("  oracles not held: L3Q_ABLATE builds give wrong results")
+        return sum_counts(counts)
     if not err < V4_ORACLE_LIMIT:
         raise AssertionError(f"w4_v4: v4_matvec off its oracle, rel err {err}")
     for v, lim in U8_ORACLE_LIMITS.items():

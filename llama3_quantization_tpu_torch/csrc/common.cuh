@@ -15,8 +15,9 @@
 // wgmma; B7: 8 the V loads, 16 the exp, 32 the PV wgmma; the GEMVs (B1
 // and B3's GEMV form): 64 the unpack, 128 the mma.sync, 256 all compute
 // (copies only); B4/B5: 512 all compute and the cluster exchanges (copies
-// only). `ops/_build.py` passes it from the environment variable of the
-// same name.
+// only); B9/B10 (the weight-stream probes): 1024 all compute, the
+// exchanges and the epilogue (copies only). `ops/_build.py` passes it from
+// the environment variable of the same name.
 #ifndef L3Q_ABLATE
 #define L3Q_ABLATE 0
 #endif
@@ -26,6 +27,14 @@ namespace l3q {
 // Round a float to the nearest bf16 and back (round half to even).
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The bits of a bf16 pair as one register, and back.
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_bf16) {
@@ -86,6 +95,15 @@ __device__ __forceinline__ void ldmatrix_x1_trans(uint32_t* r, const void* smem)
                : "r"(s));
 }
 
+// Byte columns of two ldmatrix.trans matrices of byte rows: r0 from rows
+// 0-7, r1 from rows 8-15 of one 16-byte column block. c[0] gets column 2g
+// of rows 2t, 2t + 1, 8 + 2t, 9 + 2t (row 2t in the low byte), c[1] column
+// 2g + 1 of the same rows (lane (g, t)).
+__device__ __forceinline__ void trans_cols(uint32_t r0, uint32_t r1, uint32_t* c) {
+  c[0] = __byte_perm(r0, r1, 0x6420);
+  c[1] = __byte_perm(r0, r1, 0x7531);
+}
+
 // n / d for n >= 0, by a shift where d is a power of 2.
 struct Div {
   int d, sh;
@@ -142,6 +160,21 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// Arrive with release: this thread's writes, remote ones included, are
+// visible to the cluster once its wait returns.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// An s32 add to the shared memory of block `rank` at the address of `p` in
+// this one, without a return value (exact in any order).
+__device__ __forceinline__ void red_cluster_add(int* p, unsigned rank, int v) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(rank));
+  asm volatile("red.relaxed.cluster.shared::cluster.add.s32 [%0], %1;\n" ::"r"(ra), "r"(v)
+               : "memory");
 }
 
 // An asynchronous 4-byte store to the shared memory of block `rank` at the
@@ -248,12 +281,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// Barriers `bar[0..n)` each with one arrival, behind a single fence (the
-// fence costs hundreds of cycles: one for all of them).
-__device__ __forceinline__ void mbar_init_n(uint64_t* bar, int n) {
+// Barriers `bar[0..n)` each with `count` arrivals, behind a single fence
+// (the fence costs hundreds of cycles: one for all of them).
+__device__ __forceinline__ void mbar_init_n(uint64_t* bar, int n, int count = 1) {
   for (int i = 0; i < n; ++i) {
     const unsigned a = (unsigned)__cvta_generic_to_shared(bar + i);
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }

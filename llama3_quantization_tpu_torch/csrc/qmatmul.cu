@@ -60,14 +60,9 @@ namespace {
 
 using l3q::bar_arrive;
 using l3q::bar_sync;
+using l3q::as_bf162;
+using l3q::as_u32;
 using l3q::store_out;
-
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ---------------------------------------------------------------- B1 ----
 // y[m, n] = sum_g s[g,n] * (x_g . c_g[:, n]) - (sum_k x_g[k]) * z[g,n]*s[g,n]

@@ -7,242 +7,261 @@
 // [8, N]:
 //   dot2, cat: out = sum_g (f32(dot_g) - f32(xsum_g) * z_g) * s_g over the
 //     groups in order, with dot_g and xsum_g exact in s32 (the integers of
-//     B3.v3 on u4 codes), one rounding per operation;
+//     B3.v3 on u4 codes), one rounding per operation: `a8_plain`'s result
+//     bit for bit;
 //   bf16: out = sum_g bf16(x_g) . ((bf16(c) - bf16(z_g)) * bf16(s_g)), each
 //     group's dot accumulated in f32, the groups added in order.
-// The three variants keep their meaning as formulations of one stream:
-//   dot2: the low and the high nibbles are dotted straight from the packed
-//     bytes (per-byte mask and shift, a byte transpose, `__dp4a` against the
-//     two halves of the group's x); the warps' s32 partials meet in shared
-//     memory;
-//   cat: the group's codes are assembled into one s8 [128 k x 64 columns]
-//     tile in shared memory, then dotted by `mma.sync` m16n8k32 s8 (the 8 x
-//     rows fill half of the 16-row A tile; the other half is zero);
-//   bf16: the group is dequantized to bf16 in shared memory, then dotted by
-//     `mma.sync` m16n8k16 bf16 with f32 accumulation.
+// The three variants keep their meaning as formulations of one stream, all
+// on the tensor cores with the codes as the 16-row operand (16 columns) and
+// the 8 x rows as the 8-column one, exactly:
+//   dot2: the low and the high nibbles are dotted as two chains straight
+//     from the packed bytes (mma.sync m16n8k32 s8: the low nibbles of 32 byte
+//     rows against x's k of the group's first half, the high ones against
+//     its second half), the chains added in s32 at the group's end;
+//   cat: each 16-row chunk's low and high nibbles form one 32-k step of the
+//     group's assembled 128-k s8 tile, dotted in one chain;
+//   bf16: the codes are dequantized in registers with packed bf16x2
+//     arithmetic (c - bf16(z), then * bf16(s), each rounded once, as the
+//     plain version rounds), then mma.sync m16n8k16 bf16 with f32
+//     accumulation, a fresh sum per group added to the output in order.
+// Codes reach the lanes by ldmatrix.trans (four byte rows of one column a
+// register); each stage's x is permuted once in shared memory into the MMA's
+// k order (dot2, cat: loaded by ldmatrix) or converted to bf16; a second s8
+// MMA with an all-ones operand gives the exact x sums of dot2 and cat, so
+// nothing sums x serially.
+//
 // What bounds it on the H100: the packed bytes plus scale and zero over HBM
-// at 3.35 TB/s. A block of 4 warps owns 64 columns and walks the groups; the
-// groups' packed tiles [64 rows x 64 columns] stream into a ring of STAGES
-// shared-memory buffers with `cp.async`.
+// at 3.35 TB/s. A block owns 128 columns (eight consumer warps of 16: every
+// code row a full 128-byte line) and walks the groups; one producer warp
+// keeps a ring of `ring` stages in flight on mbarriers, a stage being one
+// group: its packed [64 x 128] codes and its x [8 x 128] as TMA boxes with a
+// 128-byte swizzle, its scale and zero as bulk copies. `u8_plan`
+// (ops/qmm_u8.py) sets the ring from (K, N). The columns alone give 112
+// blocks at N = 14336 and 224 at 28672; K does not split, so each output's
+// groups are summed in order by one lane and no partial crosses blocks.
 
 #include "common.cuh"
 
 namespace {
 
-using l3q::bf16_round;
-using l3q::cp_async16;
-using l3q::cp_async_commit;
-using l3q::cp_async_wait;
-using l3q::mma_bf16_16816;
-using l3q::mma_s8_16832;
-using l3q::pack_bf16x2;
-using l3q::transpose4;
+using l3q::as_bf162;
+using l3q::as_u32;
 
 enum Variant { DOT2 = 0, CAT = 1, BF16 = 2 };
-constexpr int THREADS = 128, BM = 8, GS = 128, HALF = GS / 2, NC = 64;
-constexpr int STAGES = 4;  // groups of packed bytes in flight per block
-constexpr int TLD = GS + 16;  // s8 tile row in bytes: conflict-free fragment loads
-constexpr int TLDH = GS + 8;  // bf16 tile row in elements: the same
+constexpr int CWARPS = 8, THREADS = (CWARPS + 1) * 32;  // warp CWARPS copies
+constexpr int BM = 8, GS = 128, HALF = GS / 2, BN = 128;  // BN: 16 columns a consumer warp
+constexpr int CODES = HALF * BN;  // a stage's packed bytes (128-byte swizzle)
+constexpr int XB = BM * GS;       // a stage's x [8][128] (128-byte swizzle)
+constexpr int SLOT = CODES + XB + 2 * BN * 4;  // codes, x, scale, zero
+constexpr int XBLD = l3q::odd_row(2 * GS);     // x row of a stage in the MMA's k order, bytes
+                                               // (s8 for dot2 and cat, bf16 for bf16)
+constexpr uint32_t ONES = 0x01010101u;
 
-// The lo and hi code words of 4 byte rows (i0 .. i0 + 3) and 4 columns of a
-// packed tile: lo[c] = codes k = i0 .. i0 + 3 of column c, hi[c] = k = 64 + i0 ..
-__device__ __forceinline__ void unpack4x4(const uint8_t* pk, int i0, int c0, uint32_t* lo,
-                                          uint32_t* hi) {
-  uint32_t lr[4], hr[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(pk + (i0 + r) * NC + c0);
-    lr[r] = w & 0x0F0F0F0Fu;
-    hr[r] = (w >> 4) & 0x0F0F0F0Fu;
-  }
-  transpose4(lr, lo);
-  transpose4(hr, hi);
+__host__ __device__ constexpr int smem_bytes(int ring) { return ring * SLOT + 2 * BM * XBLD + 2 * ring * 8; }
+
+// Packed 4-bit codes of rows (r, r + 1) of one column, in bytes 0 and 2 of
+// `p`, as bf16 (c - z) * s, each operation rounded once.
+__device__ __forceinline__ uint32_t dequant2(uint32_t p, __nv_bfloat162 z2, __nv_bfloat162 s2) {
+  const __nv_bfloat162 c = __hsub2(as_bf162((p & 0x000F000Fu) | 0x43004300u), as_bf162(0x43004300u));
+  return as_u32(__hmul2(__hsub2(c, z2), s2));
 }
 
 template <int V>
 __global__ void __launch_bounds__(THREADS) u8_kernel(
-    const int8_t* __restrict__ x, const uint8_t* __restrict__ w, const float* __restrict__ scale,
-    const float* __restrict__ zero, float* __restrict__ out, int K, int N) {
-  __shared__ __align__(16) uint8_t pk[STAGES][HALF][NC];
-  __shared__ __align__(16) int8_t t8[V == CAT ? NC : 1][TLD];
-  __shared__ __align__(16) __nv_bfloat16 tb[V == BF16 ? NC : 1][TLDH];
-  __shared__ int red[V == DOT2 ? BM : 1][NC];
-  __shared__ int xs[BM];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * NC, G = K / GS;
-
-  auto load = [&](int g, int buf) {
-    for (int i = tid; i < HALF * NC / 16; i += THREADS) {
-      const int r = i / (NC / 16), c = (i - r * (NC / 16)) * 16;
-      cp_async16(&pk[buf][r][c], w + (size_t)(g * HALF + r) * N + n0 + c);
-    }
-  };
-
-  // dot2: outputs tid + 128 i of the block's [8, 64]; cat / bf16: row gid,
-  // columns (2 warp + nt) * 8 + 2 tig + e at [2 nt + e]
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (V == DOT2)
-    for (int e = tid; e < BM * NC; e += THREADS) red[e / NC][e % NC] = 0;
-#pragma unroll
-  for (int g = 0; g < STAGES - 1; ++g) {
-    if (g < G) load(g, g);
-    cp_async_commit();
+    const float* __restrict__ scale, const float* __restrict__ zero, float* __restrict__ out, int K,
+    int N, int ring, const __grid_constant__ CUtensorMap tmw, const __grid_constant__ CUtensorMap tmx) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN, G = K / GS, ncol = min(BN, N - n0);  // 64 or 128
+  unsigned char* xk = smem + (size_t)ring * SLOT;  // [2][BM][XBLD]: x of the last two stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(xk + 2 * BM * XBLD);
+  uint64_t* empty = full + ring;
+  if (tid == 0) {
+    l3q::mbar_init_n(full, ring);
+    l3q::mbar_init_n(empty, ring, CWARPS);
   }
-  for (int g = 0; g < G; ++g) {
-    const int buf = g % STAGES;
-    if (g + STAGES - 1 < G) load(g + STAGES - 1, (g + STAGES - 1) % STAGES);
-    cp_async_commit();
-    cp_async_wait<STAGES - 1>();  // group g has landed
-    if (tid < BM) {
-      const int* xr = reinterpret_cast<const int*>(x + (size_t)tid * K + g * GS);
-      int v = 0;
-      for (int q = 0; q < GS / 4; ++q) v = __dp4a(__ldg(xr + q), 0x01010101, v);
-      xs[tid] = v;
-    }
-    __syncthreads();
+  __syncthreads();
 
-    if (V == DOT2) {
-      const int cq = tid % (NC / 4), rq = tid / (NC / 4);  // columns 4 cq.., byte rows 8 rq..
-      int d[BM][4];
+  if (warp == CWARPS) {  // the producer
+    for (int g = 0; g < G; ++g) {
+      const int slot = g % ring;
+      unsigned char* W = smem + (size_t)slot * SLOT;
+      if (lane == 0) {
+        if (g >= ring) l3q::mbar_wait(empty + slot, (g / ring - 1) & 1);
+        l3q::mbar_expect_tx(full + slot, CODES + XB + 2 * ncol * 4);  // TMA boxes come whole
+      }
+      __syncwarp();
+      if (lane == 0) {
+        l3q::tma_load_2d(W, &tmw, n0, g * HALF, full + slot);
+      } else if (lane == 1) {
+        l3q::tma_load_2d(W + CODES, &tmx, g * GS, 0, full + slot);
+      } else if (lane == 2) {
+        l3q::bulk_load(W + CODES + XB, scale + (size_t)g * N + n0, ncol * 4, full + slot);
+      } else if (lane == 3) {
+        l3q::bulk_load(W + CODES + XB + BN * 4, zero + (size_t)g * N + n0, ncol * 4, full + slot);
+      }
+    }
+    return;
+  }
+
+  // consumer warp: columns cb .. cb + 15 (one m16 tile); lane (g, t) holds
+  // columns cb + 2g, cb + 2g + 1 and rows 2t, 2t + 1 of the output: element
+  // e is column cb + 2g + (e >> 1), row 2t + (e & 1)
+  const int cb = warp * 16;
+  const int a_off = (lane & 15) * BN + ((warp ^ (lane & 7)) << 4);  // its ldmatrix.trans row
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int g = 0; g < G; ++g) {
+    const int slot = g % ring;
+    l3q::mbar_wait(full + slot, (g / ring) & 1);
+    const unsigned char* Wt = smem + (size_t)slot * SLOT;
+    const unsigned char* X = Wt + CODES;
+    const float* S = reinterpret_cast<const float*>(X + XB);
+    const float* Z = S + BN;
+    if (!(L3Q_ABLATE & 1024)) {  // (columns past N: zeros, never stored)
+      // w[c][i]: chunk c's (byte rows 16c ..) column cb + 2g + i, rows 2t,
+      // 2t + 1, 8 + 2t, 9 + 2t of the chunk
+      uint32_t w[4][2];
 #pragma unroll
-      for (int m = 0; m < BM; ++m)
+      for (int c = 0; c < 4; ++c) {
+        uint32_t r[2];
+        l3q::ldmatrix_x2_trans(r, Wt + a_off + c * 16 * BN);
+        l3q::trans_cols(r[0], r[1], w[c]);
+      }
+      unsigned char* xb = xk + (g & 1) * BM * XBLD;  // (the barrier below also frees the other)
+      if (V != BF16) {
+        // x once a stage into the MMA's k order: 16-byte block c of a row
+        // becomes word t = x[16c + {2t, 2t+1, 8+2t, 9+2t}], the partners of
+        // chunk c's nibbles in the codes' ldmatrix.trans order (block c < 4:
+        // the low nibbles, k = 16c + row; c >= 4: the high ones, k + 64)
+        if (tid < BM * GS / 16) {
+          const int m = tid >> 3, c = tid & 7;
+          const uint4 v = *reinterpret_cast<const uint4*>(X + l3q::swz_off(m, 16 * c, GS));
+          uint4 o;
+          o.x = __byte_perm(v.x, v.z, 0x5410);
+          o.y = __byte_perm(v.x, v.z, 0x7632);
+          o.z = __byte_perm(v.y, v.w, 0x5410);
+          o.w = __byte_perm(v.y, v.w, 0x7632);
+          *reinterpret_cast<uint4*>(xb + m * XBLD + 16 * c) = o;
+        }
+        l3q::bar_sync(1, CWARPS * 32);
+        uint32_t bx[4][2], r4[4];  // bx[c][0]: chunk c's low nibbles' x, bx[c][1] its high ones'
+        const unsigned char* xl = xb + (lane & 7) * XBLD + 16 * (lane >> 3);
+        l3q::ldmatrix_x4(r4, xl);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) d[m][c] = 0;
+        for (int c = 0; c < 4; ++c) bx[c][0] = r4[c];
+        l3q::ldmatrix_x4(r4, xl + HALF);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i0 = rq * 8 + h * 4;
-        uint32_t lo[4], hi[4];
-        unpack4x4(&pk[buf][0][0], i0, cq * 4, lo, hi);
+        for (int c = 0; c < 4; ++c) bx[c][1] = r4[c];
+        int d[4] = {0, 0, 0, 0}, xs[4] = {0, 0, 0, 0};
+        const uint32_t ones[4] = {ONES, ONES, ONES, ONES};
 #pragma unroll
-        for (int m = 0; m < BM; ++m) {
-          const int8_t* xr = x + (size_t)m * K + g * GS + i0;
-          const int xl = __ldg(reinterpret_cast<const int*>(xr));
-          const int xh = __ldg(reinterpret_cast<const int*>(xr + HALF));
+        for (int c = 0; c < 4; ++c) l3q::mma_s8_16832(xs, ones, bx[c]);
+        auto lo = [](uint32_t v) { return v & 0x0F0F0F0Fu; };
+        auto hi = [](uint32_t v) { return (v >> 4) & 0x0F0F0F0Fu; };
+        if (V == CAT) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            d[m][c] = __dp4a((int)lo[c], xl, d[m][c]);
-            d[m][c] = __dp4a((int)hi[c], xh, d[m][c]);
+            const uint32_t a[4] = {lo(w[c][0]), lo(w[c][1]), hi(w[c][0]), hi(w[c][1])};
+            l3q::mma_s8_16832(d, a, bx[c]);
           }
+        } else {
+          int dh[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int c = 0; c < 4; c += 2) {
+            const uint32_t al[4] = {lo(w[c][0]), lo(w[c][1]), lo(w[c + 1][0]), lo(w[c + 1][1])};
+            const uint32_t ah[4] = {hi(w[c][0]), hi(w[c][1]), hi(w[c + 1][0]), hi(w[c + 1][1])};
+            const uint32_t bl[2] = {bx[c][0], bx[c + 1][0]}, bh[2] = {bx[c][1], bx[c + 1][1]};
+            l3q::mma_s8_16832(d, al, bl);
+            l3q::mma_s8_16832(dh, ah, bh);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[e] += dh[e];
         }
-      }
+        const float2 s2 = *reinterpret_cast<const float2*>(S + cb + 2 * gid);
+        const float2 z2 = *reinterpret_cast<const float2*>(Z + cb + 2 * gid);
 #pragma unroll
-      for (int m = 0; m < BM; ++m)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) atomicAdd(&red[m][cq * 4 + c], d[m][c]);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int o = tid + THREADS * i, m = o / NC, c = o % NC;
-        const size_t gi = (size_t)g * N + n0 + c;
-        const float t = __fsub_rn((float)red[m][c], __fmul_rn((float)xs[m], zero[gi]));
-        acc[i] = __fadd_rn(acc[i], __fmul_rn(t, scale[gi]));
-        red[m][c] = 0;
-      }
-    } else {
-      // assemble the group's tile: 16 row quads x 16 column quads
-      for (int it = tid; it < (HALF / 4) * (NC / 4); it += THREADS) {
-        const int i0 = (it / (NC / 4)) * 4, c0 = (it % (NC / 4)) * 4;
-        uint32_t lo[4], hi[4];
-        unpack4x4(&pk[buf][0][0], i0, c0, lo, hi);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int n = c0 + c;
-          if (V == CAT) {
-            *reinterpret_cast<uint32_t*>(&t8[n][i0]) = lo[c];
-            *reinterpret_cast<uint32_t*>(&t8[n][HALF + i0]) = hi[c];
-          } else {
-            const size_t gi = (size_t)g * N + n0 + n;
-            const float zb = bf16_round(zero[gi]), sb = bf16_round(scale[gi]);
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              const float cl = (float)((lo[c] >> (8 * b)) & 0xFF), ch = (float)((hi[c] >> (8 * b)) & 0xFF);
-              tb[n][i0 + b] = __float2bfloat16_rn(__fmul_rn(bf16_round(cl - zb), sb));
-              tb[n][HALF + i0 + b] = __float2bfloat16_rn(__fmul_rn(bf16_round(ch - zb), sb));
-            }
-          }
+        for (int e = 0; e < 4; ++e) {
+          const float sc = (e >> 1) ? s2.y : s2.x, z = (e >> 1) ? z2.y : z2.x;
+          const float tg = __fsub_rn((float)d[e], __fmul_rn((float)xs[e & 1], z));
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(tg, sc));
         }
-      }
-      __syncthreads();
-      const int8_t* xr = x + (size_t)gid * K + g * GS;
-      if (V == CAT) {
-        int d[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-#pragma unroll
-        for (int ks = 0; ks < GS / 32; ++ks) {
-          const uint32_t a[4] = {__ldg(reinterpret_cast<const uint32_t*>(xr + ks * 32 + tig * 4)), 0u,
-                                 __ldg(reinterpret_cast<const uint32_t*>(xr + ks * 32 + 16 + tig * 4)), 0u};
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            const int n = (2 * warp + nt) * 8 + gid;
-            const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(&t8[n][ks * 32 + tig * 4]),
-                                   *reinterpret_cast<const uint32_t*>(&t8[n][ks * 32 + 16 + tig * 4])};
-            mma_s8_16832(d[nt], a, b);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const size_t gi = (size_t)g * N + n0 + (2 * warp + nt) * 8 + tig * 2 + e;
-            const float t = __fsub_rn((float)d[nt][e], __fmul_rn((float)xs[gid], zero[gi]));
-            acc[2 * nt + e] = __fadd_rn(acc[2 * nt + e], __fmul_rn(t, scale[gi]));
-          }
       } else {
-        float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int ks = 0; ks < GS / 16; ++ks) {
-          const int8_t* xk = xr + ks * 16 + tig * 2;
-          const uint32_t a[4] = {pack_bf16x2((float)xk[0], (float)xk[1]), 0u,
-                                 pack_bf16x2((float)xk[8], (float)xk[9]), 0u};
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            const int n = (2 * warp + nt) * 8 + gid;
-            const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(&tb[n][ks * 16 + tig * 2]),
-                                   *reinterpret_cast<const uint32_t*>(&tb[n][ks * 16 + 8 + tig * 2])};
-            mma_bf16_16816(d[nt], a, b);
-          }
+        // x to bf16 once a stage
+        {
+          const int m = tid >> 5, k0 = (tid & 31) * 4;
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(X + l3q::swz_off(m, k0, GS));
+          uint32_t* dst = reinterpret_cast<uint32_t*>(xb + m * XBLD + 2 * k0);
+          dst[0] = l3q::pack_bf16x2((float)(int8_t)(v & 0xFF), (float)(int8_t)((v >> 8) & 0xFF));
+          dst[1] = l3q::pack_bf16x2((float)(int8_t)((v >> 16) & 0xFF), (float)(int8_t)(v >> 24));
         }
+        l3q::bar_sync(1, CWARPS * 32);
+        const uint32_t* xr = reinterpret_cast<const uint32_t*>(xb + gid * XBLD);
+        __nv_bfloat162 z2[2], s2[2];  // column cb + 2g + i
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+        for (int i = 0; i < 2; ++i) {
+          z2[i] = __float2bfloat162_rn(Z[cb + 2 * gid + i]);
+          s2[i] = __float2bfloat162_rn(S[cb + 2 * gid + i]);
+        }
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int e = 0; e < 2; ++e) acc[2 * nt + e] = __fadd_rn(acc[2 * nt + e], d[nt][e]);
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // low nibbles: k = 16c + row; high: + 64
+            const uint32_t b[2] = {xr[32 * h + 8 * c + t], xr[32 * h + 8 * c + 4 + t]};
+            uint32_t a[4];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {  // rows 2t, 2t + 1 -> a[i]; 8 + 2t, 9 + 2t -> a[2 + i]
+              const uint32_t v = h ? w[c][i] >> 4 : w[c][i];
+              a[i] = dequant2(__byte_perm(v, 0, 0x4140), z2[i], s2[i]);
+              a[2 + i] = dequant2(__byte_perm(v, 0, 0x4342), z2[i], s2[i]);
+            }
+            l3q::mma_bf16_16816(d, a, b);
+          }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], d[e]);
       }
     }
-    __syncthreads();  // the buffer, the tile and xs are free for the next group
+    __syncwarp();
+    if (lane == 0) l3q::mbar_arrive(empty + slot);
   }
+  if (cb < ncol)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[(size_t)(2 * t + (e & 1)) * N + n0 + cb + 2 * gid + (e >> 1)] = acc[e];
+}
 
-  if (V == DOT2) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int o = tid + THREADS * i;
-      out[(size_t)(o / NC) * N + n0 + o % NC] = acc[i];
-    }
-  } else {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        out[(size_t)gid * N + n0 + (2 * warp + nt) * 8 + tig * 2 + e] = acc[2 * nt + e];
-  }
+template <int V>
+int launch(const CUtensorMap& tmw, const CUtensorMap& tmx, const float* s, const float* z,
+           float* out, int K, int N, int ring, cudaStream_t st) {
+  const int smem = smem_bytes(ring);
+  int e = (int)cudaFuncSetAttribute(u8_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  u8_kernel<V><<<(N + BN - 1) / BN, THREADS, smem, st>>>(s, z, out, K, N, ring, tmw, tmx);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // variant: 0 dot2, 1 cat, 2 bf16. x s8 [8, K]; w u8 [K/2, N]; scale, zero
-// f32 [K/128, N]; out f32 [8, N]. Needs K % 128 == 0 and N % 64 == 0.
+// f32 [K/128, N]; out f32 [8, N]; bn: 128 (`u8_plan`); ring: stages in
+// flight. Needs K % 128 == 0, N % 64 == 0 (a last block of 64 columns
+// reads zeros beyond N and stores nothing there), every pointer 16-byte
+// aligned.
 extern "C" int l3q_qmm_u8(int variant, const void* x, const void* w, const void* scale,
-                          const void* zero, void* out, int K, int N, void* stream) {
+                          const void* zero, void* out, int K, int N, int bn, int ring,
+                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (K % GS || N % NC) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / NC);
-  const int8_t* xp = (const int8_t*)x;
-  const uint8_t* wp = (const uint8_t*)w;
+  if (K % GS || bn != BN || N % 64 || ring < 2 || ring > 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap tmw, tmx;
+  int e = l3q::tensor_map_u8(&tmw, w, K / 2, N, N, HALF, BN, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!e) e = l3q::tensor_map_u8(&tmx, x, BM, K, K, BM, GS, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e) return e;
   const float *sp = (const float*)scale, *zp = (const float*)zero;
   float* op = (float*)out;
   switch (variant) {
-    case DOT2: u8_kernel<DOT2><<<grid, THREADS, 0, st>>>(xp, wp, sp, zp, op, K, N); break;
-    case CAT: u8_kernel<CAT><<<grid, THREADS, 0, st>>>(xp, wp, sp, zp, op, K, N); break;
-    case BF16: u8_kernel<BF16><<<grid, THREADS, 0, st>>>(xp, wp, sp, zp, op, K, N); break;
+    case DOT2: return launch<DOT2>(tmw, tmx, sp, zp, op, K, N, ring, st);
+    case CAT: return launch<CAT>(tmw, tmx, sp, zp, op, K, N, ring, st);
+    case BF16: return launch<BF16>(tmw, tmx, sp, zp, op, K, N, ring, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -13,12 +13,16 @@ group-local layout of `quant/pack.py` (group size 128), fp32 scale and zero
 - bf16: `sum_g bf16(x_g) @ ((bf16(c) - bf16(z_g)) * bf16(s_g))`, each group's
   dot accumulated in fp32.
 
+The kernel's tiles and ring come from `u8_plan` (the shapes alone);
+`u8_split_plain` walks its order on the CPU for dot2 and cat.
+
 CPU tensors take the plain version; CUDA tensors take the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,17 +32,69 @@ from .launches import COUNTS
 from .qmatmul_a8 import a8_plain
 
 GS = 128
+HALF = GS // 2
 BM = 8
 VARIANTS = {"dot2": 0, "cat": 1, "bf16": 2}
+
+#: columns per block (eight consumer warps of 16: one 128-byte TMA box row)
+#: and the most groups in flight
+BN = 128
+MAX_RING = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+class U8Plan(NamedTuple):
+    """Tiles of a B10 launch, from the shapes alone."""
+
+    bn: int    #: columns per block; N / bn blocks, each walking every group
+    ring: int  #: groups in flight per block (one ring stage a group)
+
+
+def u8_plan(k: int, n: int) -> U8Plan:
+    """B10's plan: 128-column blocks (every code row a full 128-byte line;
+    112 blocks at N = 14336, 224 at 28672), each summing its outputs'
+    groups in order, so K does not split; a ring of up to 8 groups."""
+    return U8Plan(BN, max(2, min(MAX_RING, k // GS)))
+
+
+def u8_split_plain(xq, packed, scale, zero, variant: str) -> torch.Tensor:
+    """dot2 and cat as the kernel sums them: per group, chunks c of 16 byte
+    rows (rows 16c + i: the low nibbles at k = 16c + i, the high ones at 64
+    + 16c + i); dot2 as two s32 chains (low nibbles, high nibbles) added at
+    the group's end, cat as one chain over the chunks' 32-k steps, the x
+    sums by a ones operand; then the group term in group order."""
+    m, k = xq.shape
+    n = packed.shape[-1]
+    x = xq.to(torch.int64)
+    b = packed.to(torch.int64) & 0xFF
+    acc = torch.zeros((m, n), dtype=torch.float32, device=xq.device)
+    for g in range(k // GS):
+        rows = b[g * HALF:(g + 1) * HALF]
+        lo, hi = rows & 15, rows >> 4
+        xg = x[:, g * GS:(g + 1) * GS]
+        xs = torch.zeros(m, dtype=torch.int64, device=xq.device)
+        d = torch.zeros((m, n), dtype=torch.int64, device=xq.device)
+        dh = torch.zeros_like(d)
+        for c in range(4):
+            sl = slice(16 * c, 16 * c + 16)
+            xl, xh = xg[:, sl], xg[:, HALF + 16 * c: HALF + 16 * c + 16]
+            xs += xl.sum(1) + xh.sum(1)
+            if variant == "cat":
+                d += xl @ lo[sl] + xh @ hi[sl]
+            else:
+                d += xl @ lo[sl]
+                dh += xh @ hi[sl]
+        t = (d + dh).float() - xs.float()[:, None] * zero[g]
+        acc = acc + t * scale[g]
+    return acc
+
+
 def _lib():
     lib = _build.load("qmm_u8")
     if not getattr(lib, "_l3q_typed", False):
-        lib.l3q_qmm_u8.argtypes = [_I] + [_P] * 5 + [_I, _I, _P]
+        lib.l3q_qmm_u8.argtypes = [_I] + [_P] * 5 + [_I] * 4 + [_P]
         lib.l3q_qmm_u8.restype = _I
         lib._l3q_typed = True
     return lib
@@ -79,14 +135,15 @@ def u8_qmm(xq: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, zero: to
     for name, t in (("scale", scale), ("zero", zero)):
         if t.dtype != torch.float32 or tuple(t.shape) != (k // GS, n):
             raise ValueError(f"{name} must be float32 [{k // GS}, {n}]")
-    if k % GS or n % 64:
+    if k % GS or n % (BN // 2):
         raise ValueError(f"B10 needs K % 128 == 0 and N % 64 == 0, got {k}, {n}")
     for name, t in (("xq", xq), ("codes", packed), ("scale", scale), ("zero", zero)):
-        if not t.is_contiguous() or t.device != xq.device:
-            raise ValueError(f"{name} must be contiguous on {xq.device}")
+        if not t.is_contiguous() or t.device != xq.device or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned on {xq.device}")
+    plan = u8_plan(k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     err = _lib().l3q_qmm_u8(VARIANTS[variant], xq.data_ptr(), packed.data_ptr(),
-                            scale.data_ptr(), zero.data_ptr(), out.data_ptr(), k, n,
+                            scale.data_ptr(), zero.data_ptr(), out.data_ptr(), k, n, *plan,
                             _build.stream_ptr(xq.device))
     key = f"B10.{variant}"
     _build.check(err, f"qmm_u8 ({key})")
