@@ -467,6 +467,19 @@ def compare_rel(name: str, got, ref, rtol: float) -> None:
         raise AssertionError(f"{name}: {int(bad.sum())} elements above rel {rtol}")
 
 
+def compare_rows(name: str, got, ref, rtol: float) -> None:
+    """Each last-axis row of `got` within rtol * its own max|ref| (B7's
+    criterion, `check_flash`)."""
+    g, r = got.float(), ref.float()
+    if not bool(g.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite output")
+    row_err, row_max = (g - r).abs().amax(dim=-1), r.abs().amax(dim=-1)
+    worst = float((row_err / row_max.clamp(min=1e-30)).max())
+    log(f"  {name}: max over rows of max|err| / max|ref| {worst:.3e} (tolerance {rtol:g} per row)")
+    if not bool((row_err <= rtol * row_max).all()):
+        raise AssertionError(f"{name}: a row's error is above {rtol} * its max|ref|")
+
+
 #: the B5 kernel forms: (int4 cache, m/l statistics)
 FORMS = ((False, False), (False, True), (True, False), (True, True))
 
@@ -1041,10 +1054,12 @@ def build_params(P):
     return params
 
 
-def run_counted(counts, label, fn, must=(), never=()):
+def run_counted(counts, label, fn, must=(), never=(), routes_ok=False):
     """`fn()` with every launch count set to 0 just before it and read just
     after; fails if a kernel form in `must` was not launched, or one in
-    `never` was."""
+    `never` was, or (unless `routes_ok`) a call took a route that a
+    kernel's shape predicate chose instead of the kernel (`launches.ROUTES`:
+    `.pad`, `.plain`, `.eager`)."""
     from llama3_quantization_tpu_torch.ops import launches
 
     import torch
@@ -1059,6 +1074,9 @@ def run_counted(counts, label, fn, must=(), never=()):
     stray = [k for k in never if counts[label][k] != 0]
     if stray:
         raise AssertionError(f"{label}: kernels launched off this path's route: {stray}")
+    routed = {k: counts[label][k] for k in launches.ROUTES if counts[label][k]}
+    if routed and not routes_ok:
+        raise AssertionError(f"{label}: calls turned away from their kernels: {routed}")
     return out
 
 
@@ -1828,6 +1846,287 @@ def profile_serving(P, params, cfg, reqs, k, card, bits=(8, 4), fuse=False):
         torch.cuda.empty_cache()
 
 
+def check_c2(P):
+    """Shapes the JAX package computes that a kernel does not take, on the
+    card against the same calls on the CPU, each through the route its
+    kernel's predicate chooses (the counts name it): TINY_LLAMA
+    `forward_logits` at S = 128 (D = 16: eager, not B7; fp32 weights, 1e-4
+    of max|logit|); decode on a llama of TINY_LLAMA's widths with rep 6 on
+    the int8, int4 and fp32 caches (eager, no B5 or B6 form; RTN W4 g32
+    weights: B7's bound, 2e-2 of each row's max|logit|: B1/B2's bf16
+    inputs, and a KV code that rounds the other way on the card); linears with N %
+    16 != 0 and with K not a whole number of 64-row tiles through B1 and
+    B2 on the padded weight (fp32 out, 1e-4 * max|ref| of the plain version
+    on the weight as it is), and B3.v3 on N % 16 != 0 (bit-equal)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+    from llama3_quantization_tpu_torch.ops import launches
+    from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
+    from llama3_quantization_tpu_torch.tools.reproduce_study import load_tiny_params
+
+    log("C2 shapes (turned away from their kernels by shape), card against CPU:")
+    cfg = P.TINY_LLAMA
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(5))
+    ref = P.forward_logits(load_tiny_params("cpu"), toks, cfg)
+    launches.reset()
+    got = P.forward_logits(load_tiny_params("cuda"), toks.cuda(), cfg)
+    c = launches.snapshot()
+    if c["B7"] or c["B7.eager"] != cfg.num_layers:
+        raise AssertionError(f"TINY_LLAMA S=128: B7 {c['B7']}, B7.eager {c['B7.eager']}")
+    compare("TINY_LLAMA forward_logits [2, 128] (D=16, eager: B7.eager "
+            f"{c['B7.eager']})", got.cpu(), ref, 1e-4)
+
+    rcfg = dataclasses.replace(cfg, num_heads=12, num_kv_heads=2, hidden_size=192)
+    fp = P.init_params(rcfg, torch.Generator().manual_seed(6), dtype=torch.float32, device="cpu")
+    rtn = P.quantize_model_rtn(fp, rcfg, P.QuantSpec(n_bits=4, group_size=32), pack=True)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(7))
+    for bits in (8, 4, False):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = rtn if dev == "cpu" else to_device(rtn, dev)
+            cache = P.init_kv_cache(rcfg, 2, 64, dtype=torch.float32, quantized=bits, device=dev)
+            _, cache = P.decode_step(p, cache, prompt.to(dev), 0, rcfg)
+            launches.reset()
+            step, cache = P.decode_step(p, cache, prompt[:, -1:].to(dev), 40, rcfg)
+            out, _ = P.greedy_generate(p, cache, prompt[:, -1:].to(dev), 41, 4, rcfg)
+            outs[dev] = (step.float().cpu(), out.cpu(), launches.snapshot())
+        c = outs["cuda"][2]
+        key = "B6.eager" if bits is False else "B5.eager"
+        forms = [k for k in c if k.startswith(("B5", "B6")) and not k.endswith(".eager") and c[k]]
+        if forms or c[key] != 5 * rcfg.num_layers:
+            raise AssertionError(f"rep 6 {bits}: kernels {forms}, {key} {c[key]}")
+        compare_rows(f"rep-6 decode step, {'fp32' if bits is False else f'int{bits}'} cache "
+                     f"({key} {c[key]}, greedy {outs['cuda'][1].tolist()})",
+                     outs["cuda"][0], outs["cpu"][0], 2e-2)
+
+    gen = np.random.default_rng(8)
+    for m, k, n, gs in ((1, 256, 40, 64), (80, 256, 40, 64), (1, 96, 64, 32), (80, 96, 64, 32),
+                        (80, 288, 40, 96)):
+        w = torch.from_numpy(gen.standard_normal((k, n)).astype(np.float32)).cuda()
+        qt = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True)
+        x = torch.from_numpy(gen.standard_normal((m, k)).astype(np.float32)).cuda()
+        launches.reset()
+        got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32)
+        c = launches.snapshot()
+        plain = fq.qmm_gemv_plain if m <= fq.GEMV_MAX_M else fq.qmm_gemm_plain
+        routes = {r: c[r] for r in launches.ROUTES if c[r]}
+        compare(f"linear M={m} K={k} N={n} gs={gs}: B1 {c['B1']}, B2 {c['B2']}, {routes}",
+                got, plain(x, qt, torch.float32), 1e-4)
+        if m == 80:
+            launches.reset()
+            got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32, version=3)
+            xq, s_x = qa.quantize_activations_s8(x)
+            ref = qa.a8_plain(xq, s_x, qt.data, "u4", qt.scale, qt.zero, gs, torch.float32)
+            c = launches.snapshot()
+            compare(f"  v3 (B3.gemm {c['B3.gemm']}, B3.pad {c['B3.pad']})", got, ref, 0.0)
+
+
+def to_device(tree, device):
+    """A parameter tree (dicts of tensors and QuantizedTensors) on `device`."""
+    import dataclasses
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if hasattr(tree, "scale") and hasattr(tree, "data"):
+        return dataclasses.replace(
+            tree, data=tree.data.to(device), scale=tree.scale.to(device),
+            zero=None if tree.zero is None else tree.zero.to(device))
+    return tree.to(device)
+
+
+#: the golden bound of `tests/test_golden_study.py:36-38`
+GOLDEN_REL = 2e-3
+
+
+def drive_golden(P, card):
+    """The study's golden rows on the card: `run_study(["fp", "rtn",
+    "rtn_s4", "rtn_a8"], device="cuda")` (TINY_LLAMA fp32, PPL over 24
+    windows of 64 tokens, piqa and arc_easy zero-shot) against
+    `tests/fixtures/golden_study.json` within |got - golden| <= 2e-3 *
+    max(1, |golden|). The s4 and a8 rows run B3."""
+    from llama3_quantization_tpu_torch.tools import reproduce_study as study
+
+    counts = {}
+    table = run_counted(counts, "golden rows (TINY_LLAMA study)",
+                        lambda: study.run_study(list(study.ROWS), device="cuda", verbose=False),
+                        must=("B3.s4", "B3.s8", "B3.gemm"))
+    golden = json.loads(study.GOLDEN.read_text())
+    for method, row in table.items():
+        for key, val in row.items():
+            g = golden[method][key]
+            log(f"  golden row {method}.{key}: {val} (golden {g}, |diff| {abs(val - g):.4g}, "
+                f"bound {GOLDEN_REL * max(1.0, abs(g)):.4g})  [{card}]")
+    misses = study.golden_misses(table)
+    if misses:
+        raise AssertionError(f"golden rows missed on the card: {misses}")
+    return sum_counts(counts)
+
+
+#: |ln PPL(kernels) - ln PPL(reference route)| and the largest |log-likelihood|
+#: difference per continuation token allowed at full width
+EVAL_LN_PPL_TOL = 1e-2
+EVAL_LL_TOL = 1e-2
+
+
+def eval_requests(tokenizer):
+    """The study's piqa and arc_easy loglikelihood requests, zero-shot."""
+    import random
+
+    from llama3_quantization_tpu_torch.eval.harness import get_task_dict
+    from llama3_quantization_tpu_torch.tools.reproduce_study import TASK_DATA
+
+    reqs = []
+    for task in get_task_dict(["piqa", "arc_easy"], TASK_DATA).values():
+        docs = task.test_docs() if task.has_test_docs() else task.validation_docs()
+        for doc in docs:
+            ctx = task.fewshot_context(doc, 0, random.Random(42))
+            reqs += [r.args for r in task.construct_requests(doc, ctx)]
+    return reqs
+
+
+def drive_eval(P, params, card):
+    """The eval front end at full width (Llama-3-8B, 32 layers, the RTN W4
+    g128 params; `ByteTokenizer` over the fixture's back half):
+    `compute_ppl(seqlen=2048, limit=4)` under pallas with `set_flash("auto")`
+    (B2 and B7) against the reference route (the xla backend with
+    `set_flash(False)`: no B2, no B7), |d ln PPL| <= EVAL_LN_PPL_TOL;
+    `TorchLM.loglikelihood` on the study's piqa and arc_easy requests
+    (batch 4) on the kernel route against the same route through B1's and
+    B2's plain versions, with fp32 activations (the same packed linears):
+    |d log-likelihood| per continuation token <= EVAL_LL_TOL. Reported
+    only: the same with the bf16 activations of the other phases, and both
+    against the xla route with `set_flash(False)`. Those differ by 1.7e-2
+    to 2.2e-2 nats a token on an H100 (`PERF.md`): another order of the
+    fp32 sums rounds some bf16 activation the other way, the xla route
+    rounds each group scale's product once where B2 rounds the scale to
+    bf16 first (as the TPU kernel does) and rounds every linear's output
+    to the weights' bf16, and 32 layers of random-normal weights compound
+    it. `TorchLM.greedy_until` on two requests (16 tokens, no stop hit)
+    equal to `greedy_generate` from the same bucketed prefill on an fp
+    cache (B1 and B6)."""
+    import math
+
+    import torch
+    from llama3_quantization_tpu_torch.eval import ByteTokenizer, bucket_pow2, compute_ppl
+    from llama3_quantization_tpu_torch.eval.harness import TorchLM
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+    from llama3_quantization_tpu_torch.tools.reproduce_study import CORPUS
+
+    cfg, counts, checks = P.LLAMA3_8B, {}, {}
+    tok = ByteTokenizer()
+    text = CORPUS.read_text()
+    back = text[len(text) // 2:]
+    testenc = tok.encode(back)[None, :]
+    n_tok = 4 * 2048
+
+    def reference_route(label, fn):
+        """`fn()` with B7 off (the eager attention), counted as a check:
+        no kernel of the forward may launch."""
+        P.set_flash(False)
+        try:
+            return run_counted(checks, label, fn, never=("B1", "B2", "B7"))
+        finally:
+            P.set_flash("auto")
+
+    P.set_flash("auto")
+    ppl_fn = lambda: compute_ppl(params, cfg, testenc, seqlen=2048, limit=4)  # noqa: E731
+    ppl_fn()  # warm-up (the kernels' first launches)
+    ppl, secs = run_counted(counts, "compute_ppl [1, 2048] x 4 (pallas, flash auto)",
+                            lambda: timed(ppl_fn), must=("B2", "B7"))
+    with P.backend("xla"):
+        ppl_ref = reference_route("compute_ppl [1, 2048] x 4 (xla, flash off: reference, check)",
+                                  ppl_fn)
+    d_ln = abs(math.log(ppl) - math.log(ppl_ref))
+    log(f"full-width PPL (ByteTokenizer, 4 windows of 2048): kernels {ppl:.4f}, reference "
+        f"{ppl_ref:.4f}, |d ln PPL| {d_ln:.3e} (limit {EVAL_LN_PPL_TOL:g}); "
+        f"{n_tok / secs:.1f} tok/s host clock  [{card}]")
+    if not d_ln <= EVAL_LN_PPL_TOL:
+        raise AssertionError(f"PPL kernels {ppl} against reference {ppl_ref}: |d ln| {d_ln}")
+
+    reqs = eval_requests(tok)
+
+    def per_token(a, b):
+        return max(abs(x[0] - y[0]) / len(tok.encode(cont))
+                   for x, y, (_, cont) in zip(a, b, reqs))
+
+    def loglikelihoods(p, label):
+        """The requests on the kernel route (B2), through B1's and B2's
+        plain versions, and on the xla route; the largest |d ll| per
+        continuation token of the kernel route against each."""
+        lm_ = TorchLM(p, cfg, tok, batch_size=4)
+        ll, secs = run_counted(counts, f"TorchLM.loglikelihood x {len(reqs)} ({label}, pallas)",
+                               lambda: timed(lambda: lm_.loglikelihood(reqs)), must=("B2",))
+        orig = fq.qmm_gemv, fq.qmm_gemm
+        fq.qmm_gemv, fq.qmm_gemm = fq.qmm_gemv_plain, fq.qmm_gemm_plain
+        try:
+            ll_plain = reference_route(f"TorchLM.loglikelihood ({label}, B1/B2 plain, check)",
+                                       lambda: lm_.loglikelihood(reqs))
+        finally:
+            fq.qmm_gemv, fq.qmm_gemm = orig
+        with P.backend("xla"):
+            ll_xla = reference_route(f"TorchLM.loglikelihood ({label}, xla, check)",
+                                     lambda: lm_.loglikelihood(reqs))
+        d_plain, d_xla = per_token(ll, ll_plain), per_token(ll, ll_xla)
+        flags = sum(a[1] == b[1] == c[1] for a, b, c in zip(ll, ll_plain, ll_xla))
+        log(f"full-width loglikelihood, {label}, {len(reqs)} piqa/arc_easy requests: max |d ll| "
+            f"per continuation token {d_plain:.3e} against B1's and B2's plain versions, "
+            f"{d_xla:.3e} against the xla route; greedy flags equal on all three {flags}/"
+            f"{len(reqs)}; {secs:.2f} s host clock  [{card}]")
+        return d_plain, d_xla
+
+    # bf16 activations (the model as the other phases run it): a reading. Any
+    # two orders of the fp32 sums round some bf16 activation the other way,
+    # and 32 layers of random-normal weights compound it
+    loglikelihoods(params, "bf16 activations, reading")
+    # fp32 activations (embedding, norms and head in fp32; the same packed
+    # RTN linears, which still round x to bf16): the routes' own difference
+    wide = dict(params, embed=params["embed"].float(), lm_head=params["lm_head"].float(),
+                norm={"w": params["norm"]["w"].float()},
+                layers={**params["layers"], "ln1": {"w": params["layers"]["ln1"]["w"].float()},
+                        "ln2": {"w": params["layers"]["ln2"]["w"].float()}})
+    d_plain, _ = loglikelihoods(wide, "fp32 activations")
+    del wide
+    if not d_plain <= EVAL_LL_TOL:
+        raise AssertionError(f"loglikelihood kernels against their plain versions: {d_plain} "
+                             f"per token (limit {EVAL_LL_TOL})")
+
+    lm = TorchLM(params, cfg, tok, batch_size=4)
+    lm.max_gen_toks = 16
+    seen = []
+    lm.tok_decode = lambda ids: (seen.append(list(ids)), tok.decode(ids))[1]
+    ctxs = [back[:300], back[5000:5700]]
+    stop = ["<<no such text>>"]
+
+    def generate():
+        out = []
+        for ctx in ctxs:
+            lm.greedy_until([(ctx, stop)])
+            out.append(seen[-1])  # the tokens of the request's last decode
+        return out
+
+    got = run_counted(counts, "TorchLM.greedy_until x 2, 16 tokens (fp cache)", generate,
+                      must=("B1", "B6"))
+    keep = max(lm.max_length - lm.max_gen_toks, lm.max_length // 2)
+    for ctx, toks in zip(ctxs, got):
+        ids = lm.tok_encode(ctx)[-keep:]
+        n, nb = len(ids), bucket_pow2(len(ids))
+        cache = P.init_kv_cache(cfg, 1, bucket_pow2(nb + 16))
+        padded = torch.zeros((1, nb), dtype=torch.long, device="cuda")
+        padded[0, :n] = torch.tensor(ids, device="cuda")
+        with torch.inference_mode():
+            lg, cache = P.decode_step(params, cache, padded, 0, cfg)
+            first = lg[0, n - 1].argmax().reshape(1, 1)
+            rest, _ = P.greedy_generate(params, cache, first, n, 15, cfg)
+        ref = [int(first)] + rest[0].tolist()
+        log(f"greedy_until ({n}-token context): {toks} (greedy_generate {ref})")
+        if toks != ref:
+            raise AssertionError(f"greedy_until {toks} != greedy_generate {ref}")
+    return sum_counts(counts)
+
+
 def clock_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
@@ -2383,6 +2682,9 @@ def main() -> int:
     ap.add_argument("--decode-drift", action="store_true",
                     help="only run the full-depth decode through the B5 kernel forms, B6 and "
                          "through B3 (s4 backend) against their plain versions")
+    ap.add_argument("--eval", action="store_true",
+                    help="only build and check the kernels (the C2 shapes included), then the "
+                         "study's golden rows and the full-width eval phase")
     ap.add_argument("--microbench", action="store_true",
                     help="only check, drive and time the weight-stream probes B8-B10 through "
                          "the microbench entry points")
@@ -2457,9 +2759,16 @@ def main() -> int:
     check_window_merge(P, gen)
     check_xla_route(P, gen)
     check_probes(P, gen, errs)
+    check_c2(P)
     torch.cuda.synchronize()
     if args.kernels_only:
         log("kernel checks passed")
+        return 0
+    if args.eval:
+        golden = drive_golden(P, card)
+        params = build_rtn_params(P)
+        total = drive_eval(P, params, card)
+        log(f"launches: golden rows {json.dumps(golden)}, eval {json.dumps(total)}")
         return 0
 
     params = build_params(P)
@@ -2472,11 +2781,13 @@ def main() -> int:
     paths.append(drive_w3_forward(P, card))
     paths.append(drive_s4_decode(P, card, profile=args.profile))
     paths.append(drive_a8_serving(P, card, profile=args.profile))
+    paths.append(drive_golden(P, card))
     params = build_rtn_params(P)
     paths.append(drive_rtn_checks(P, params, card))
     paths.append(drive_routes(P, params, card))
     paths.append(drive_rtn_fp(P, params, card))
     paths.append(drive_rtn_a8(P, params, card))
+    paths.append(drive_eval(P, params, card))
     del params
     torch.cuda.empty_cache()
     paths.append(drive_microbench(P, card))

@@ -26,6 +26,8 @@ from .models.transformer import (
     sample_logits,
     set_decode_attn,
     set_decode_kernel,
+    set_flash,
+    set_stacked_decode,
     speculative_generate,
 )
 from .models.windowed import decode_window, merge_window_into_cache, set_windowed_decode, windowed_ok
@@ -71,6 +73,6 @@ __all__ = [
     "quantize_activations_s8", "quantize_model_rtn", "quantize_rtn", "recode_head_s4",
     "recode_head_s8", "recode_model_s8", "recode_s8_percol", "resolve_device", "s4_matmul",
     "s4w_matmul", "sample_generate", "sample_logits", "set_backend", "set_decode_attn",
-    "set_decode_kernel", "set_windowed_decode", "speculative_generate", "unpack_subbyte",
+    "set_decode_kernel", "set_flash", "set_stacked_decode", "set_windowed_decode", "speculative_generate", "unpack_subbyte",
     "windowed_ok", "xla_decode_gqa_s8", "xla_decode_gqa_s8_stacked",
 ]

@@ -3,20 +3,30 @@ of `llama3_quantization_tpu/models/transformer.py`).
 
 Plain functions over the parameter tree of `models/params.py`. The layer
 stack is a Python loop over the stacked `[L, ...]` tensors (views, no
-copies). Routing depends on shapes and on two switches that mirror the
-JAX package's (`transformer.py:290-321`), `set_decode_kernel` and
-`set_decode_attn`; at their defaults it follows the JAX package as it runs
-with `set_decode_kernel("interpret")`:
+copies). Routing depends on shapes and on four switches that mirror the
+JAX package's (`transformer.py:150-165,280-431`), `set_flash`,
+`set_decode_kernel`, `set_decode_attn` (default from `L3Q_DECODE_ATTN`, as
+JAX reads it) and `set_stacked_decode`; at their defaults it follows the
+JAX package as it runs with `set_decode_kernel("interpret")`:
 
 - full-sequence attention takes kernel B7 (`ops/flash_attention.py`) when
-  S >= 128 and no q/k/v/p hook is set, the eager path otherwise
-  (`transformer.py:160-162,203-204`);
+  S >= 128, no q/k/v/p hook is set and B7 takes the heads' shape
+  (`b7_takes`), the eager path otherwise (`transformer.py:160-162,203-204`);
+  `set_flash(False)` sends it all to the eager path;
 - a single-token decode step takes the decode kernel of its cache with
-  `block_t = 1024 if T % 1024 == 0 else 512` (`:496,511,579`): B4/B5
-  (`ops/decode_attention.py`) on the int8 or int4 cache, B6 on the fp
-  cache (`init_kv_cache(quantized=False)`, the default, bf16 or fp32) -- the
-  layer-stacked form for a scalar position, the per-layer form with a
-  `[B, T]` mask for per-row positions (`decode_step_multi`, `:532-592`);
+  `block_t = 1024 if T % 1024 == 0 else 512` (`:496,511,579`) where the
+  kernel takes the shape (`b5_takes`, `b6_takes`; the eager path
+  otherwise, as JAX's gate sends what its kernels cannot take there,
+  `:367-394`): B4/B5 (`ops/decode_attention.py`) on the int8 or int4
+  cache, B6 on the fp cache (`init_kv_cache(quantized=False)`, the
+  default, bf16 or fp32) -- the layer-stacked form for a scalar position,
+  the per-layer form with a `[B, T]` mask for per-row positions
+  (`decode_step_multi`, `:532-592`; `set_stacked_decode(True)` takes the
+  stacked form there too, `set_stacked_decode(False)` the per-layer form
+  everywhere). Both forms read the stacked cache in place through layer
+  views, so they give the same bits; JAX's per-layer form slices the cache
+  per layer. A shape turned away is counted (`B5.eager`, `B6.eager`,
+  `B7.eager` in `ops/launches.py`);
 - `set_decode_kernel(False)` sends every cached step, on all three caches,
   to the eager attention over the read-back cache and turns the windowed
   decode off (JAX `:374`, `windowed.py:112-123`): the route JAX takes
@@ -45,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -53,13 +64,15 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.decode_attention import (
     NEG,
-    block_size,
+    b5_takes,
+    b6_takes,
     flash_decode_gqa,
+    flash_decode_gqa_s8,
     flash_decode_gqa_s8_stacked,
     flash_decode_gqa_stacked,
     xla_decode_gqa_s8_stacked,
 )
-from ..ops.flash_attention import causal_mask, flash_attention
+from ..ops.flash_attention import b7_takes, causal_mask, flash_attention
 from ..ops.kvcache import (
     CACHE_KEYS,
     cache_read,
@@ -68,6 +81,7 @@ from ..ops.kvcache import (
     layer_view,
     true_div,
 )
+from ..ops.launches import COUNTS
 from ..ops.matmul import prepare_decode_params, qlinear
 from ..ops.s4_matmul import S4Weight
 from ..quant.qtensor import QuantizedTensor
@@ -106,18 +120,42 @@ def _maybe_fq(x: torch.Tensor, spec: Optional[QuantSpec]) -> torch.Tensor:
     return fake_quant_dynamic(x, spec)
 
 
+#: full-sequence flash switch (`transformer.py:150-165`): "auto" (the
+#: default) and True = B7 wherever `b7_takes` holds (True never forces B7
+#: onto a shape it cannot take); False = the eager `_attention`, where JAX
+#: sends it off the TPU
+_FLASH: Union[bool, str] = "auto"
+
+
+def set_flash(mode) -> None:
+    """True | False | "auto" (the default); see `_FLASH`."""
+    global _FLASH
+    if mode not in (True, False, "auto"):
+        raise ValueError(f"set_flash takes True, False or 'auto', got {mode!r}")
+    _FLASH = mode
+
+
 def _flash_ok(rq: RuntimeQuantConfig) -> bool:
-    """B7 hosts no attention hook: any q/k/v/p spec, enabled or not, keeps
-    the full-sequence forward eager (`transformer.py:160-162`)."""
-    return all(spec is None for spec in (rq.q, rq.k, rq.v, rq.p))
+    """B7's gate before shapes: not under `set_flash(False)`, and no
+    attention hook, since B7 hosts none: any q/k/v/p spec, enabled or not,
+    keeps the full-sequence forward eager (`transformer.py:160-162`)."""
+    return _FLASH is not False and all(spec is None for spec in (rq.q, rq.k, rq.v, rq.p))
 
 
 #: decode-kernel switch (`transformer.py:280-294`): True and "auto" route
 #: single-token cached steps to the decode kernels, False to the eager path
 _DECODE_KERNEL: Union[bool, str] = "auto"
 #: int8-KV decode attention (`transformer.py:297-321`): "xla" = the
-#: codes-direct route, "kernel" and "auto" = B5 (the port's "auto")
-_DECODE_ATTN = "auto"
+#: codes-direct route, "kernel" and "auto" = B5 (the port's "auto"); the
+#: default comes from `L3Q_DECODE_ATTN`, read at import as JAX reads it
+_DECODE_ATTN = os.environ.get("L3Q_DECODE_ATTN", "auto")
+if _DECODE_ATTN not in ("auto", "xla", "kernel"):
+    raise ValueError(f"L3Q_DECODE_ATTN takes auto, xla or kernel, got {_DECODE_ATTN!r}")
+#: layer-stacked decode switch (`transformer.py:394-404`): "auto" (the
+#: default) = the stacked form for scalar positions, the per-layer form for
+#: per-row ones; True = the stacked form for both; False = the per-layer
+#: form. Either form needs the decode kernel's gate (`_stacked_decode_ok`)
+_STACKED: Union[bool, str] = "auto"
 
 
 def set_decode_kernel(mode) -> None:
@@ -136,18 +174,54 @@ def set_decode_attn(mode) -> None:
     _DECODE_ATTN = mode
 
 
+def set_stacked_decode(mode) -> None:
+    """True | False | "auto" (the default); see `_STACKED`."""
+    global _STACKED
+    if mode not in (True, False, "auto"):
+        raise ValueError(f"set_stacked_decode takes True, False or 'auto', got {mode!r}")
+    _STACKED = mode
+
+
 def _use_xla_attn(codes_dtype) -> bool:
     """Does an int8 cache take the codes-direct route? (int4 never.)"""
     return codes_dtype == torch.int8 and _DECODE_ATTN == "xla"
 
 
-def _decode_kernel_ok(rq: RuntimeQuantConfig) -> bool:
-    """The decode kernels (B5, B6), the codes-direct route and the windowed
-    decode: not under `set_decode_kernel(False)`, and hosting no enabled
-    q/k/v/p hook (`transformer.py:374-376`)."""
-    if _DECODE_KERNEL is False:
+def _decode_route_ok(rq: RuntimeQuantConfig, s: int = 1) -> bool:
+    """The decode gate before shapes: a single-token step, not under
+    `set_decode_kernel(False)`, hosting no enabled q/k/v/p hook
+    (`transformer.py:374-376`)."""
+    if _DECODE_KERNEL is False or s != 1:
         return False
     return not any(sp is not None and sp.enabled for sp in (rq.q, rq.k, rq.v, rq.p))
+
+
+def _decode_shape_ok(cache: Dict[str, torch.Tensor], hq: int) -> bool:
+    """Does the decode kernel of `cache` (B5 on int8 / int4 codes, B6 on
+    an fp cache) take one token of `hq` query heads against it?"""
+    t = cache_len(cache)
+    bt = decode_block_t(t)
+    if "k" in cache:
+        _, _, g, _, d = cache["k"].shape
+        return b6_takes(hq, g, d, t, bt, cache["k"].dtype)
+    _, _, g, _, d = cache["k_q"].shape
+    return b5_takes(hq, g, d, t, bt, cache["k_q"].dtype == torch.uint8)
+
+
+def _decode_kernel_ok(rq: RuntimeQuantConfig, cache: Dict[str, torch.Tensor], s: int,
+                      hq: int) -> bool:
+    """The decode kernels (B5, B6) and the windowed decode: the route's gate
+    and the kernel's shapes (`transformer.py:367-394`; the codes-direct
+    route needs only `_decode_route_ok`)."""
+    return _decode_route_ok(rq, s) and _decode_shape_ok(cache, hq)
+
+
+def _stacked_decode_ok(rq: RuntimeQuantConfig, cache: Dict[str, torch.Tensor], s: int,
+                       hq: int) -> bool:
+    """Does a step take the layer-stacked decode form (`transformer.py:
+    407-431`)? Only where the decode kernel serves it, and not under
+    `set_stacked_decode(False)`. The port has no decode mesh."""
+    return _STACKED is not False and _decode_kernel_ok(rq, cache, s, hq)
 
 
 def rms_norm(
@@ -295,22 +369,23 @@ def _attn_block(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if cache is None:
-        if s >= FLASH_MIN_SEQ and _flash_ok(rq):
-            attn = flash_attention(q, k, v)
-        else:
-            attn = _attention(q, k, v, mask, rq)
+        use_flash = s >= FLASH_MIN_SEQ and _flash_ok(rq)
+        if use_flash and not b7_takes(cfg.num_heads, cfg.num_kv_heads, hd):
+            COUNTS["B7.eager"] += 1
+            use_flash = False
+        attn = flash_attention(q, k, v) if use_flash else _attention(q, k, v, mask, rq)
     elif "k" in cache:  # fp cache (`transformer.py:500-514,567-593`)
         ck, cv = cache["k"], cache["v"]
         _write_cache_stacked(ck, k, layer, cache_pos)
         _write_cache_stacked(cv, v, layer, cache_pos)
         t = ck.shape[3]
         block_t = decode_block_t(t)
-        if s == 1 and _decode_kernel_ok(rq) and t % block_size(t, block_t) == 0:
+        if _take_decode_kernel(rq, cache, s, cfg.num_heads, "B6.eager"):
             kmask = _kernel_mask(mask, b, t)
-            if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
-                attn = flash_decode_gqa(q.to(ck.dtype), ck[layer], cv[layer], kmask, block_t)
-            else:
+            if _stacked_form(cache_pos):
                 attn = flash_decode_gqa_stacked(q.to(ck.dtype), ck, cv, kmask, layer, block_t)
+            else:
+                attn = flash_decode_gqa(q.to(ck.dtype), ck[layer], cv[layer], kmask, block_t)
             attn = attn.to(h.dtype)
         else:
             attn = _attention(q, ck[layer].to(h.dtype), cv[layer].to(h.dtype), mask, rq,
@@ -319,21 +394,44 @@ def _attn_block(
         cache_update_stacked(cache, layer, k, v, cache_pos)
         t = cache["k_s"].shape[3]  # logical tokens (int4 rows hold two)
         block_t = decode_block_t(t)
-        kernel_ok = s == 1 and _decode_kernel_ok(rq)
-        if kernel_ok and _use_xla_attn(cache["k_q"].dtype):
-            attn = xla_decode_gqa_s8_stacked(
-                q, *(cache[key] for key in CACHE_KEYS), _kernel_mask(mask, b, t), layer,
-                out_dtype=h.dtype,
-            )
-        elif kernel_ok and t % block_size(t, block_t) == 0:
-            attn = flash_decode_gqa_s8_stacked(
-                q, *(cache[key] for key in CACHE_KEYS), _kernel_mask(mask, b, t), layer,
-                out_dtype=h.dtype, block_t=block_t,
-            )
+        codes = tuple(cache[key] for key in CACHE_KEYS)
+        if _decode_route_ok(rq, s) and _use_xla_attn(cache["k_q"].dtype):
+            attn = xla_decode_gqa_s8_stacked(q, *codes, _kernel_mask(mask, b, t), layer,
+                                             out_dtype=h.dtype)
+        elif _take_decode_kernel(rq, cache, s, cfg.num_heads, "B5.eager"):
+            kmask = _kernel_mask(mask, b, t)
+            if _stacked_form(cache_pos):
+                attn = flash_decode_gqa_s8_stacked(q, *codes, kmask, layer, out_dtype=h.dtype,
+                                                   block_t=block_t)
+            else:
+                attn = flash_decode_gqa_s8(q, *(c[layer] for c in codes), kmask,
+                                           out_dtype=h.dtype, block_t=block_t)
         else:
             k_all, v_all = cache_read(layer_view(cache, layer), h.dtype)
             attn = _attention(q, k_all, v_all, mask, rq, kv_heads_major=True)
     return qlinear(attn.reshape(b, s, cfg.num_heads * hd), p["o"]["w"], p["o"].get("b"), rq.act)
+
+
+def _take_decode_kernel(rq: RuntimeQuantConfig, cache, s: int, hq: int,
+                        eager_key: str) -> bool:
+    """Does this cached step take its cache's decode kernel? A step that the
+    route's gate lets through but the kernel's shapes turn away takes the
+    eager path and is counted under `eager_key`."""
+    if not _decode_route_ok(rq, s):
+        return False
+    if _decode_shape_ok(cache, hq):
+        return True
+    COUNTS[eager_key] += 1
+    return False
+
+
+def _stacked_form(cache_pos) -> bool:
+    """The layer-stacked decode form (`_STACKED`) for this step's positions:
+    a scalar position takes it unless the switch is False, per-row
+    positions only under True (JAX `transformer.py:977,1017`)."""
+    if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
+        return _STACKED is True
+    return _STACKED is not False
 
 
 def _mlp_block(p: Params, h: torch.Tensor, rq: RuntimeQuantConfig = NO_QUANT) -> torch.Tensor:

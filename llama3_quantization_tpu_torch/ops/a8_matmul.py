@@ -13,7 +13,8 @@ grouped batched dot (`:107-124`), are kernel B3 here (`ops/qmatmul_a8.py`,
 counted as "B3.s8" at M <= 64). The JAX package's K-split matvec for very
 wide N (`_use_ksplit` / `matvec_ksplit`, `:51-73`) is a TPU schedule of the
 same integer sums on a block-diagonal operand: B3 computes those sums
-directly, so it is not reproduced.
+directly, so it is not reproduced, and neither is its knob
+`L3Q_KSPLIT_MIN_N`, which only picks that schedule.
 """
 
 from __future__ import annotations
@@ -36,5 +37,5 @@ def a8_matmul(x: torch.Tensor, qt: QuantizedTensor, out_dtype=None) -> torch.Ten
     lead = x.shape[:-1]
     layout = "u8" if qt.data.dtype == torch.uint8 else "s8"
     y = w_a8_matmul(x.reshape(-1, qt.k), qt.data, layout, qt.scale, qt.zero,
-                    qt.group_size or qt.k, out_dtype, "B3.s8")
+                    qt.group_size or qt.k, out_dtype, "B3.s8", qt)
     return y.reshape(*lead, qt.n)

@@ -32,7 +32,9 @@ any Pallas kernel: plain tensor ops on either device, selected by
 `models.transformer.set_decode_attn("xla")`.
 
 The wrappers use the plain version for CPU tensors; for CUDA tensors they
-launch the kernel or raise. Each form has its own launch count: `B5`,
+launch the kernel or raise. `b5_takes` and `b6_takes` are the ranges of
+shapes the kernels take, which their raises and the decode gates in
+`models/transformer.py` and `models/windowed.py` read. Each form has its own launch count: `B5`,
 `B5.stats`, `B5.int4`, `B5.int4.stats`, and `B6` (bf16 cache) / `B6.f32`.
 """
 
@@ -103,6 +105,30 @@ def s8_dot_long(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def block_size(t: int, block_t: int = 1024) -> int:
     return min(block_t, t)
+
+
+#: query heads per K/V head that the decode kernels' layouts hold
+DECODE_REPS = (1, 2, 4, 8)
+
+
+def b5_takes(hq: int, g: int, d: int, t: int, block_t: int, int4: bool) -> bool:
+    """Does B4/B5 take one token of `hq` query heads over `g` K/V heads of
+    head dim `d` against a cache of `t` tokens in T blocks of `block_t`?
+    rep = hq / g in DECODE_REPS, D % 16 == 0 and D <= 256, T a whole
+    number of blocks (of an even length on the int4 pack)."""
+    bt = block_size(t, block_t)
+    return (g > 0 and hq % g == 0 and hq // g in DECODE_REPS and d % 16 == 0 and d <= 256
+            and bt > 0 and t % bt == 0 and not (int4 and bt % 2))
+
+
+def b6_takes(hq: int, g: int, d: int, t: int, block_t: int, dtype) -> bool:
+    """Does B6 take one token of `hq` query heads over `g` K/V heads of
+    head dim `d` against a `dtype` cache of `t` tokens in T blocks of
+    `block_t`? rep in DECODE_REPS, D % 8 == 0 and D <= 256, T a whole
+    number of blocks, a bf16 or fp32 cache."""
+    bt = block_size(t, block_t)
+    return (g > 0 and hq % g == 0 and hq // g in DECODE_REPS and d % 8 == 0 and d <= 256
+            and bt > 0 and t % bt == 0 and dtype in (torch.bfloat16, torch.float32))
 
 
 def _amax(int4: bool) -> float:
@@ -267,10 +293,9 @@ def decode_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=102
     rep = hq // g
     bt = block_size(t, block_t)
     dev = q.device
-    if s != 1 or hq % g or rep not in (1, 2, 4, 8):
-        raise ValueError(f"B4 takes one token and rep in (1, 2, 4, 8); got S={s}, rep={hq / g}")
-    if d % 16 or d > 256 or t % bt or (int4 and bt % 2):
-        raise ValueError(f"B4 needs D % 16 == 0, D <= 256 and T % block == 0 (D={d}, T={t})")
+    if s != 1 or not b5_takes(hq, g, d, t, block_t, int4):
+        raise ValueError(f"B4 takes one token, rep in {DECODE_REPS}, D % 16 == 0, D <= 256 and "
+                         f"T % block == 0 (b5_takes); got S={s}, rep={hq / g}, D={d}, T={t}")
     if q.dtype not in (torch.bfloat16, torch.float32) or not q.is_contiguous():
         raise TypeError("q must be contiguous bfloat16 or float32")
     plan = s8_split_plan(t, bt, d, int4)
@@ -492,13 +517,11 @@ def decode_fp(q, k, v, mask, block_t=512):
     rep = hq // g
     bt = block_size(t, block_t)
     dev = q.device
-    if s != 1 or hq % g or rep not in (1, 2, 4, 8):
-        raise ValueError(f"B6 takes one token and rep in (1, 2, 4, 8); got S={s}, rep={hq / g}")
-    if d % 8 or d > 256 or t % bt:
-        raise ValueError(f"B6 needs D % 8 == 0, D <= 256 and T % block == 0 (D={d}, T={t})")
     dt = k.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"B6 takes a bfloat16 or float32 cache, got {dt}")
+    if s != 1 or not b6_takes(hq, g, d, t, block_t, dt):
+        raise ValueError(f"B6 takes one token, rep in {DECODE_REPS}, D % 8 == 0, D <= 256, "
+                         f"T % block == 0 and a bfloat16 or float32 cache (b6_takes); got "
+                         f"S={s}, rep={hq / g}, D={d}, T={t}, {dt}")
     for name, x, xdt, shape in (
         ("q", q, dt, (b, 1, hq, d)), ("k", k, dt, (b, g, t, d)), ("v", v, dt, (b, g, t, d)),
         ("mask", mask, torch.float32, (b, t)),

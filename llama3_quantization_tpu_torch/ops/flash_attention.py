@@ -8,7 +8,8 @@ PyTorch version: the JAX package's eager `_attention` under a causal mask,
 which is what JAX itself runs off the TPU.
 
 The wrapper uses the plain version for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises. `b7_takes` is the range of shapes it takes,
+which its raise and the gate in `models/transformer.py` both read.
 """
 
 from __future__ import annotations
@@ -67,13 +68,20 @@ def q_tile(b: int, s: int, h: int) -> int:
     return 128 if -(-s // 128) * h * b >= FULL_GRID else 64
 
 
+def b7_takes(h: int, g: int, d: int) -> bool:
+    """Does B7 take H query heads over G K/V heads of head dim D? D of 64
+    or 128 (its wgmma tiles) and H a multiple of G."""
+    return d in (64, 128) and g > 0 and h % g == 0
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Kernel B7 on the card. Operands are rounded to bf16 (the activation
     dtype of the main path); the output is in q's dtype."""
     b, s, h, d = q.shape
     g = k.shape[2]
-    if d not in (64, 128) or h % g or k.shape != (b, s, g, d) or v.shape != k.shape:
-        raise ValueError(f"B7 takes D in (64, 128) and grouped K/V; got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if not b7_takes(h, g, d) or k.shape != (b, s, g, d) or v.shape != k.shape:
+        raise ValueError(f"B7 takes D in (64, 128) and grouped K/V (b7_takes); "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
     if not (k.device == v.device == q.device) or q.device.type != "cuda":
         raise ValueError(f"B7 runs on one CUDA device; got {q.device}, {k.device}, {v.device}")
     qb, kb, vb = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))

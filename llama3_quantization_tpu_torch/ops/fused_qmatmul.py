@@ -14,6 +14,15 @@ zero point.
 Each kernel has a plain PyTorch version here with the same rounding points
 (`qmm_gemv_plain`, `qmm_gemm_plain`). The wrapper uses it for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises.
+
+The shapes each kernel takes are one predicate beside it (`b1_takes`,
+`b2_takes`), which its wrapper's raise and the route in
+`fused_dequant_matmul` both read. On the card, a weight whose shape the
+kernel does not take is padded as JAX's `_fused_qmm` pads it (K to whole
+64-row tiles of groups, N to a multiple of 16: `ops/padding.py`, once per
+weight) where that makes it fit, and otherwise (a group size no run of 8
+rows divides) takes the plain version; both routes are counted
+(`B1.pad`, `B1.plain`, `B2.pad`, `B2.plain`).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from ..quant.qtensor import QuantizedTensor
 from . import _build
 from ._build import GEMV_MAX_M, TARGET_BLOCKS
 from .launches import COUNTS
+from .padding import pad_qtensor, per_weight
 from .qmatmul_a8 import w_a8_matmul
 
 _P = ctypes.c_void_p
@@ -91,9 +101,46 @@ def _is_planes(qt: QuantizedTensor) -> bool:
     return qt.packed and qt.bits == 3
 
 
+def b1_takes(m: int, k: int, n: int, gs: int, bits: int, packed: bool) -> bool:
+    """Does B1 take `[M, K] x [K, N]` codes (group size `gs`)? 2/4-bit
+    packed nibbles or unpacked 8-bit containers, 1 <= M <= 64, N % 16 ==
+    0, and groups that `gemv_plan` tiles: gs % 16 == 0 and (gs / f) % 8 ==
+    0 dividing K (f values per byte)."""
+    if packed and bits not in (2, 4):
+        return False  # 3-bit planes take B2; other packed widths no kernel
+    f = pack_factor(bits) if packed else 1
+    return (1 <= m <= GEMV_MAX_M and n % 16 == 0 and k % gs == 0 and gs % 16 == 0
+            and gs % f == 0 and (gs // f) % 8 == 0)
+
+
+def b2_takes(k: int, n: int, gs: int, bits: int, packed: bool) -> bool:
+    """Does B2 take `[K, N]` codes (group size `gs`)? 2/3/4-bit packed or
+    unpacked 8-bit containers, K % 64 == 0, N % 16 == 0, and a run of 8 k
+    rows (8 * f for f values per byte; 8 on 3-bit planes) inside a group."""
+    if packed and bits not in (2, 3, 4):
+        return False
+    f = pack_factor(bits) if packed else 1
+    run = 8 if packed and bits == 3 else 8 * f
+    return k % B2_KT == 0 and n % 16 == 0 and k % gs == 0 and gs % run == 0
+
+
+def _takes(qt: QuantizedTensor, m: int, version: int) -> bool:
+    gs = qt.group_size or qt.k
+    if version == 2:
+        return b1_takes(m, qt.k, qt.n, gs, qt.bits, qt.packed)
+    return b2_takes(qt.k, qt.n, gs, qt.bits, qt.packed)
+
+
+def kernel_padded(qt: QuantizedTensor) -> QuantizedTensor:
+    """`qt` padded as JAX's `_fused_qmm` pads it (K to whole 64-row tiles
+    of groups, N to a multiple of 16), made once per weight."""
+    return per_weight(qt, "_b12_padded", lambda w: pad_qtensor(w, B2_KT, 16))
+
+
 def _check_weight(qt: QuantizedTensor, device) -> int:
-    """Validate a weight for the kernels; return its layout code: values per
-    byte (4, 2, 1), or PLANES3 for 3-bit bit planes."""
+    """Validate a weight's dtypes, layout and placement for the kernels;
+    return its layout code: values per byte (4, 2, 1), or PLANES3 for 3-bit
+    bit planes."""
     f = pack_factor(qt.bits) if qt.packed else 1
     gs = qt.group_size or qt.k
     g = qt.k // gs
@@ -149,12 +196,14 @@ def qmm_gemv(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     if f == PLANES3:
         raise NotImplementedError("B1 has no 3-bit plane form; 3-bit weights take B2")
     m = x2d.shape[0]
-    if qt.n % 16 or not 1 <= m <= GEMV_MAX_M:
-        raise ValueError(f"B1 needs N % 16 == 0 and 1 <= M <= {GEMV_MAX_M}, got N={qt.n}, M={m}")
+    gs = qt.group_size or qt.k
+    if not b1_takes(m, qt.k, qt.n, gs, qt.bits, qt.packed):
+        raise ValueError(f"B1 (b1_takes) needs 1 <= M <= {GEMV_MAX_M}, N % 16 == 0 and "
+                         f"group_size % 16 == 0 with 8-row bit fields dividing K; got M={m}, "
+                         f"K={qt.k}, N={qt.n}, group_size={gs}, {qt.bits}-bit")
     for name, t in (("codes", qt.data), ("scale", qt.scale), ("zero", qt.zero)):
         if t.data_ptr() % 16:
             raise ValueError(f"B1 copies {name} in 16-byte chunks: it must be 16-byte aligned")
-    gs = qt.group_size or qt.k
     plan = gemv_plan(qt.k, qt.n, gs, f)
     out_bf16 = _build.out_flag(out_dtype)
     xb = _aligned(x2d.to(torch.bfloat16).contiguous())
@@ -187,10 +236,10 @@ def qmm_gemm(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     """Kernel B2 on the card (M > 64)."""
     f = _check_weight(qt, x2d.device)
     gs = qt.group_size or qt.k
-    run = 8 if f == PLANES3 else 8 * f  # a run of 8 k rows lies in one group
-    if qt.k % B2_KT or gs % run or qt.n % 16:
-        raise ValueError(f"B2 needs K % 64 == 0, group_size % {run} == 0 and N % 16 == 0, "
-                         f"got K={qt.k}, group_size={gs}, N={qt.n}")
+    if not b2_takes(qt.k, qt.n, gs, qt.bits, qt.packed):
+        raise ValueError(f"B2 (b2_takes) needs K % 64 == 0, N % 16 == 0 and a run of 8 k "
+                         f"rows inside a group; got K={qt.k}, N={qt.n}, group_size={gs}, "
+                         f"{qt.bits}-bit")
     out_bf16 = _build.out_flag(out_dtype)
     m = x2d.shape[0]
     xb = x2d.to(torch.bfloat16).contiguous()
@@ -221,7 +270,7 @@ def qmm_v3(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     else:  # cast to int8 as `pallas_qmatmul.py:294` casts: uint8 codes above 127 wrap
         layout, data = "s8", qt.data.view(torch.int8)
     return w_a8_matmul(x2d, data, layout, qt.scale, qt.zero, qt.group_size or qt.k,
-                       out_dtype, "B3.v3")
+                       out_dtype, "B3.v3", qt)
 
 
 def fused_dequant_matmul(
@@ -245,11 +294,27 @@ def fused_dequant_matmul(
     if version == 0:
         env = os.environ.get("L3Q_QMM_V")
         version = int(env) if env else (2 if x2d.shape[0] <= GEMV_MAX_M else 1)
-    cpu = x.device.type == "cpu"
     if version == 3:
-        fn = qmm_v3
-    elif version == 2:
-        fn = qmm_gemv_plain if cpu else qmm_gemv
-    else:
-        fn = qmm_gemm_plain if cpu else qmm_gemm
-    return fn(x2d, qt, out_dtype).reshape(*lead, qt.n)
+        return qmm_v3(x2d, qt, out_dtype).reshape(*lead, qt.n)
+    plain = qmm_gemv_plain if version == 2 else qmm_gemm_plain
+    if x.device.type == "cpu":
+        return plain(x2d, qt, out_dtype).reshape(*lead, qt.n)
+    return _card_route(x2d, qt, out_dtype, version, plain).reshape(*lead, qt.n)
+
+
+def _card_route(x2d, qt: QuantizedTensor, out_dtype, version: int, plain) -> torch.Tensor:
+    """B1 (version 2) or B2 on the card, routed by shape before any launch:
+    the weight as it is where the kernel takes it, else its padded form
+    where that fits (x padded with zero columns, the output sliced back to
+    N), else the plain version."""
+    kernel, key = (qmm_gemv, "B1") if version == 2 else (qmm_gemm, "B2")
+    m = x2d.shape[0]
+    if _takes(qt, m, version):
+        return kernel(x2d, qt, out_dtype)
+    padded = kernel_padded(qt)
+    if _takes(padded, m, version):
+        COUNTS[key + ".pad"] += 1
+        xp = torch.nn.functional.pad(x2d, (0, padded.k - qt.k))
+        return kernel(xp, padded, out_dtype)[:, : qt.n]
+    COUNTS[key + ".plain"] += 1
+    return plain(x2d, qt, out_dtype)

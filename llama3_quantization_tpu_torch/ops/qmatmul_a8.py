@@ -24,6 +24,14 @@ of JAX's `a8_matmul`), the packed unsigned 4/2-bit codes of `quant/pack.py`
 None. M <= 64 takes the GEMV form (counted per caller: "B3.v3", "B3.s4",
 "B3.s8"); M > 64 the tiled form ("B3.gemm"). CPU tensors take the plain
 version; CUDA tensors take the kernel or raise.
+
+Each form's shapes are one predicate (`b3_gemv_takes`, `b3_gemm_takes`),
+which its wrapper's raise and the route in `w_a8_matmul` both read. On the
+card, a weight whose N is not a multiple of 16 is padded to one (zero
+codes, scale 1, zero point 0: `ops/padding.py`, once per weight) and the
+output sliced back; a shape that padding does not fit (group_size % 32 !=
+0) takes the plain version. Both routes are counted (`B3.pad`,
+`B3.plain`).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from . import _build
 from ._build import GEMV_MAX_M, TARGET_BLOCKS
 from .kvcache import kv_quantize
 from .launches import COUNTS
+from .padding import pad_columns, per_weight
 
 #: layout name -> (kernel code, values per byte, bits of the unpacked codes)
 LAYOUTS = {"s8": (0, 1, 8), "u4": (1, 2, 4), "s4": (2, 2, 4), "u2": (3, 4, 2), "u8": (4, 1, 8)}
@@ -101,6 +110,28 @@ def a8_plain(xq, s_x, data, layout, scale, zero, gs: int, out_dtype) -> torch.Te
     return (acc * s_x).to(out_dtype)
 
 
+def b3_gemv_takes(m: int, k: int, n: int, gs: int, layout: str) -> bool:
+    """Does B3's GEMV form take `[M, K] x [K, N]` codes in `layout`?
+    1 <= M <= 64, N % 16 == 0, and groups of a multiple of 32 k dividing K
+    (whole bit fields of the 32-deep MMA)."""
+    f = LAYOUTS[layout][1]
+    return 1 <= m <= GEMV_MAX_M and n % 16 == 0 and k % gs == 0 and gs % 32 == 0 and gs % f == 0
+
+
+def b3_gemm_takes(k: int, n: int, gs: int, layout: str) -> bool:
+    """Does B3's tiled form take `[K, N]` codes in `layout`? N % 16 == 0 and
+    groups of a multiple of 32 k dividing K."""
+    f = LAYOUTS[layout][1]
+    return n % 16 == 0 and k % gs == 0 and gs % 32 == 0 and gs % f == 0
+
+
+def b3_takes(m: int, k: int, n: int, gs: int, layout: str) -> bool:
+    """Does the form of B3 that serves M rows take the shape?"""
+    if m <= GEMV_MAX_M:
+        return b3_gemv_takes(m, k, n, gs, layout)
+    return b3_gemm_takes(k, n, gs, layout)
+
+
 def _check(xq, s_x, data, layout, scale, zero, gs: int) -> int:
     """Validate B3's operands on the card; return the pack factor."""
     m, k = xq.shape
@@ -152,7 +183,7 @@ def gemv_plan(k: int, n: int, gs: int, f: int) -> _build.GemvPlan:
     the widest of 128, 64 and 32 columns that gives GEMV_MIN_TILES blocks,
     else 32 (measured on an H100: fewer, busier blocks beat both narrower
     tiles and a K split there); runs follow `_build.gemv_run`."""
-    if k % gs or gs % 32:
+    if k % gs or gs % 32 or gs % f:
         raise ValueError(f"B3's GEMV form needs group_size % 32 == 0 dividing K, "
                          f"got K={k}, group_size={gs}")
     sub = gs // f
@@ -167,9 +198,10 @@ def a8_gemv(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str) ->
     f = _check(xq, s_x, data, layout, scale, zero, gs)
     m, k = xq.shape
     n = data.shape[-1]
-    if n % 16 or not 1 <= m <= GEMV_MAX_M:
-        raise ValueError(f"B3's GEMV form needs N % 16 == 0 and 1 <= M <= {GEMV_MAX_M}, "
-                         f"got N={n}, M={m}")
+    if not b3_gemv_takes(m, k, n, gs, layout):
+        raise ValueError(f"B3's GEMV form (b3_gemv_takes) needs 1 <= M <= {GEMV_MAX_M}, "
+                         f"N % 16 == 0 and group_size % 32 == 0 dividing K; got M={m}, K={k}, "
+                         f"N={n}, group_size={gs}")
     plan = gemv_plan(k, n, gs, f)
     _require_cuda(xq)
     for name, t in (("xq", xq), ("codes", data), ("scale", scale), ("zero", zero)):
@@ -215,6 +247,9 @@ def a8_gemm(xq, s_x, data, layout, scale, zero, gs: int, out_dtype) -> torch.Ten
     f = _check(xq, s_x, data, layout, scale, zero, gs)
     m, k = xq.shape
     n = data.shape[-1]
+    if not b3_gemm_takes(k, n, gs, layout):
+        raise ValueError(f"B3's tiled form (b3_gemm_takes) needs N % 16 == 0 and "
+                         f"group_size % 32 == 0 dividing K; got K={k}, N={n}, group_size={gs}")
     tile, rows = gemm_plan(m, n, k, gs, f)
     _require_cuda(xq)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
@@ -241,16 +276,42 @@ def w_a8_matmul(
     gs: int,
     out_dtype,
     key: str,
+    weight=None,
 ) -> torch.Tensor:
     """`[M, K] x -> [M, N]` through B3: x quantized per token to s8, then
     the integer matmul on `data` in `layout`. CPU tensors take the plain
     version; CUDA tensors the GEMV form (M <= 64, counted under `key`) or
-    the tiled form."""
+    the tiled form where `b3_takes` holds, else -- routed by shape before
+    any launch -- the kernel on `weight` (the `QuantizedTensor` or
+    `S4Weight` that holds `data`, `scale` and `zero`) padded to N % 16 ==
+    0, else the plain version."""
     xq, s_x = quantize_activations_s8(x2d)
     if x2d.device.type == "cpu":
         return a8_plain(xq, s_x, data, layout, scale, zero, gs, out_dtype)
     if x2d.device.type != "cuda":
         raise ValueError(f"unsupported device {x2d.device}")
+    return _card_route(xq, s_x, data, layout, scale, zero, gs, out_dtype, key, weight)
+
+
+def _card_route(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str, weight):
+    """B3 on the card, routed by shape before any launch (`w_a8_matmul`)."""
+    m, k = xq.shape
+    n = data.shape[-1]
+    if b3_takes(m, k, n, gs, layout):
+        return _b3(xq, s_x, data, layout, scale, zero, gs, out_dtype, key)
+    if weight is not None and b3_takes(m, k, -(-n // 16) * 16, gs, layout):
+        COUNTS["B3.pad"] += 1
+        w = per_weight(weight, "_b3_padded", lambda w_: pad_columns(w_, 16))
+        data, scale, zero = ((w.data, w.scale, w.zero) if hasattr(w, "data")
+                             else (w.data4, w.scale, w.zero8))
+        if layout == "s8":  # as the caller views unpacked codes (uint8 wraps)
+            data = data.view(torch.int8)
+        return _b3(xq, s_x, data, layout, scale, zero, gs, out_dtype, key)[:, :n]
+    COUNTS["B3.plain"] += 1
+    return a8_plain(xq, s_x, data, layout, scale, zero, gs, out_dtype)
+
+
+def _b3(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str) -> torch.Tensor:
     if xq.shape[0] <= GEMV_MAX_M:
         return a8_gemv(xq, s_x, data, layout, scale, zero, gs, out_dtype, key)
     return a8_gemm(xq, s_x, data, layout, scale, zero, gs, out_dtype)

@@ -16,7 +16,8 @@ The JAX package reaches the same integers through the TPU's int4 MXU: a
 block-diagonal operand (`_bd_parts`, `:171-183`) with optional K chunks
 (`chunks`, `:116-125`) at decode, batched group dots at prefill. Those are
 TPU schedules of one integer sum, which B3 computes directly; they are not
-reproduced. Call `prepare_s4` (or `ops/matmul.prepare_decode_params`) once
+reproduced, and neither is `L3Q_S4_CHUNK_MAXG`, the knob that turns the K
+chunks on (off by default, JAX `s4_matmul.py:75-76`). Call `prepare_s4` (or `ops/matmul.prepare_decode_params`) once
 outside a decode loop: it rewrites every weight byte.
 """
 
@@ -49,11 +50,14 @@ class S4Weight:
     out_dtype: torch.dtype = torch.bfloat16
 
     def layer(self, i: int) -> "S4Weight":
-        """Layer `i` of a layer-stacked weight (views, no copy)."""
-        return dataclasses.replace(
+        """Layer `i` of a layer-stacked weight (views, no copy), which
+        remembers its stack as `QuantizedTensor.layer` does."""
+        out = dataclasses.replace(
             self, data4=self.data4[i], scale=self.scale[i],
             zero8=None if self.zero8 is None else self.zero8[i],
         )
+        out._stack = (self, i)
+        return out
 
 
 def _pack_signed_nibbles(codes: torch.Tensor, gs: int) -> torch.Tensor:
@@ -97,7 +101,7 @@ def s4w_matmul(x: torch.Tensor, w: S4Weight, out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     y = w_a8_matmul(x.reshape(-1, w.k), w.data4, "s4", w.scale, w.zero8,
-                    w.group_size or w.k, out_dtype, "B3.s4")
+                    w.group_size or w.k, out_dtype, "B3.s4", w)
     return y.reshape(*lead, w.n)
 
 

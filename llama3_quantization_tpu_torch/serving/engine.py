@@ -37,6 +37,9 @@ come from a `torch.Generator` and do not reproduce JAX's.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -382,8 +385,14 @@ class ServingEngine:
         freed at dispatch time of their final window (`_prefree_scheduled`);
         eos finishes are discovered one window late. The drain tail clamps
         the window to the largest remaining budget, rounded down into
-        `_window_sizes`, and the ring-headroom clamp shrinks windows near
-        the ring end so the windowed path keeps fitting."""
+        `_window_sizes` (`L3Q_SERVE_CLAMP=min`: the smallest, JAX's A/B
+        knob, `:514-524`), and the ring-headroom clamp shrinks windows near
+        the ring end so the windowed path keeps fitting. `L3Q_SERVE_DEBUG=1`
+        prints the host seconds spent dispatching, waiting for results, and
+        collecting and admitting to stderr (`:462,576-581`)."""
+        dbg = os.environ.get("L3Q_SERVE_DEBUG") == "1"
+        pick = min if os.environ.get("L3Q_SERVE_CLAMP") == "min" else max
+        t_disp = t_coll = t_adm = 0.0
         k = step_tokens
         prev = None  # (pending host copy of the tokens, slotmap, k) of the last window
         self._admissions_async()
@@ -394,6 +403,7 @@ class ServingEngine:
             self._admissions_async()
             cur = None
             if self._slot_req:
+                t0 = time.time()
                 tok0 = (dev_last if dev_last is not None
                         else torch.zeros((self.max_slots, 1), dtype=torch.long, device=self.device))
                 # newly admitted slots take their first tokens straight
@@ -412,7 +422,7 @@ class ServingEngine:
                 # remaining budget (eos only finishes earlier)
                 rem = [self.requests[rid].max_new_tokens - self.requests[rid].scheduled
                        for rid in self._slot_req.values()]
-                target = min(k, max(1, max(rem) if rem else k))
+                target = min(k, max(1, pick(rem) if rem else k))
                 # ring-headroom clamp: near the ring end, shrink the window so
                 # the windowed path keeps fitting; headroom <= 0 means a slot
                 # already lives past the ring (per-step path, keep k)
@@ -429,14 +439,22 @@ class ServingEngine:
                 for rid in self._slot_req.values():
                     self.requests[rid].scheduled += k_eff
                 windows += 1
+                t_disp += time.time() - t0
             if prev is not None:
                 pending, slotmap, k_p = prev
+                t1 = time.time()
                 arr = self._fetch(pending)  # window i; the device runs i+1
+                t2 = time.time()
                 self._resolve_first_tokens()
                 self._collect_pipelined(arr, k_p, slotmap)
                 self._admissions_async()
+                t_coll += t2 - t1
+                t_adm += time.time() - t2
             prev = cur
         self._resolve_first_tokens()
+        if dbg:
+            print(f"run_pipelined: {windows} windows, dispatch {t_disp:.2f}s, "
+                  f"result-sync {t_coll:.2f}s, collect+admit {t_adm:.2f}s", file=sys.stderr)
 
     @staticmethod
     def _window_sizes(k: int) -> List[int]:

@@ -718,3 +718,130 @@ def _to(tree, device):
             tree, data=tree.data.to(device), scale=tree.scale.to(device),
             zero=None if tree.zero is None else tree.zero.to(device))
     return tree.to(device)
+
+
+# ---------------------------------------------------------------- C2 ----
+# Shapes the JAX package computes but a kernel does not take: each takes
+# the route its kernel's predicate chooses (the eager attention, or the
+# weight padded to the kernel's tiles) instead of raising on the card.
+
+def _rep_cfg(rep):
+    """A llama of TINY_LLAMA's widths with `rep` query heads per K/V head."""
+    return dataclasses.replace(P.TINY_LLAMA, num_heads=2 * rep, num_kv_heads=2,
+                               hidden_size=16 * 2 * rep)
+
+
+def _rtn_params(cfg, seed=0):
+    params = P.init_params(cfg, torch.Generator().manual_seed(seed), dtype=torch.float32,
+                           device="cpu")
+    return P.quantize_model_rtn(params, cfg, P.QuantSpec(n_bits=4, group_size=32), pack=True)
+
+
+def test_c2_tiny_forward_at_128(cuda_device):
+    """TINY_LLAMA (D = 16, which B7 does not take) at S = 128: the eager
+    attention on every layer, logits within 1e-2 of their scale of the CPU
+    run (B1/B2's bf16 inputs, as above)."""
+    cfg = P.TINY_LLAMA
+    params = _rtn_params(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(1))
+    ref = P.forward_logits(params, toks, cfg)
+    launches.reset()
+    got = P.forward_logits(_to(params, cuda_device), toks.to(cuda_device), cfg).cpu()
+    counts = launches.snapshot()
+    assert counts["B7"] == 0 and counts["B7.eager"] == cfg.num_layers and counts["B2"] > 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("rep", [3, 6])
+@pytest.mark.parametrize("bits", [8, 4, False])
+def test_c2_rep_outside_the_decode_kernels(cuda_device, rep, bits):
+    """rep 3 and 6 (B4/B5 and B6 take 1, 2, 4, 8) on the int8, int4 and fp32
+    caches: every single-token step takes the eager attention (counted, no
+    B5 or B6 form launched), greedy_generate falls back from the windowed
+    decode, and prefill and step logits track the CPU's: within 1e-2 of
+    their scale on the fp32 cache (B1/B2's bf16 inputs), within B7's bound
+    (2e-2 of each row's own max) on the int8 and int4 caches, where a KV
+    code that rounds the other way on the card moves a row further (an int4
+    code flip read 1.03e-2 of the scale at rep 3 on an H100)."""
+    cfg = _rep_cfg(rep)
+    params = _rtn_params(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(2))
+
+    def run(device):
+        p = _to(params, device)
+        cache = P.init_kv_cache(cfg, 2, 64, dtype=torch.float32, quantized=bits, device=device)
+        pre, cache = P.decode_step(p, cache, toks.to(device), 0, cfg)
+        step, cache = P.decode_step(p, cache, toks[:, -1:].to(device), 40, cfg)
+        multi, cache = P.decode_step_multi(p, cache, toks[:, -1:].to(device),
+                                           torch.tensor([41, 30], device=device), cfg)
+        out, _ = P.greedy_generate(p, cache, toks[:, -1:].to(device), 42, 4, cfg)
+        return pre.cpu(), step.cpu(), multi.cpu(), out.cpu()
+
+    cpu = run("cpu")
+    launches.reset()
+    gpu = run(cuda_device)
+    counts = launches.snapshot()
+    forms = ("B6", "B6.f32") if bits is False else ("B5", "B5.stats", "B5.int4", "B5.int4.stats")
+    assert all(counts[k] == 0 for k in forms)
+    assert counts["B6.eager" if bits is False else "B5.eager"] == 6 * cfg.num_layers
+    for got, ref in zip(gpu[:3], cpu[:3]):
+        if bits is False:
+            torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * float(ref.abs().max()))
+        else:
+            row_err, row_max = (got - ref).abs().amax(dim=-1), ref.abs().amax(dim=-1)
+            assert bool((row_err <= 2e-2 * row_max).all())
+    assert gpu[3].shape == (2, 4)
+
+
+@pytest.mark.parametrize("m", [1, 8, 80])
+@pytest.mark.parametrize("k,n,gs", [(256, 40, 64), (96, 64, 32), (288, 40, 96), (96, 48, None)])
+def test_c2_linear_padded_to_the_kernel_tiles(cuda_device, m, k, n, gs):
+    """Linears with N % 16 != 0 or K not a whole number of 64-row tiles: B1
+    (M <= 64) and B2 take the weight padded as JAX's `_fused_qmm` pads it,
+    once per weight; fp32 output within 1e-4 * max|ref| of the plain
+    version on the weight as it is."""
+    rng = np.random.default_rng(k + n + m)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
+    launches.reset()
+    got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32)
+    key = "B1" if m <= fq.GEMV_MAX_M else "B2"
+    counts = launches.snapshot()
+    assert counts[key] == 1 and counts[key + ".plain"] == 0
+    assert counts[key + ".pad"] == (not fq._takes(qt, m, 2 if key == "B1" else 1))
+    plain = fq.qmm_gemv_plain if key == "B1" else fq.qmm_gemm_plain
+    ref = plain(x, qt, torch.float32)
+    assert got.shape == (m, n)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("form", ["v3", "s4", "a8"])
+@pytest.mark.parametrize("m", [1, 80])
+def test_c2_w_a8_padded_to_the_kernel_tiles(cuda_device, form, m):
+    """B3's forms on N = 40: the weight padded to N = 48 once, fp32 output
+    bit-equal to `a8_plain` on the weight as it is."""
+    rng = np.random.default_rng(m)
+    k, n, gs = 256, 40, 64
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
+    xq, s_x = qa.quantize_activations_s8(x)
+    launches.reset()
+    if form == "v3":
+        qt = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True)
+        got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32, version=3)
+        ref = qa.a8_plain(xq, s_x, qt.data, "u4", qt.scale, qt.zero, gs, torch.float32)
+    elif form == "s4":
+        sw = P.prepare_s4(P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True))
+        got = P.s4w_matmul(x, sw, out_dtype=torch.float32)
+        ref = qa.a8_plain(xq, s_x, sw.data4, "s4", sw.scale, sw.zero8, gs, torch.float32)
+    else:
+        qt = P.recode_s8_percol(P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs),
+                                               pack=True))
+        got = P.a8_matmul(x, qt, out_dtype=torch.float32)
+        ref = qa.a8_plain(xq, s_x, qt.data, "s8", qt.scale, qt.zero, qt.group_size or k,
+                          torch.float32)
+    counts = launches.snapshot()
+    assert counts["B3.pad"] == 1 and counts["B3.plain"] == 0
+    assert got.shape == (m, n)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)

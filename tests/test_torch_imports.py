@@ -187,6 +187,44 @@ def test_s8_split_runs_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_eval_runs_with_jax_blocked():
+    """The eval front end (`eval`, `api`, `tools.reproduce_study`) needs
+    neither JAX nor the JAX package: one `compute_ppl` and one
+    `simple_evaluate` through `TorchLM` on the study's parameters."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["llama3_quantization_tpu"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch import api, eval as E
+        from llama3_quantization_tpu_torch.eval.harness import TorchLM, simple_evaluate
+        from llama3_quantization_tpu_torch.tools import reproduce_study as R
+
+        cfg = P.TINY_LLAMA
+        params = api.quantize(R.load_tiny_params("cpu"), cfg, "rtn",
+                              P.QuantSpec(n_bits=4, group_size=32))
+        tok = E.SyntheticTokenizer()
+        _, enc = E.get_loaders("wikitext2", nsamples=1, seed=0, seqlen=32, tokenizer=tok,
+                               train_text=R.CORPUS.read_text()[:20000],
+                               test_text=R.CORPUS.read_text()[-20000:])
+        ppl = E.compute_ppl(params, cfg, enc, seqlen=32, limit=3)
+        assert np.isfinite(ppl) and ppl > 1
+        lm = TorchLM(params, cfg, R.Tok(tok), batch_size=4, max_length=32)
+        res = simple_evaluate(lm, ["piqa"], bootstrap_iters=2, task_data=R.TASK_DATA)
+        assert 0 <= res["results"]["piqa"]["acc"] <= 1
+        assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("name", ["qmatmul", "qmatmul_a8", "decode_attention", "decode_fp",
                                   "flash_attention", "w4_stream", "w4_bd", "qmm_u8"])
 def test_kernel_sources_ship(name):
