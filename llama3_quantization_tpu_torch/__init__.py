@@ -45,6 +45,7 @@ from .ops.flash_attention import flash_attention
 from .ops.fused_qmatmul import fused_dequant_matmul
 from .ops.kvcache import kv4_codes, kv4_pack, kv4_quantize, kv4_unpack_codes, kv_quantize
 from .ops.matmul import backend, get_backend, prepare_decode_params, qlinear, qmatmul, set_backend
+from .ops.padding import PaddedWeight, pad_for_kernels
 from .ops.s4_matmul import S4Weight, prepare_s4, s4_matmul, s4w_matmul
 from .quant.pack import pack_factor, pack_subbyte, unpack_subbyte
 from .quant.qtensor import QuantizedTensor, dequantize, from_codes, quantize_rtn
@@ -69,7 +70,7 @@ __all__ = [
     "init_kv_cache", "init_params", "init_quantized_params", "kv4_codes", "kv4_pack",
     "kv4_quantize", "kv4_unpack_codes", "kv_quantize", "launches", "linear_names",
     "merge_window_into_cache", "minmax_scale_zp", "pack_factor", "pack_subbyte",
-    "params_from_numpy", "prepare_decode_params", "prepare_s4", "qlinear", "qmatmul",
+    "PaddedWeight", "pad_for_kernels", "params_from_numpy", "prepare_decode_params", "prepare_s4", "qlinear", "qmatmul",
     "quantize_activations_s8", "quantize_model_rtn", "quantize_rtn", "recode_head_s4",
     "recode_head_s8", "recode_model_s8", "recode_s8_percol", "resolve_device", "s4_matmul",
     "s4w_matmul", "sample_generate", "sample_logits", "set_backend", "set_decode_attn",

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ...models.transformer import NO_QUANT, decode_step, forward_logits, init_kv_cache
+from ...ops.padding import pad_for_kernels
 from ..data import bucket_pow2
 from ..ppl import params_device
 from .base import LM
@@ -187,7 +188,9 @@ class BaseLM(LM):
 
 class TorchLM(BaseLM):
     """Concrete LM over the port's functional models (`JAXLM`,
-    `eval/harness/lm.py:182-299`), on `device` (default: the params')."""
+    `eval/harness/lm.py:182-299`), on `device` (default: the params').
+    Weights on the card that a kernel does not take are padded once, here
+    (`ops/padding.pad_for_kernels`)."""
 
     def __init__(
         self,
@@ -199,7 +202,7 @@ class TorchLM(BaseLM):
         max_length: Optional[int] = None,
         device=None,
     ):
-        self.params = params
+        self.params = pad_for_kernels(params)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.rq = rq or NO_QUANT

@@ -9,7 +9,9 @@ the PPL is `exp(sum(nll) / (nsamples * seqlen))`.
 so the `[S, vocab]` fp32 logits never exist whole. Every window runs under
 `torch.inference_mode()` on the device of the parameters; the forward
 takes the port's routes (B2 for the linears of a [1, 2048] window under
-the "pallas" backend, B7 for its attention). `sp_windowed_nll_fn`, the
+the "pallas" backend, B7 for its attention), on weights padded once per
+`compute_ppl` call where a kernel does not take their shape
+(`ops/padding.py`). `sp_windowed_nll_fn`, the
 sequence-parallel step, waits for the port's ring attention.
 """
 
@@ -22,6 +24,7 @@ import torch
 
 from ..models.configs import ModelConfig
 from ..models.transformer import NO_QUANT, RuntimeQuantConfig, forward_hidden, lm_head
+from ..ops.padding import pad_for_kernels
 
 
 def params_device(params) -> torch.device:
@@ -76,6 +79,7 @@ def compute_ppl(
         nsamples = min(nsamples, limit)
     step = step_fn or windowed_nll_fn(cfg, rq)
     dev = params_device(params)
+    params = pad_for_kernels(params)
     nlls = []
     for i in range(nsamples):
         window = np.ascontiguousarray(testenc[:, i * seqlen : (i + 1) * seqlen], dtype=np.int64)

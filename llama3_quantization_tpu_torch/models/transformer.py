@@ -6,8 +6,9 @@ stack is a Python loop over the stacked `[L, ...]` tensors (views, no
 copies). Routing depends on shapes and on four switches that mirror the
 JAX package's (`transformer.py:150-165,280-431`), `set_flash`,
 `set_decode_kernel`, `set_decode_attn` (default from `L3Q_DECODE_ATTN`, as
-JAX reads it) and `set_stacked_decode`; at their defaults it follows the
-JAX package as it runs with `set_decode_kernel("interpret")`:
+JAX reads it) and `set_stacked_decode` (which has nothing to choose
+here, see below); at their defaults it follows the JAX package as it runs
+with `set_decode_kernel("interpret")`:
 
 - full-sequence attention takes kernel B7 (`ops/flash_attention.py`) when
   S >= 128, no q/k/v/p hook is set and B7 takes the heads' shape
@@ -19,14 +20,19 @@ JAX package as it runs with `set_decode_kernel("interpret")`:
   otherwise, as JAX's gate sends what its kernels cannot take there,
   `:367-394`): B4/B5 (`ops/decode_attention.py`) on the int8 or int4
   cache, B6 on the fp cache (`init_kv_cache(quantized=False)`, the
-  default, bf16 or fp32) -- the layer-stacked form for a scalar position,
+  default, bf16 or fp32) -- the layer-stacked form, but on the fp cache
   the per-layer form with a `[B, T]` mask for per-row positions
-  (`decode_step_multi`, `:532-592`; `set_stacked_decode(True)` takes the
-  stacked form there too, `set_stacked_decode(False)` the per-layer form
-  everywhere). Both forms read the stacked cache in place through layer
-  views, so they give the same bits; JAX's per-layer form slices the cache
-  per layer. A shape turned away is counted (`B5.eager`, `B6.eager`,
-  `B7.eager` in `ops/launches.py`);
+  (`decode_step_multi`, `:532-592`). Both forms read the stacked cache in
+  place through layer views and give the same bits (JAX's per-layer form
+  slices the cache per layer), so `set_stacked_decode`, which picks
+  between them in JAX (`:394-431`), only checks its mode here. A shape
+  turned away is counted (`B5.eager`, `B6.eager`, `B7.eager` in
+  `ops/launches.py`). JAX's decode kernels take any rep (they pad the
+  query rows to 8, `decode_attention.py:123,243,325`); B4/B5 and B6 have
+  forms for rep 1, 2, 4 and 8 only, so rep 3 or 6 (24 or 48 query heads
+  over 8 KV heads at D = 128) decodes eagerly on the card where the TPU
+  runs its kernel: a gap in the port's kernel coverage (ROADMAP C), not
+  JAX's route;
 - `set_decode_kernel(False)` sends every cached step, on all three caches,
   to the eager attention over the read-back cache and turns the windowed
   decode off (JAX `:374`, `windowed.py:112-123`): the route JAX takes
@@ -67,7 +73,6 @@ from ..ops.decode_attention import (
     b5_takes,
     b6_takes,
     flash_decode_gqa,
-    flash_decode_gqa_s8,
     flash_decode_gqa_s8_stacked,
     flash_decode_gqa_stacked,
     xla_decode_gqa_s8_stacked,
@@ -83,6 +88,7 @@ from ..ops.kvcache import (
 )
 from ..ops.launches import COUNTS
 from ..ops.matmul import prepare_decode_params, qlinear
+from ..ops.padding import PaddedWeight, pad_for_kernels, pad_weight
 from ..ops.s4_matmul import S4Weight
 from ..quant.qtensor import QuantizedTensor
 from ..quant.quantizer import QuantSpec, fake_quant_dynamic
@@ -151,11 +157,6 @@ _DECODE_KERNEL: Union[bool, str] = "auto"
 _DECODE_ATTN = os.environ.get("L3Q_DECODE_ATTN", "auto")
 if _DECODE_ATTN not in ("auto", "xla", "kernel"):
     raise ValueError(f"L3Q_DECODE_ATTN takes auto, xla or kernel, got {_DECODE_ATTN!r}")
-#: layer-stacked decode switch (`transformer.py:394-404`): "auto" (the
-#: default) = the stacked form for scalar positions, the per-layer form for
-#: per-row ones; True = the stacked form for both; False = the per-layer
-#: form. Either form needs the decode kernel's gate (`_stacked_decode_ok`)
-_STACKED: Union[bool, str] = "auto"
 
 
 def set_decode_kernel(mode) -> None:
@@ -175,11 +176,12 @@ def set_decode_attn(mode) -> None:
 
 
 def set_stacked_decode(mode) -> None:
-    """True | False | "auto" (the default); see `_STACKED`."""
-    global _STACKED
+    """JAX's layer-stacked decode switch (`transformer.py:394-404`), kept
+    for its API: True | False | "auto". The port's two forms give the same
+    bits (see the module docstring), so it checks the mode and changes
+    nothing."""
     if mode not in (True, False, "auto"):
         raise ValueError(f"set_stacked_decode takes True, False or 'auto', got {mode!r}")
-    _STACKED = mode
 
 
 def _use_xla_attn(codes_dtype) -> bool:
@@ -219,9 +221,9 @@ def _decode_kernel_ok(rq: RuntimeQuantConfig, cache: Dict[str, torch.Tensor], s:
 def _stacked_decode_ok(rq: RuntimeQuantConfig, cache: Dict[str, torch.Tensor], s: int,
                        hq: int) -> bool:
     """Does a step take the layer-stacked decode form (`transformer.py:
-    407-431`)? Only where the decode kernel serves it, and not under
-    `set_stacked_decode(False)`. The port has no decode mesh."""
-    return _STACKED is not False and _decode_kernel_ok(rq, cache, s, hq)
+    407-431`)? Wherever the decode kernel serves it. The port has no decode
+    mesh."""
+    return _decode_kernel_ok(rq, cache, s, hq)
 
 
 def rms_norm(
@@ -306,7 +308,8 @@ def _layer_params(layers: Params, i: int) -> Params:
     out = {}
     for name, entry in layers.items():
         out[name] = {
-            key: (val.layer(i) if isinstance(val, (QuantizedTensor, S4Weight)) else val[i])
+            key: (val.layer(i) if isinstance(val, (QuantizedTensor, S4Weight, PaddedWeight))
+                  else val[i])
             for key, val in entry.items()
         }
     return out
@@ -382,10 +385,10 @@ def _attn_block(
         block_t = decode_block_t(t)
         if _take_decode_kernel(rq, cache, s, cfg.num_heads, "B6.eager"):
             kmask = _kernel_mask(mask, b, t)
-            if _stacked_form(cache_pos):
-                attn = flash_decode_gqa_stacked(q.to(ck.dtype), ck, cv, kmask, layer, block_t)
-            else:
+            if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
                 attn = flash_decode_gqa(q.to(ck.dtype), ck[layer], cv[layer], kmask, block_t)
+            else:
+                attn = flash_decode_gqa_stacked(q.to(ck.dtype), ck, cv, kmask, layer, block_t)
             attn = attn.to(h.dtype)
         else:
             attn = _attention(q, ck[layer].to(h.dtype), cv[layer].to(h.dtype), mask, rq,
@@ -399,13 +402,8 @@ def _attn_block(
             attn = xla_decode_gqa_s8_stacked(q, *codes, _kernel_mask(mask, b, t), layer,
                                              out_dtype=h.dtype)
         elif _take_decode_kernel(rq, cache, s, cfg.num_heads, "B5.eager"):
-            kmask = _kernel_mask(mask, b, t)
-            if _stacked_form(cache_pos):
-                attn = flash_decode_gqa_s8_stacked(q, *codes, kmask, layer, out_dtype=h.dtype,
-                                                   block_t=block_t)
-            else:
-                attn = flash_decode_gqa_s8(q, *(c[layer] for c in codes), kmask,
-                                           out_dtype=h.dtype, block_t=block_t)
+            attn = flash_decode_gqa_s8_stacked(q, *codes, _kernel_mask(mask, b, t), layer,
+                                               out_dtype=h.dtype, block_t=block_t)
         else:
             k_all, v_all = cache_read(layer_view(cache, layer), h.dtype)
             attn = _attention(q, k_all, v_all, mask, rq, kv_heads_major=True)
@@ -423,15 +421,6 @@ def _take_decode_kernel(rq: RuntimeQuantConfig, cache, s: int, hq: int,
         return True
     COUNTS[eager_key] += 1
     return False
-
-
-def _stacked_form(cache_pos) -> bool:
-    """The layer-stacked decode form (`_STACKED`) for this step's positions:
-    a scalar position takes it unless the switch is False, per-row
-    positions only under True (JAX `transformer.py:977,1017`)."""
-    if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
-        return _STACKED is True
-    return _STACKED is not False
 
 
 def _mlp_block(p: Params, h: torch.Tensor, rq: RuntimeQuantConfig = NO_QUANT) -> torch.Tensor:
@@ -470,8 +459,10 @@ def final_norm(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 
 
 def lm_head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The head's logits; a quantized head on the card that a kernel does
+    not take is padded first (nothing to do on a prepared tree)."""
     w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    return qlinear(h, w)
+    return qlinear(h, pad_weight(w) if isinstance(w, QuantizedTensor) else w)
 
 
 def _check_arch(cfg: ModelConfig) -> None:
@@ -482,8 +473,11 @@ def _check_arch(cfg: ModelConfig) -> None:
 def forward_hidden(
     params: Params, tokens: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig = NO_QUANT
 ) -> torch.Tensor:
-    """Full-sequence causal forward to final hidden states `[B, S, d]`."""
+    """Full-sequence causal forward to final hidden states `[B, S, d]`.
+    Weights on the card that a kernel does not take are padded first
+    (`ops/padding.pad_for_kernels`; nothing to do on a prepared tree)."""
     _check_arch(cfg)
+    params = pad_for_kernels(params)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     h = embed(params, tokens)
@@ -561,7 +555,9 @@ def _ring_write_and_mask(pos, s: int, max_len: int, sink: int, device):
 
 
 def _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq) -> torch.Tensor:
-    """The layer stack against the cache (written in place): final hidden."""
+    """The layer stack against the cache (written in place): final hidden.
+    Weights on the card that a kernel does not take are padded first."""
+    params = pad_for_kernels(params)
     h = embed(params, tokens)
     cos_sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
     for i in range(cfg.num_layers):

@@ -15,15 +15,11 @@ the online-softmax merge (`_merge_attn`) of
 
 After the window, `merge_window_into_cache` writes each window token to
 its sink+ring slot (`p` if `p < sink`, else `sink + (p - sink) mod
-(T - sink)`); int4 nibbles compose in the shared byte rows. As in JAX
-(`windowed.py:263-439`) it has two forms of that mapping: by default the
-bounded piece merge (`_ring_piece_merge`: two or three slices of about the
-window's width per row, read, merged and written back), and the whole-
-token-axis gather merge (`_ring_gather_merge`) for int4 caches with an odd
-sink and under `L3Q_WINDOW_MERGE=gather` (`_use_piece_merge`). JAX runs the
-piece merge one batch row at a time (`_piece_merge_row`); the port merges
-every row's piece in one indexed read and write, so that nothing in the
-merge waits for the host.
+(T - sink)`); int4 nibbles compose in the shared byte rows. It gives the
+same bytes as the TPU's bounded-scratch piece merge and its whole-cache
+gather merge (`windowed.py:263-439`), which are two forms of that mapping,
+so JAX's `L3Q_WINDOW_MERGE=gather`, which picks between them for the
+TPU's scratch memory, has nothing to choose here and is not read.
 
 Scope as in JAX: quantized stacked caches (int8 / int4), single-token
 steps, sink tokens, no enabled q/k/v/p hook (the `act` hook runs in the
@@ -37,7 +33,6 @@ codes-direct route. Callers fall back to per-step decode otherwise
 from __future__ import annotations
 
 import math
-import os
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -188,100 +183,58 @@ def _positions(pos0: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos0), dtype=torch.long, device=device)
 
 
-def _merge_piece(buf, win, pos0, start, width: int, t_logical: int, packed: bool, sink: int):
-    """Merge the window into the `width` slots (byte rows when `packed`)
-    from `start` [B] (clamped to fit, as `dynamic_slice` clamps) of each
-    batch row of `buf` [L, B, H, T', X], IN PLACE (JAX's `merge_piece`,
-    `windowed.py:327-354`). A slot takes the window token whose absolute
-    position it holds in the sink+ring layout: slots [0, sink) pin
-    positions 0..sink-1, ring slot t holds the largest position p <= the
-    window's last with p == t (mod T - sink); every other slot keeps its
-    bytes. `win` [L, B, H, KW, X] holds int8 codes (signed; nibbles on the
-    int4 pack) or scales."""
-    kw = win.shape[3]
-    w = t_logical - sink
-    p0 = pos0[:, None]
-    last = p0 + kw - 1
+def _ring_slots(pos0: torch.Tensor, kw: int, t: int, sink: int) -> torch.Tensor:
+    """Sink+ring slot [B, KW] of each window token."""
+    p = pos0[:, None] + torch.arange(kw, device=pos0.device)
+    return torch.where(p < sink, p, sink + torch.remainder(p - sink, t - sink))
+
+
+def _scatter_tokens(buf: torch.Tensor, win: torch.Tensor, slots: torch.Tensor) -> None:
+    """buf [L, B, H, T, X] <- win [L, B, H, KW, X] at token slots [B, KW]."""
     rows = torch.arange(buf.shape[1], device=buf.device)[:, None]
-    lo = torch.clamp(start, 0, buf.shape[3] - width)[:, None]
-    idx = lo + torch.arange(width, device=buf.device)  # [B, width]
-
-    def gather_tok(tok):
-        abs_ = torch.where(tok < sink, tok, last - torch.remainder(last - tok, w))
-        j = abs_ - p0
-        take = (j >= 0) & (j < kw) & ((tok < sink) | (abs_ >= sink))
-        got = win[:, rows, :, torch.clamp(j, 0, kw - 1)]  # [B, width, L, H, X]
-        return got, take[:, :, None, None, None]
-
-    old = buf[:, rows, :, idx]
-    if not packed:
-        got, take = gather_tok(idx)
-        buf[:, rows, :, idx] = torch.where(take, got, old)
-        return
-    g_lo, take_lo = gather_tok(2 * idx)
-    g_hi, take_hi = gather_tok(2 * idx + 1)
-    nib_lo = torch.where(take_lo, g_lo.view(torch.uint8) & 0xF, old & 0xF)
-    nib_hi = torch.where(take_hi, g_hi.view(torch.uint8) & 0xF, old >> 4)
-    buf[:, rows, :, idx] = nib_lo | (nib_hi << 4)
+    buf[:, rows, :, slots] = win.permute(1, 3, 0, 2, 4)
 
 
-def _ring_gather_merge(buf, win, pos0, t_logical: int, packed: bool, sink: int = 0) -> None:
-    """The whole-token-axis merge (`windowed.py:263-310`): one piece over
-    every slot of every row."""
-    start = torch.zeros_like(pos0)
-    _merge_piece(buf, win, pos0, start, buf.shape[3], t_logical, packed, sink)
-
-
-def _ring_piece_merge(buf, win, pos0, t_logical: int, packed: bool, sink: int = 0) -> None:
-    """The bounded merge (`windowed.py:313-403`): per row, the window's
-    non-wrapped ring span (piece A), the wrap back to the ring start (piece
-    B, read after A's write) and, with sink tokens, the pinned slots. A
-    piece that also covers untouched slots writes back what it read."""
-    kw = win.shape[3]
-    w = t_logical - sink
-    ring_slot = sink + torch.remainder(pos0 - sink, w)
-    if not packed:
-        tb, width = t_logical, kw
-        s1, q_sink, q_ring0 = ring_slot, torch.clamp(pos0, max=tb - width), sink
-    else:
-        tb, width = t_logical // 2, kw // 2 + 1
-        s1, q_sink, q_ring0 = ring_slot // 2, torch.clamp(pos0 // 2, max=tb - width), sink // 2
-    _merge_piece(buf, win, pos0, torch.clamp(s1, max=tb - width), width, t_logical, packed, sink)
-    _merge_piece(buf, win, pos0, torch.full_like(pos0, q_ring0), width, t_logical, packed, sink)
-    if sink > 0:
-        _merge_piece(buf, win, pos0, torch.clamp(q_sink, min=0), width, t_logical, packed, sink)
-
-
-def _use_piece_merge(packed: bool, sink: int) -> bool:
-    """The piece merge serves every sink == 0 case and the unpacked or
-    even-sink caches; int4 byte rows shared across the sink/ring boundary
-    (an odd sink) take the gather merge, as does `L3Q_WINDOW_MERGE=gather`
-    (`windowed.py:406-417`)."""
-    if os.environ.get("L3Q_WINDOW_MERGE") == "gather":
-        return False
-    return sink == 0 or not packed or sink % 2 == 0
+def _scatter_nibbles(buf: torch.Tensor, win: torch.Tensor, slots: torch.Tensor) -> None:
+    """Packed int4 buf [L, B, H, T/2, D] <- signed codes win [L, B, H, KW, D]
+    at token slots [B, KW]. Each written byte row gets both of its nibbles
+    at once: the window token's own, and its partner slot's (the adjacent
+    window token when that token lands in the same byte row, else the old
+    nibble). Two window tokens that share a row thus write the same byte."""
+    row, par = slots // 2, (slots % 2)[:, :, None, None, None]
+    rows = torch.arange(buf.shape[1], device=buf.device)[:, None]
+    old = buf[:, rows, :, row]  # [B, KW, L, H, D]
+    code = win.permute(1, 3, 0, 2, 4).view(torch.uint8) & 0xF
+    same_prev = torch.zeros_like(slots, dtype=torch.bool)
+    same_prev[:, 1:] = slots[:, :-1] == slots[:, 1:] - 1
+    same_next = torch.zeros_like(same_prev)
+    same_next[:, :-1] = slots[:, 1:] == slots[:, :-1] + 1
+    prev_code = torch.cat([code[:, :1], code[:, :-1]], dim=1)
+    next_code = torch.cat([code[:, 1:], code[:, -1:]], dim=1)
+    lo = torch.where(par == 0, code,
+                     torch.where(same_prev[:, :, None, None, None], prev_code, old & 0xF))
+    hi = torch.where(par == 1, code,
+                     torch.where(same_next[:, :, None, None, None], next_code, old >> 4))
+    buf[:, rows, :, row] = lo | (hi << 4)
 
 
 def merge_window_into_cache(
     cache: Dict[str, torch.Tensor], w_bufs, pos0, cfg: ModelConfig, sink: int = 0
 ) -> Dict[str, torch.Tensor]:
     """Write the window buffers into the ring cache IN PLACE, once per KW
-    tokens (`windowed.py:420-439`). `pos0` (int or [B]) is the absolute
-    position of the window's first token. Needs KW < T - sink (distinct
-    slots)."""
+    tokens. `pos0` (int or [B]) is the absolute position of the window's
+    first token. Needs KW < T - sink (distinct slots)."""
     wk, wks, wv, wvs = w_bufs
     t = cache["k_s"].shape[3]
     kw = wk.shape[3]
     if kw >= t - sink:
         raise ValueError(f"a window of {kw} tokens does not fit the ring width {t - sink}")
-    posv = _positions(pos0, cache["k_s"].shape[1], cache["k_s"].device)
-    int4 = cache["k_q"].dtype == torch.uint8
-    merge_q = _ring_piece_merge if _use_piece_merge(int4, sink) else _ring_gather_merge
-    merge_s = _ring_piece_merge if _use_piece_merge(False, sink) else _ring_gather_merge
-    merge_q(cache["k_q"], wk, posv, t, int4, sink)
-    merge_s(cache["k_s"], wks, posv, t, False, sink)
-    merge_q(cache["v_q"], wv, posv, t, int4, sink)
-    merge_s(cache["v_s"], wvs, posv, t, False, sink)
+    slots = _ring_slots(_positions(pos0, cache["k_s"].shape[1], cache["k_s"].device), kw, t, sink)
+    codes = _scatter_nibbles if cache["k_q"].dtype == torch.uint8 else _scatter_tokens
+    codes(cache["k_q"], wk, slots)
+    codes(cache["v_q"], wv, slots)
+    _scatter_tokens(cache["k_s"], wks, slots)
+    _scatter_tokens(cache["v_s"], wvs, slots)
     return cache
 
 

@@ -37,5 +37,5 @@ def a8_matmul(x: torch.Tensor, qt: QuantizedTensor, out_dtype=None) -> torch.Ten
     lead = x.shape[:-1]
     layout = "u8" if qt.data.dtype == torch.uint8 else "s8"
     y = w_a8_matmul(x.reshape(-1, qt.k), qt.data, layout, qt.scale, qt.zero,
-                    qt.group_size or qt.k, out_dtype, "B3.s8", qt)
+                    qt.group_size or qt.k, out_dtype, "B3.s8")
     return y.reshape(*lead, qt.n)

@@ -16,13 +16,10 @@ Each kernel has a plain PyTorch version here with the same rounding points
 the CPU; for CUDA tensors it launches the kernel or raises.
 
 The shapes each kernel takes are one predicate beside it (`b1_takes`,
-`b2_takes`), which its wrapper's raise and the route in
-`fused_dequant_matmul` both read. On the card, a weight whose shape the
-kernel does not take is padded as JAX's `_fused_qmm` pads it (K to whole
-64-row tiles of groups, N to a multiple of 16: `ops/padding.py`, once per
-weight) where that makes it fit, and otherwise (a group size no run of 8
-rows divides) takes the plain version; both routes are counted
-(`B1.pad`, `B1.plain`, `B2.pad`, `B2.plain`).
+`b2_takes`), which its wrapper's raise reads, and which `ops/padding.py`
+reads to pad a weight that one does not take to one that both take, once,
+where the weights are prepared (`ops/matmul.prepare_decode_params`):
+every group size, K and N fit after that, as they fit JAX's `_fused_qmm`.
 """
 
 from __future__ import annotations
@@ -38,7 +35,6 @@ from ..quant.qtensor import QuantizedTensor
 from . import _build
 from ._build import GEMV_MAX_M, TARGET_BLOCKS
 from .launches import COUNTS
-from .padding import pad_qtensor, per_weight
 from .qmatmul_a8 import w_a8_matmul
 
 _P = ctypes.c_void_p
@@ -103,11 +99,12 @@ def _is_planes(qt: QuantizedTensor) -> bool:
 
 def b1_takes(m: int, k: int, n: int, gs: int, bits: int, packed: bool) -> bool:
     """Does B1 take `[M, K] x [K, N]` codes (group size `gs`)? 2/4-bit
-    packed nibbles or unpacked 8-bit containers, 1 <= M <= 64, N % 16 ==
-    0, and groups that `gemv_plan` tiles: gs % 16 == 0 and (gs / f) % 8 ==
-    0 dividing K (f values per byte)."""
-    if packed and bits not in (2, 4):
-        return False  # 3-bit planes take B2; other packed widths no kernel
+    packed nibbles or 8-bit containers (unpacked codes, and the packed
+    widths of one value per byte), 1 <= M <= 64, N % 16 == 0, and groups
+    that `gemv_plan` tiles: gs % 16 == 0 and (gs / f) % 8 == 0 dividing K
+    (f values per byte)."""
+    if packed and bits == 3:
+        return False  # 3-bit planes take B2
     f = pack_factor(bits) if packed else 1
     return (1 <= m <= GEMV_MAX_M and n % 16 == 0 and k % gs == 0 and gs % 16 == 0
             and gs % f == 0 and (gs // f) % 8 == 0)
@@ -115,26 +112,11 @@ def b1_takes(m: int, k: int, n: int, gs: int, bits: int, packed: bool) -> bool:
 
 def b2_takes(k: int, n: int, gs: int, bits: int, packed: bool) -> bool:
     """Does B2 take `[K, N]` codes (group size `gs`)? 2/3/4-bit packed or
-    unpacked 8-bit containers, K % 64 == 0, N % 16 == 0, and a run of 8 k
-    rows (8 * f for f values per byte; 8 on 3-bit planes) inside a group."""
-    if packed and bits not in (2, 3, 4):
-        return False
+    8-bit containers, K % 64 == 0, N % 16 == 0, and a run of 8 k rows (8 *
+    f for f values per byte; 8 on 3-bit planes) inside a group."""
     f = pack_factor(bits) if packed else 1
     run = 8 if packed and bits == 3 else 8 * f
     return k % B2_KT == 0 and n % 16 == 0 and k % gs == 0 and gs % run == 0
-
-
-def _takes(qt: QuantizedTensor, m: int, version: int) -> bool:
-    gs = qt.group_size or qt.k
-    if version == 2:
-        return b1_takes(m, qt.k, qt.n, gs, qt.bits, qt.packed)
-    return b2_takes(qt.k, qt.n, gs, qt.bits, qt.packed)
-
-
-def kernel_padded(qt: QuantizedTensor) -> QuantizedTensor:
-    """`qt` padded as JAX's `_fused_qmm` pads it (K to whole 64-row tiles
-    of groups, N to a multiple of 16), made once per weight."""
-    return per_weight(qt, "_b12_padded", lambda w: pad_qtensor(w, B2_KT, 16))
 
 
 def _check_weight(qt: QuantizedTensor, device) -> int:
@@ -144,8 +126,6 @@ def _check_weight(qt: QuantizedTensor, device) -> int:
     f = pack_factor(qt.bits) if qt.packed else 1
     gs = qt.group_size or qt.k
     g = qt.k // gs
-    if qt.packed and qt.bits not in (2, 3, 4):
-        raise NotImplementedError(f"{qt.bits}-bit packed weights have no CUDA kernel")
     if qt.data.dtype not in (torch.uint8, torch.int8) or (qt.packed and qt.data.dtype != torch.uint8):
         raise TypeError(f"weight codes must be uint8 (packed) or int8/uint8, got {qt.data.dtype}")
     rows = 3 * qt.k // 8 if _is_planes(qt) else qt.k // f
@@ -200,7 +180,8 @@ def qmm_gemv(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     if not b1_takes(m, qt.k, qt.n, gs, qt.bits, qt.packed):
         raise ValueError(f"B1 (b1_takes) needs 1 <= M <= {GEMV_MAX_M}, N % 16 == 0 and "
                          f"group_size % 16 == 0 with 8-row bit fields dividing K; got M={m}, "
-                         f"K={qt.k}, N={qt.n}, group_size={gs}, {qt.bits}-bit")
+                         f"K={qt.k}, N={qt.n}, group_size={gs}, {qt.bits}-bit (prepare the "
+                         f"weights with prepare_decode_params or pad_for_kernels)")
     for name, t in (("codes", qt.data), ("scale", qt.scale), ("zero", qt.zero)):
         if t.data_ptr() % 16:
             raise ValueError(f"B1 copies {name} in 16-byte chunks: it must be 16-byte aligned")
@@ -239,7 +220,8 @@ def qmm_gemm(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     if not b2_takes(qt.k, qt.n, gs, qt.bits, qt.packed):
         raise ValueError(f"B2 (b2_takes) needs K % 64 == 0, N % 16 == 0 and a run of 8 k "
                          f"rows inside a group; got K={qt.k}, N={qt.n}, group_size={gs}, "
-                         f"{qt.bits}-bit")
+                         f"{qt.bits}-bit (prepare the weights with prepare_decode_params or "
+                         f"pad_for_kernels)")
     out_bf16 = _build.out_flag(out_dtype)
     m = x2d.shape[0]
     xb = x2d.to(torch.bfloat16).contiguous()
@@ -270,7 +252,7 @@ def qmm_v3(x2d: torch.Tensor, qt: QuantizedTensor, out_dtype) -> torch.Tensor:
     else:  # cast to int8 as `pallas_qmatmul.py:294` casts: uint8 codes above 127 wrap
         layout, data = "s8", qt.data.view(torch.int8)
     return w_a8_matmul(x2d, data, layout, qt.scale, qt.zero, qt.group_size or qt.k,
-                       out_dtype, "B3.v3", qt)
+                       out_dtype, "B3.v3")
 
 
 def fused_dequant_matmul(
@@ -296,25 +278,8 @@ def fused_dequant_matmul(
         version = int(env) if env else (2 if x2d.shape[0] <= GEMV_MAX_M else 1)
     if version == 3:
         return qmm_v3(x2d, qt, out_dtype).reshape(*lead, qt.n)
-    plain = qmm_gemv_plain if version == 2 else qmm_gemm_plain
     if x.device.type == "cpu":
-        return plain(x2d, qt, out_dtype).reshape(*lead, qt.n)
-    return _card_route(x2d, qt, out_dtype, version, plain).reshape(*lead, qt.n)
-
-
-def _card_route(x2d, qt: QuantizedTensor, out_dtype, version: int, plain) -> torch.Tensor:
-    """B1 (version 2) or B2 on the card, routed by shape before any launch:
-    the weight as it is where the kernel takes it, else its padded form
-    where that fits (x padded with zero columns, the output sliced back to
-    N), else the plain version."""
-    kernel, key = (qmm_gemv, "B1") if version == 2 else (qmm_gemm, "B2")
-    m = x2d.shape[0]
-    if _takes(qt, m, version):
-        return kernel(x2d, qt, out_dtype)
-    padded = kernel_padded(qt)
-    if _takes(padded, m, version):
-        COUNTS[key + ".pad"] += 1
-        xp = torch.nn.functional.pad(x2d, (0, padded.k - qt.k))
-        return kernel(xp, padded, out_dtype)[:, : qt.n]
-    COUNTS[key + ".plain"] += 1
-    return plain(x2d, qt, out_dtype)
+        fn = qmm_gemv_plain if version == 2 else qmm_gemm_plain
+    else:
+        fn = qmm_gemv if version == 2 else qmm_gemm
+    return fn(x2d, qt, out_dtype).reshape(*lead, qt.n)

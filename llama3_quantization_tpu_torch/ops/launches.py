@@ -11,12 +11,12 @@ microbenches by form: B8 (the stream alone: row-major, tiled, by depth), B9
 (int4 dots: v4, dot4, cast8, noscale, tiled, multi-stream) and B10 (u8
 unpack: dot2, cat, bf16).
 
-`ROUTES` counts the calls whose shape a kernel's predicate turned away
-(`b1_takes`, `b5_takes`, ... beside each wrapper), by the route they took
-instead: `.pad` the kernel on its weight padded to the kernel's tiles (the
-kernel's own count also moves), `.plain` the kernel's plain version on the
-card, `.eager` the eager attention. A full-width path reads 0 in all of
-them.
+`ROUTES` counts the calls that did not reach a kernel with their shapes as
+the model gives them: "pad" the matmuls on a weight padded to the
+kernels' tiles (`ops/padding.py`; the kernel's own count also moves),
+`.eager` the attention calls whose shape a decode or flash kernel's
+predicate (`b5_takes`, `b6_takes`, `b7_takes`) turned away to the eager
+attention. A full-width path reads 0 in all of them.
 """
 
 from __future__ import annotations
@@ -29,8 +29,7 @@ COUNTS: Dict[str, int] = {
     "B8.w4": 0, "B8.tiled": 0, "B8.depth": 0, "B9.v4": 0, "B9.dot4": 0, "B9.cast8": 0,
     "B9.noscale": 0, "B9.tiled": 0, "B9.multi": 0, "B10.dot2": 0, "B10.cat": 0, "B10.bf16": 0,
 }
-ROUTES = ("B1.pad", "B1.plain", "B2.pad", "B2.plain", "B3.pad", "B3.plain", "B5.eager",
-          "B6.eager", "B7.eager")
+ROUTES = ("pad", "B5.eager", "B6.eager", "B7.eager")
 COUNTS.update({key: 0 for key in ROUTES})
 
 

@@ -15,8 +15,11 @@ every call:
 
 Whatever the backend, act-order (`g_idx`) weights and the cases a backend
 does not take ride the dequant route, as in JAX, and plain tensors (a bf16
-`lm_head`) are a `torch.matmul`. `prepare_decode_params` turns a parameter
-tree's weights into `S4Weight`s under "s4"; those always run `s4w_matmul`.
+`lm_head`) are a `torch.matmul`. `prepare_decode_params` pads a parameter
+tree's weights on the card to the kernels' tiles where they need it
+(`ops/padding.py`) and turns them into `S4Weight`s under "s4"; those
+always run `s4w_matmul`, and a `PaddedWeight` runs its padded weight on
+zero-padded x.
 
 The JAX package defaults to "xla"; the port defaults to "pallas", so that
 its paths run their kernels unless a caller asks otherwise.
@@ -34,6 +37,7 @@ from ..quant.qtensor import QuantizedTensor, dequantize
 from ..quant.quantizer import QuantSpec, fake_quant_dynamic
 from .a8_matmul import a8_matmul
 from .fused_qmatmul import fused_dequant_matmul
+from .padding import PaddedWeight, map_weights, pad_weight
 from .s4_matmul import S4Weight, prepare_s4, s4_matmul, s4w_matmul
 
 BACKENDS = ("xla", "pallas", "a8", "s4")
@@ -66,21 +70,25 @@ def backend(name: str):
 
 
 def prepare_decode_params(tree):
-    """Under "s4", a copy of the parameter tree with every QuantizedTensor of
-    up to 4 bits (and no `g_idx`) replaced by its `S4Weight`; the tree
-    itself under every other backend. Call it once per generate or serving
-    run, outside the step loop: it rewrites the weight bytes."""
-    if _BACKEND != "s4":
-        return tree
+    """The parameter tree for the current backend: every weight on the card
+    that a kernel does not take padded to one that all take
+    (`padding.pad_weight`), then under "s4" every QuantizedTensor of up to
+    4 bits (and no `g_idx`), padded or not, replaced by its `S4Weight`.
+    The tree itself where nothing changes. Call it once per generate or
+    serving run, outside the step loop: it rewrites the weight bytes."""
+    s4 = _BACKEND == "s4"
 
-    def walk(node):
-        if isinstance(node, QuantizedTensor):
-            return prepare_s4(node) if node.bits <= 4 and node.g_idx is None else node
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return node
+    def s4_form(qt):
+        return prepare_s4(qt) if s4 and qt.bits <= 4 and qt.g_idx is None else qt
 
-    return walk(tree)
+    def prepare(w):
+        w = pad_weight(w) if isinstance(w, QuantizedTensor) else w
+        if isinstance(w, PaddedWeight):
+            inner = w.w if isinstance(w.w, S4Weight) else s4_form(w.w)
+            return w if inner is w.w else PaddedWeight(inner, w.k, w.n, w.group_size)
+        return s4_form(w)
+
+    return map_weights(tree, prepare)
 
 
 def _dequant_matmul(x: torch.Tensor, w: QuantizedTensor, out_dtype) -> torch.Tensor:
@@ -89,8 +97,11 @@ def _dequant_matmul(x: torch.Tensor, w: QuantizedTensor, out_dtype) -> torch.Ten
 
 
 def qmatmul(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
-    """`x @ w` where `w` is a tensor, a QuantizedTensor or an S4Weight."""
+    """`x @ w` where `w` is a tensor, a QuantizedTensor, an S4Weight or a
+    PaddedWeight."""
     global _A8_PACKED_WARNED
+    if isinstance(w, PaddedWeight):
+        return w.matmul(x, lambda xp, wp: qmatmul(xp, wp, out_dtype))
     if isinstance(w, S4Weight):
         return s4w_matmul(x, w, out_dtype=out_dtype)
     if not isinstance(w, QuantizedTensor):

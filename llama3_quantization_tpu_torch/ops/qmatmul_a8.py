@@ -26,12 +26,9 @@ None. M <= 64 takes the GEMV form (counted per caller: "B3.v3", "B3.s4",
 version; CUDA tensors take the kernel or raise.
 
 Each form's shapes are one predicate (`b3_gemv_takes`, `b3_gemm_takes`),
-which its wrapper's raise and the route in `w_a8_matmul` both read. On the
-card, a weight whose N is not a multiple of 16 is padded to one (zero
-codes, scale 1, zero point 0: `ops/padding.py`, once per weight) and the
-output sliced back; a shape that padding does not fit (group_size % 32 !=
-0) takes the plain version. Both routes are counted (`B3.pad`,
-`B3.plain`).
+which its wrapper's raise reads, and which `ops/padding.py` reads to pad a
+weight that B3 does not take (groups to multiples of 32 k, N to a multiple
+of 16) once, where the weights are prepared.
 """
 
 from __future__ import annotations
@@ -47,7 +44,6 @@ from . import _build
 from ._build import GEMV_MAX_M, TARGET_BLOCKS
 from .kvcache import kv_quantize
 from .launches import COUNTS
-from .padding import pad_columns, per_weight
 
 #: layout name -> (kernel code, values per byte, bits of the unpacked codes)
 LAYOUTS = {"s8": (0, 1, 8), "u4": (1, 2, 4), "s4": (2, 2, 4), "u2": (3, 4, 2), "u8": (4, 1, 8)}
@@ -201,7 +197,8 @@ def a8_gemv(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str) ->
     if not b3_gemv_takes(m, k, n, gs, layout):
         raise ValueError(f"B3's GEMV form (b3_gemv_takes) needs 1 <= M <= {GEMV_MAX_M}, "
                          f"N % 16 == 0 and group_size % 32 == 0 dividing K; got M={m}, K={k}, "
-                         f"N={n}, group_size={gs}")
+                         f"N={n}, group_size={gs} (prepare the weights with "
+                         f"prepare_decode_params or pad_for_kernels)")
     plan = gemv_plan(k, n, gs, f)
     _require_cuda(xq)
     for name, t in (("xq", xq), ("codes", data), ("scale", scale), ("zero", zero)):
@@ -249,7 +246,8 @@ def a8_gemm(xq, s_x, data, layout, scale, zero, gs: int, out_dtype) -> torch.Ten
     n = data.shape[-1]
     if not b3_gemm_takes(k, n, gs, layout):
         raise ValueError(f"B3's tiled form (b3_gemm_takes) needs N % 16 == 0 and "
-                         f"group_size % 32 == 0 dividing K; got K={k}, N={n}, group_size={gs}")
+                         f"group_size % 32 == 0 dividing K; got K={k}, N={n}, group_size={gs} "
+                         f"(prepare the weights with prepare_decode_params or pad_for_kernels)")
     tile, rows = gemm_plan(m, n, k, gs, f)
     _require_cuda(xq)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
@@ -276,42 +274,16 @@ def w_a8_matmul(
     gs: int,
     out_dtype,
     key: str,
-    weight=None,
 ) -> torch.Tensor:
     """`[M, K] x -> [M, N]` through B3: x quantized per token to s8, then
     the integer matmul on `data` in `layout`. CPU tensors take the plain
     version; CUDA tensors the GEMV form (M <= 64, counted under `key`) or
-    the tiled form where `b3_takes` holds, else -- routed by shape before
-    any launch -- the kernel on `weight` (the `QuantizedTensor` or
-    `S4Weight` that holds `data`, `scale` and `zero`) padded to N % 16 ==
-    0, else the plain version."""
+    the tiled form, which raise outside `b3_takes`."""
     xq, s_x = quantize_activations_s8(x2d)
     if x2d.device.type == "cpu":
         return a8_plain(xq, s_x, data, layout, scale, zero, gs, out_dtype)
     if x2d.device.type != "cuda":
         raise ValueError(f"unsupported device {x2d.device}")
-    return _card_route(xq, s_x, data, layout, scale, zero, gs, out_dtype, key, weight)
-
-
-def _card_route(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str, weight):
-    """B3 on the card, routed by shape before any launch (`w_a8_matmul`)."""
-    m, k = xq.shape
-    n = data.shape[-1]
-    if b3_takes(m, k, n, gs, layout):
-        return _b3(xq, s_x, data, layout, scale, zero, gs, out_dtype, key)
-    if weight is not None and b3_takes(m, k, -(-n // 16) * 16, gs, layout):
-        COUNTS["B3.pad"] += 1
-        w = per_weight(weight, "_b3_padded", lambda w_: pad_columns(w_, 16))
-        data, scale, zero = ((w.data, w.scale, w.zero) if hasattr(w, "data")
-                             else (w.data4, w.scale, w.zero8))
-        if layout == "s8":  # as the caller views unpacked codes (uint8 wraps)
-            data = data.view(torch.int8)
-        return _b3(xq, s_x, data, layout, scale, zero, gs, out_dtype, key)[:, :n]
-    COUNTS["B3.plain"] += 1
-    return a8_plain(xq, s_x, data, layout, scale, zero, gs, out_dtype)
-
-
-def _b3(xq, s_x, data, layout, scale, zero, gs: int, out_dtype, key: str) -> torch.Tensor:
     if xq.shape[0] <= GEMV_MAX_M:
         return a8_gemv(xq, s_x, data, layout, scale, zero, gs, out_dtype, key)
     return a8_gemm(xq, s_x, data, layout, scale, zero, gs, out_dtype)

@@ -50,14 +50,11 @@ class S4Weight:
     out_dtype: torch.dtype = torch.bfloat16
 
     def layer(self, i: int) -> "S4Weight":
-        """Layer `i` of a layer-stacked weight (views, no copy), which
-        remembers its stack as `QuantizedTensor.layer` does."""
-        out = dataclasses.replace(
+        """Layer `i` of a layer-stacked weight (views, no copy)."""
+        return dataclasses.replace(
             self, data4=self.data4[i], scale=self.scale[i],
             zero8=None if self.zero8 is None else self.zero8[i],
         )
-        out._stack = (self, i)
-        return out
 
 
 def _pack_signed_nibbles(codes: torch.Tensor, gs: int) -> torch.Tensor:
@@ -101,7 +98,7 @@ def s4w_matmul(x: torch.Tensor, w: S4Weight, out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     y = w_a8_matmul(x.reshape(-1, w.k), w.data4, "s4", w.scale, w.zero8,
-                    w.group_size or w.k, out_dtype, "B3.s4", w)
+                    w.group_size or w.k, out_dtype, "B3.s4")
     return y.reshape(*lead, w.n)
 
 

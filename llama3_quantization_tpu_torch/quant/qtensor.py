@@ -46,18 +46,14 @@ class QuantizedTensor:
         return self.scale.shape[-2]
 
     def layer(self, i: int) -> "QuantizedTensor":
-        """Layer `i` of a layer-stacked tensor (views, no copy). The view
-        remembers its stack, so that a form derived once per weight (the
-        kernels' padded copy, `ops/padding.py`) is derived on the stack."""
-        out = dataclasses.replace(
+        """Layer `i` of a layer-stacked tensor (views, no copy)."""
+        return dataclasses.replace(
             self,
             data=self.data[i],
             scale=self.scale[i],
             zero=None if self.zero is None else self.zero[i],
             g_idx=None if self.g_idx is None else self.g_idx[i],
         )
-        out._stack = (self, i)
-        return out
 
 
 def _codes(qt: QuantizedTensor) -> torch.Tensor:

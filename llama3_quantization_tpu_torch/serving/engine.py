@@ -385,13 +385,13 @@ class ServingEngine:
         freed at dispatch time of their final window (`_prefree_scheduled`);
         eos finishes are discovered one window late. The drain tail clamps
         the window to the largest remaining budget, rounded down into
-        `_window_sizes` (`L3Q_SERVE_CLAMP=min`: the smallest, JAX's A/B
-        knob, `:514-524`), and the ring-headroom clamp shrinks windows near
-        the ring end so the windowed path keeps fitting. `L3Q_SERVE_DEBUG=1`
+        `_window_sizes` (JAX's `L3Q_SERVE_CLAMP=min`, an A/B knob that
+        clamps to the smallest instead, `:514-524`, is not read: nothing
+        here calls for it), and the ring-headroom clamp shrinks windows
+        near the ring end so the windowed path keeps fitting. `L3Q_SERVE_DEBUG=1`
         prints the host seconds spent dispatching, waiting for results, and
         collecting and admitting to stderr (`:462,576-581`)."""
         dbg = os.environ.get("L3Q_SERVE_DEBUG") == "1"
-        pick = min if os.environ.get("L3Q_SERVE_CLAMP") == "min" else max
         t_disp = t_coll = t_adm = 0.0
         k = step_tokens
         prev = None  # (pending host copy of the tokens, slotmap, k) of the last window
@@ -422,7 +422,7 @@ class ServingEngine:
                 # remaining budget (eos only finishes earlier)
                 rem = [self.requests[rid].max_new_tokens - self.requests[rid].scheduled
                        for rid in self._slot_req.values()]
-                target = min(k, max(1, pick(rem) if rem else k))
+                target = min(k, max(1, max(rem) if rem else k))
                 # ring-headroom clamp: near the ring end, shrink the window so
                 # the windowed path keeps fitting; headroom <= 0 means a slot
                 # already lives past the ring (per-step path, keep k)

@@ -794,22 +794,24 @@ def test_c2_rep_outside_the_decode_kernels(cuda_device, rep, bits):
 
 
 @pytest.mark.parametrize("m", [1, 8, 80])
-@pytest.mark.parametrize("k,n,gs", [(256, 40, 64), (96, 64, 32), (288, 40, 96), (96, 48, None)])
+@pytest.mark.parametrize("k,n,gs", [(256, 40, 64), (96, 64, 32), (288, 40, 96), (96, 48, None),
+                                    (256, 48, 8), (240, 64, 24)])
 def test_c2_linear_padded_to_the_kernel_tiles(cuda_device, m, k, n, gs):
-    """Linears with N % 16 != 0 or K not a whole number of 64-row tiles: B1
-    (M <= 64) and B2 take the weight padded as JAX's `_fused_qmm` pads it,
-    once per weight; fp32 output within 1e-4 * max|ref| of the plain
-    version on the weight as it is."""
+    """Linears with N % 16 != 0, K not a whole number of 64-row tiles, or a
+    group size that no run of 16 rows divides: B1 (M <= 64) and B2 take
+    the weight padded once (`pad_for_kernels`); fp32 output within 1e-4 *
+    max|ref| of the plain version on the weight as it is."""
     rng = np.random.default_rng(k + n + m)
     w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
     qt = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
+    wp = P.pad_for_kernels({"w": qt})["w"]
     launches.reset()
-    got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32)
+    with P.backend("pallas"):
+        got = P.qmatmul(x, wp, out_dtype=torch.float32)
     key = "B1" if m <= fq.GEMV_MAX_M else "B2"
     counts = launches.snapshot()
-    assert counts[key] == 1 and counts[key + ".plain"] == 0
-    assert counts[key + ".pad"] == (not fq._takes(qt, m, 2 if key == "B1" else 1))
+    assert counts[key] == 1 and counts["pad"] == 1
     plain = fq.qmm_gemv_plain if key == "B1" else fq.qmm_gemm_plain
     ref = plain(x, qt, torch.float32)
     assert got.shape == (m, n)
@@ -819,29 +821,34 @@ def test_c2_linear_padded_to_the_kernel_tiles(cuda_device, m, k, n, gs):
 @pytest.mark.parametrize("form", ["v3", "s4", "a8"])
 @pytest.mark.parametrize("m", [1, 80])
 def test_c2_w_a8_padded_to_the_kernel_tiles(cuda_device, form, m):
-    """B3's forms on N = 40: the weight padded to N = 48 once, fp32 output
-    bit-equal to `a8_plain` on the weight as it is."""
+    """B3's forms on N = 40 (and group size 16 on v3 and s4): the weight
+    padded once (`prepare_decode_params`), fp32 output bit-equal to
+    `a8_plain` on the weight as it is."""
     rng = np.random.default_rng(m)
-    k, n, gs = 256, 40, 64
+    k, n, gs = 256, 40, 16 if form != "a8" else 64
     w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
     xq, s_x = qa.quantize_activations_s8(x)
-    launches.reset()
+    qt = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True)
     if form == "v3":
-        qt = P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True)
-        got = fq.fused_dequant_matmul(x, qt, out_dtype=torch.float32, version=3)
         ref = qa.a8_plain(xq, s_x, qt.data, "u4", qt.scale, qt.zero, gs, torch.float32)
     elif form == "s4":
-        sw = P.prepare_s4(P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True))
-        got = P.s4w_matmul(x, sw, out_dtype=torch.float32)
+        sw = P.prepare_s4(qt)
         ref = qa.a8_plain(xq, s_x, sw.data4, "s4", sw.scale, sw.zero8, gs, torch.float32)
     else:
-        qt = P.recode_s8_percol(P.quantize_rtn(w, P.QuantSpec(n_bits=4, group_size=gs),
-                                               pack=True))
-        got = P.a8_matmul(x, qt, out_dtype=torch.float32)
+        qt = P.recode_s8_percol(qt)
         ref = qa.a8_plain(xq, s_x, qt.data, "s8", qt.scale, qt.zero, qt.group_size or k,
                           torch.float32)
+    with P.backend({"v3": "pallas", "s4": "s4", "a8": "a8"}[form]):
+        wp = P.prepare_decode_params({"w": qt})["w"]
+        launches.reset()
+        if form == "v3":
+            xp = wp.pad_x(x)
+            got = fq.fused_dequant_matmul(xp, wp.w, out_dtype=torch.float32, version=3)[:, :n]
+        else:
+            got = P.qmatmul(x, wp, out_dtype=torch.float32)
     counts = launches.snapshot()
-    assert counts["B3.pad"] == 1 and counts["B3.plain"] == 0
+    key = {"v3": "B3.v3", "s4": "B3.s4", "a8": "B3.s8"}[form] if m <= 64 else "B3.gemm"
+    assert counts[key] == 1
     assert got.shape == (m, n)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)

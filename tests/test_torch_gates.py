@@ -4,13 +4,16 @@
   `b5_takes`, `b6_takes`, `b7_takes`) on a table of shapes in range and
   just out of range; the wrappers' raises read the same predicates (their
   launches recorded, not run).
-- The card routes of B1, B2 and B3 (kernels stood in by their plain
-  versions, which assert the kernel's predicate): a weight whose shape the
-  kernel does not take is padded as JAX's `_fused_qmm` pads it (K to
-  whole 64-row tiles of groups, N to a multiple of 16), once per weight
-  and on the stack for a layer view, and the result equals the plain
-  version on the weight as it is, bit for bit; a shape padding does not
-  fit takes the plain version. Each route is counted.
+- The padded weights of B1, B2 and B3 (`ops/padding.py`): a weight whose
+  shape one of them does not take is padded, once where the weights are
+  prepared (each group to whole 32-row runs, K to whole 64-row tiles, N
+  to a multiple of 16), to one that every kernel takes (their wrappers
+  launch on it, launches recorded), and a matmul on it (zero x columns in
+  place, output sliced back) gives the plain version's result on the
+  weight as it is: bit for bit through B3's, and through B1's and B2's
+  unless groups gained rows (within 1e-6 of max|ref| then: the fp32
+  order of a group's sum moves). Every
+  group size fits; each padded call is counted.
 - The attention gates against JAX's eager route (the route JAX's gates
   take for these shapes): `TINY_LLAMA` `forward_logits` at S = 128 (D =
   16, which B7 does not take) and decode on int8, int4 and fp caches of a
@@ -40,8 +43,10 @@ from llama3_quantization_tpu_torch.ops import flash_attention as fa
 from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 from llama3_quantization_tpu_torch.ops import qmatmul_a8 as qa
 from llama3_quantization_tpu_torch.ops import s4_matmul as s4
-from llama3_quantization_tpu_torch.ops.padding import pad_qtensor
+from llama3_quantization_tpu_torch.ops import matmul as mm
+from llama3_quantization_tpu_torch.ops import padding as pd
 from llama3_quantization_tpu_torch.quant import qtensor as tq
+from llama3_quantization_tpu_torch.models import params as tparams
 from llama3_quantization_tpu_torch.models.params import stack_qtensors
 from test_torch_model import to_numpy_tree
 
@@ -64,7 +69,7 @@ B1_TABLE = [  # (m, k, n, gs, bits, packed), takes
     ((8, 256, 64, 64, 3, True), False),       # 3-bit planes take B2
     ((8, 256, 64, 64, 8, False), True),
     ((8, 256, 64, 24, 8, False), False),
-    ((8, 256, 64, 64, 5, True), False),
+    ((8, 256, 64, 64, 5, True), True),        # one code a byte: uint8 codes
 ]
 
 B2_TABLE = [  # (k, n, gs, bits, packed), takes
@@ -81,7 +86,7 @@ B2_TABLE = [  # (k, n, gs, bits, packed), takes
     ((256, 64, 8, 3, True), True),
     ((256, 64, 8, 8, False), True),
     ((256, 64, 4, 8, False), False),
-    ((256, 64, 64, 5, True), False),
+    ((256, 64, 64, 5, True), True),
 ]
 
 B3_GEMV_TABLE = [  # (m, k, n, gs, layout), takes
@@ -269,123 +274,171 @@ def test_b7_wrapper_raises_on_its_predicate():
         fa.flash_attention_cuda(q, kv, kv)
 
 
-# ---------------------------------------------------------------- routes ----
-@pytest.fixture
-def plain_kernels(monkeypatch):
-    """B1, B2 and B3 stood in by their plain versions, each asserting its
-    kernel's predicate first; returns the calls (name, K, N)."""
-    calls = []
-
-    def gemv(x2d, qt, out_dtype):
-        assert fq.b1_takes(x2d.shape[0], qt.k, qt.n, qt.group_size or qt.k, qt.bits, qt.packed)
-        calls.append(("B1", qt.k, qt.n))
-        return fq.qmm_gemv_plain(x2d, qt, out_dtype)
-
-    def gemm(x2d, qt, out_dtype):
-        assert fq.b2_takes(qt.k, qt.n, qt.group_size or qt.k, qt.bits, qt.packed)
-        calls.append(("B2", qt.k, qt.n))
-        return fq.qmm_gemm_plain(x2d, qt, out_dtype)
-
-    def b3(xq, s_x, data, layout, scale, zero, gs, out_dtype, key):
-        assert qa.b3_takes(xq.shape[0], xq.shape[1], data.shape[-1], gs, layout)
-        calls.append(("B3", xq.shape[1], data.shape[-1]))
-        return qa.a8_plain(xq, s_x, data, layout, scale, zero, gs, out_dtype)
-
-    monkeypatch.setattr(fq, "qmm_gemv", gemv)
-    monkeypatch.setattr(fq, "qmm_gemm", gemm)
-    monkeypatch.setattr(qa, "_b3", b3)
-    launches.reset()
-    return calls
+# ---------------------------------------------------------- padded weights ----
+def _padded(qt):
+    """`qt` as `pad_weight` leaves it on the card."""
+    if pd.kernels_take(qt):
+        return qt
+    return pd.PaddedWeight(pd.pad_qtensor(qt), qt.k, qt.n, qt.group_size or qt.k)
 
 
 @pytest.mark.parametrize("m,k,n,gs,bits,packed,route", [
     (8, 256, 64, 64, 4, True, "B1"),
     (8, 256, 40, 64, 4, True, "B1.pad"),       # N % 16
     (8, 96, 40, 32, 2, True, "B1.pad"),
-    (8, 256, 64, 8, 4, True, "B1.plain"),      # group_size % 16: no padding fits
+    (8, 256, 64, 8, 4, True, "B1.pad"),        # group_size % 16: groups pad to 32
     (80, 256, 64, 64, 4, True, "B2"),
     (80, 96, 64, 32, 4, True, "B2.pad"),       # K % 64
     (80, 96, 64, None, 4, True, "B2.pad"),     # one group of 96 rows: K pads to 192
     (80, 288, 40, 96, 4, True, "B2.pad"),      # K and N
     (80, 96, 40, 32, 8, False, "B2.pad"),
     (80, 120, 64, 40, 3, True, "B2.pad"),      # bit planes
-    (80, 256, 48, 8, 4, True, "B2.plain"),     # a run of 16 rows spans groups
+    (80, 256, 48, 8, 4, True, "B2.pad"),       # a run of 16 rows spans groups
 ])
-def test_qmm_card_route(plain_kernels, m, k, n, gs, bits, packed, route):
+def test_qmm_card_route(fake_launch, m, k, n, gs, bits, packed, route):
+    """The weight as it is where the kernels take it, else its padded form,
+    on which the kernel of M launches; the padded matmul equals the plain
+    version on the weight as it is."""
     qt = _qt(k, n, gs, bits, packed, seed=m + k + n)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((m, k)).astype(np.float32))
-    version = 2 if m <= 64 else 1
-    plain = fq.qmm_gemv_plain if version == 2 else fq.qmm_gemm_plain
-    got = fq._card_route(x, qt, torch.float32, version, plain)
+    w = _padded(qt)
+    assert isinstance(w, pd.PaddedWeight) == route.endswith(".pad")
+    inner = w.w if route.endswith(".pad") else w
+    assert pd.kernels_take(inner)
+    assert inner.k % 64 == 0 and inner.n % 16 == 0
+    kernel = fq.qmm_gemv if m <= fq.GEMV_MAX_M else fq.qmm_gemm
+    xin = w.pad_x(x) if route.endswith(".pad") else x
+    kernel(xin, inner, torch.float32)
+    assert len(fake_launch) == 1
+    plain = fq.qmm_gemv_plain if m <= fq.GEMV_MAX_M else fq.qmm_gemm_plain
     ref = plain(x, qt, torch.float32)
+    launches.reset()
+    with mm.backend("pallas"):
+        got = mm.qmatmul(x, w, out_dtype=torch.float32)
     assert got.shape == (m, n)
-    torch.testing.assert_close(got, ref, rtol=0, atol=0)
-    key = route.split(".")[0]
-    if route.endswith(".plain"):
-        assert plain_kernels == [] and launches.COUNTS[route] == 1
-    else:
-        padded = fq.kernel_padded(qt)
-        assert plain_kernels == [(key, padded.k, padded.n)]
-        assert padded.k % 64 == 0 and padded.n % 16 == 0
-        assert launches.COUNTS[key + ".pad"] == (route.endswith(".pad"))
-    assert sum(launches.COUNTS[r] for r in launches.ROUTES) == (route != key)
+    assert launches.COUNTS["pad"] == route.endswith(".pad")
+    # bit for bit unless groups gained rows, which moves the order of a
+    # group's fp32 sum
+    grown = route.endswith(".pad") and w.w.group_size != (gs or k)
+    atol = 1e-6 * float(ref.abs().max()) if grown else 0.0
+    torch.testing.assert_close(got, ref, rtol=0, atol=atol)
 
 
 def test_kernel_padded_zero_codes_scale_one():
-    """The padded weight dequantizes to the weight in its top-left block and
-    to exact zeros elsewhere; K pads to whole groups."""
-    qt = _qt(96, 40, 32)
-    p = fq.kernel_padded(qt)
-    assert (p.k, p.n, p.group_size) == (128, 48, 32)
-    w, wp = tq.dequantize(qt, torch.float32), tq.dequantize(p, torch.float32)
-    assert torch.equal(wp[:96, :40], w)
-    assert not wp[96:].any() and not wp[:, 40:].any()
-    assert torch.equal(p.scale[3:], torch.ones(1, 48)) and not p.zero[3:].any()
+    """Each group's codes gain zero codes at its end (kept beside the
+    group's own scale and zero point: the zero x columns there add 0); K
+    gains whole groups and N columns with scale 1 and zero point 0, which
+    dequantize to exact zeros."""
+    qt = _qt(120, 40, 24)
+    p = pd.pad_qtensor(qt)
+    assert (p.k, p.n, p.group_size) == (192, 48, 32)
+    codes, pcodes = tq._codes(qt), tq._codes(p)
+    grouped = pcodes[:160].reshape(5, 32, 48)
+    assert torch.equal(grouped[:, :24, :40], codes.reshape(5, 24, 40))
+    assert not grouped[:, 24:].any() and not pcodes[160:].any() and not pcodes[:, 40:].any()
+    wp = tq.dequantize(p, torch.float32)
+    assert torch.equal(wp[:160].reshape(5, 32, 48)[:, :24, :40],
+                       tq.dequantize(qt, torch.float32).reshape(5, 24, 40))
+    assert not wp[160:].any() and not wp[:, 40:].any()
+    assert torch.equal(p.scale[5:], torch.ones(1, 48)) and not p.zero[5:].any()
     planes = _qt(120, 64, 40, bits=3)
-    pp = pad_qtensor(planes, 64, 16)
-    assert pp.k == 320 and torch.equal(tq.dequantize(pp, torch.float32)[:120],
-                                       tq.dequantize(planes, torch.float32))
+    pp = pd.pad_qtensor(planes)
+    assert (pp.k, pp.group_size) == (192, 64)
+    assert torch.equal(tq.dequantize(pp, torch.float32).reshape(3, 64, 64)[:, :40],
+                       tq.dequantize(planes, torch.float32).reshape(3, 40, 64))
 
 
-def test_padding_is_made_once_per_stacked_weight():
-    """A layer view's padded copy is its layer of the stack's, made once."""
+def test_padding_is_made_once_per_stacked_weight(monkeypatch):
+    """Preparing a tree pads a layer-stacked weight once, as each layer
+    alone would be padded; its layer views are views of that stack, and a
+    prepared tree prepares to itself. Off the card nothing is padded."""
     stack = stack_qtensors([_qt(96, 40, 32, seed=i) for i in range(3)])
-    first = fq.kernel_padded(stack.layer(1))
-    again = fq.kernel_padded(stack.layer(1))
-    whole = stack.__dict__["_b12_padded"]
-    assert first.data.data_ptr() == again.data.data_ptr() == whole.data[1].data_ptr()
-    assert torch.equal(first.data, fq.kernel_padded(_qt(96, 40, 32, seed=1)).data)
+    tree = {"layers": {"o": {"w": stack}}}
+    assert pd.pad_for_kernels(tree) is tree
+    monkeypatch.setattr(pd, "on_card", lambda t: True)
+    prepared = mm.prepare_decode_params(tree)
+    whole = prepared["layers"]["o"]["w"]
+    assert isinstance(whole, pd.PaddedWeight) and (whole.k, whole.n) == (96, 40)
+    view = TT._layer_params(prepared["layers"], 1)["o"]["w"]
+    assert view.w.data.data_ptr() == whole.w.data[1].data_ptr()
+    assert torch.equal(view.w.data, pd.pad_qtensor(_qt(96, 40, 32, seed=1)).data)
+    assert mm.prepare_decode_params(prepared) is prepared
+    with mm.backend("s4"):
+        s4_tree = mm.prepare_decode_params(prepared)
+    assert isinstance(s4_tree["layers"]["o"]["w"].w, s4.S4Weight)
 
 
 @pytest.mark.parametrize("m,n,gs,form", [(8, 64, 32, "v3"), (8, 40, 32, "v3"), (80, 40, 32, "v3"),
                                          (8, 40, 32, "s4"), (80, 40, 32, "a8"),
                                          (8, 64, 16, "v3"), (80, 40, 16, "s4")])
-def test_b3_card_route(plain_kernels, m, n, gs, form):
-    """B3 pads N to a multiple of 16 on the weight that holds the codes (a
-    QuantizedTensor, or an S4Weight); group sizes that are not a multiple
-    of 32 take the plain version. Bit for bit the plain result."""
+def test_b3_card_route(fake_launch, monkeypatch, m, n, gs, form):
+    """B3's routes (v3, s4, a8) on the padded weight where B3 does not take
+    the weight as it is (N % 16, group sizes not a multiple of 32): its
+    form of M launches on it, and the result is bit for bit the plain
+    version's on the weight as it is."""
     k = 256
     qt = _qt(k, n, gs, bits=8 if form == "a8" else 4, packed=form != "a8")
     if form == "a8":
         qt = dataclasses.replace(qt, data=(qt.data.to(torch.int16) - 128).to(torch.int8),
                                  zero=qt.zero - 128)
-        args = (qt.data, "s8", qt.scale, qt.zero, gs, torch.float32, "B3.s8", qt)
-    elif form == "s4":
-        w = s4.prepare_s4(qt)
-        args = (w.data4, "s4", w.scale, w.zero8, gs, torch.float32, "B3.s4", w)
-    else:
-        args = (qt.data, "u4", qt.scale, qt.zero, gs, torch.float32, "B3.v3", qt)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((m, k)).astype(np.float32))
     xq, s_x = qa.quantize_activations_s8(x)
-    got = qa._card_route(xq, s_x, *args)
-    ref = qa.a8_plain(xq, s_x, *args[:6])
+    monkeypatch.setattr(pd, "on_card", lambda t: True)
+    be = {"v3": "pallas", "s4": "s4", "a8": "a8"}[form]
+    if form == "v3":
+        monkeypatch.setenv("L3Q_QMM_V", "3")
+    with mm.backend(be):
+        w = mm.prepare_decode_params({"w": qt})["w"]
+        launches.reset()
+        got = mm.qmatmul(x, w, out_dtype=torch.float32)
+    assert launches.COUNTS["pad"] == (n % 16 != 0 or gs % 32 != 0)
+    assert isinstance(w, pd.PaddedWeight) == bool(launches.COUNTS["pad"])
+    if form == "s4":
+        ws = s4.prepare_s4(qt)
+        ref = qa.a8_plain(xq, s_x, ws.data4, "s4", ws.scale, ws.zero8, gs, torch.float32)
+    else:
+        ref = qa.a8_plain(xq, s_x, qt.data, "u4" if form == "v3" else "s8", qt.scale, qt.zero,
+                          gs, torch.float32)
     assert got.shape == (m, n)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
-    if gs % 32:
-        assert plain_kernels == [] and launches.COUNTS["B3.plain"] == 1
+    inner = w.w if isinstance(w, pd.PaddedWeight) else w
+    data, layout, zero = ((inner.data4, "s4", inner.zero8) if form == "s4"
+                          else (inner.data, "u4" if form == "v3" else "s8", inner.zero))
+    xp = w.pad_x(x) if isinstance(w, pd.PaddedWeight) else x
+    xpq, s_xp = qa.quantize_activations_s8(xp)
+    args = (xpq, s_xp, data, layout, inner.scale, zero, inner.group_size, torch.float32)
+    if m <= 64:
+        qa.a8_gemv(*args, "B3.v3")
     else:
-        assert plain_kernels == [("B3", k, -(-n // 16) * 16)]
-        assert launches.COUNTS["B3.pad"] == (n % 16 != 0)
+        qa.a8_gemm(*args)
+    assert len(fake_launch) == 1
+
+
+def test_entry_points_pad_unprepared_weights(monkeypatch):
+    """`forward_logits`, `decode_step` and `decode_step_multi` on a tree
+    nobody prepared pad its weights themselves (K = 96 here, which B2
+    does not take): the logits of the weights as they are, the padded
+    calls counted."""
+    cfg = dataclasses.replace(tcfg.TINY_LLAMA, hidden_size=96, num_heads=6, num_kv_heads=2)
+    fp = tparams.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                             device="cpu")
+    qp = tparams.quantize_model_rtn(fp, cfg, tq.QuantSpec(n_bits=4, group_size=32), pack=True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+
+    def run():
+        cache = TT.init_kv_cache(cfg, 2, 64, dtype=torch.float32, device="cpu")
+        full = TT.forward_logits(qp, toks, cfg)
+        pre, cache = TT.decode_step(qp, cache, toks, 0, cfg)
+        step, _ = TT.decode_step_multi(qp, cache, toks[:, -1:], torch.tensor([9, 9]), cfg)
+        return full, pre, step
+
+    ref = run()
+    launches.reset()
+    monkeypatch.setattr(pd, "on_card", lambda t: True)
+    got = run()
+    assert launches.COUNTS["pad"] > 0
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5 * float(r.abs().max()))
 
 
 # ----------------------------------------------------------- attention ----

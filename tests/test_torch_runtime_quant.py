@@ -121,7 +121,7 @@ class Spy:
 def spies(monkeypatch):
     out = {}
     for name in ("flash_attention", "flash_decode_gqa", "flash_decode_gqa_stacked",
-                 "flash_decode_gqa_s8", "flash_decode_gqa_s8_stacked"):
+                 "flash_decode_gqa_s8_stacked"):
         out[name] = Spy(getattr(TT, name))
         monkeypatch.setattr(TT, name, out[name])
     out["decode_window"] = Spy(TW.decode_window)
@@ -153,7 +153,7 @@ def test_enabled_hook_keeps_decode_off_kernels(fp32_model, spies, quantized, key
     _, cache = TT.decode_step(tp, cache, toks, 0, TCFG, rq)
     TT.decode_step(tp, cache, toks[:, -1:], 5, TCFG, rq)
     TT.decode_step_multi(tp, cache, toks[:, -1:], torch.tensor([6, 3]), TCFG, rq)
-    calls = spies[key].calls + spies["flash_decode_gqa"].calls + spies["flash_decode_gqa_s8"].calls
+    calls = spies[key].calls + spies["flash_decode_gqa"].calls
     assert calls == (2 * TCFG.num_layers if kernel else 0)
 
 

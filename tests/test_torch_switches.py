@@ -9,17 +9,19 @@ modules had left out.
 - `set_stacked_decode` and `_stacked_decode_ok` (JAX `:394-431`), twins of
   `tests/test_stacked_decode.py`'s five tests: the stacked and per-layer
   forms give the same bits on the int8, int4 and fp caches and in
-  multi-slot decode, the predicate routes as JAX's, and greedy tokens
-  under both forms equal JAX's under both (its interpreted kernel route).
+  multi-slot decode (so the port's switch only checks its mode), the
+  predicate routes as JAX's, and greedy tokens under both of JAX's forms
+  equal the port's (JAX's interpreted kernel route).
 - `L3Q_DECODE_ATTN` (JAX `:304`): the default of `set_decode_attn`, read at
   import on both sides; a greedy stream on an int8 cache under the knob
   equals JAX's under "xla".
-- `L3Q_WINDOW_MERGE=gather` (JAX `models/windowed.py:263-440`): the merge
-  form chosen (`_use_piece_merge`) as JAX chooses it, and under the knob
-  the same bytes as JAX's gather merge; the piece and gather merges agree.
-- `L3Q_SERVE_CLAMP=min` and `L3Q_SERVE_DEBUG=1` (JAX `serving/engine.py:
-  462,523-524,576-581`): the same number of windows as JAX's engine under
-  each clamp, printed by the debug line, and identical streams.
+- JAX's `L3Q_WINDOW_MERGE=gather` (`models/windowed.py:263-440`), which the
+  port does not read: its one merge writes the same bytes as JAX's piece
+  merge and, under the knob, its gather merge.
+- `L3Q_SERVE_DEBUG=1` (JAX `serving/engine.py:462,576-581`): the same
+  number of windows as JAX's engine, printed by the debug line, and
+  identical streams; JAX's `L3Q_SERVE_CLAMP=min` (`:523-524`), which the
+  port does not read, changes JAX's window count but not its streams.
 """
 
 import dataclasses
@@ -45,6 +47,7 @@ from llama3_quantization_tpu_torch import convert
 from llama3_quantization_tpu_torch.models import configs as tcfg
 from llama3_quantization_tpu_torch.models import transformer as TT
 from llama3_quantization_tpu_torch.models import windowed as TW
+from llama3_quantization_tpu_torch.ops import decode_attention as da
 from llama3_quantization_tpu_torch.ops import kvcache as tkv
 from llama3_quantization_tpu_torch.ops import launches
 from test_torch_model import jax_kernel_route, models, to_numpy_tree  # noqa: F401  (fixtures)
@@ -140,39 +143,55 @@ def _assert_same(a, b):
         assert torch.equal(c_a[k], c_b[k]), k
 
 
+def _per_layer_s8(q, k_q, k_s, v_q, v_s, mask, layer, out_dtype=torch.bfloat16, block_t=1024):
+    """The layer-stacked int8/int4 decode through the per-layer form."""
+    return da.flash_decode_gqa_s8(q, k_q[layer], k_s[layer], v_q[layer], v_s[layer], mask,
+                                  out_dtype=out_dtype, block_t=block_t)
+
+
+def _per_layer_fp(q, k, v, mask, layer, block_t):
+    """The layer-stacked fp decode through the per-layer form."""
+    return da.flash_decode_gqa(q, k[layer], v[layer], mask, block_t)
+
+
 @pytest.mark.parametrize("kv_bits", [8, 4])
-def test_stacked_matches_per_layer_kernel(fp32, kv_bits):
+def test_stacked_matches_per_layer_kernel(fp32, kv_bits, monkeypatch):
     tok = torch.tensor([[3], [5]])
     cache0 = TT.init_kv_cache(TCFG, 2, 64, quantized=kv_bits, device="cpu")
-    TT.set_stacked_decode(False)
     a = _run_steps(fp32[1], _clone(cache0), tok)
-    TT.set_stacked_decode("auto")
-    _assert_same(a, _run_steps(fp32[1], _clone(cache0), tok))
+    spy = Spy(_per_layer_s8)
+    monkeypatch.setattr(TT, "flash_decode_gqa_s8_stacked", spy)
+    TT.set_stacked_decode(False)  # JAX's per-layer switch: checks its mode only
+    b = _run_steps(fp32[1], _clone(cache0), tok)
+    assert spy.calls == 4 * TCFG.num_layers
+    _assert_same(a, b)
 
 
-def test_stacked_fp_cache_matches_per_layer(fp32):
+def test_stacked_fp_cache_matches_per_layer(fp32, monkeypatch):
     tok = torch.tensor([[3], [5]])
     cache0 = TT.init_kv_cache(TCFG, 2, 64, dtype=torch.float32, device="cpu")
-    TT.set_stacked_decode(False)
-    a = _run_steps(fp32[1], _clone(cache0), tok)
-    TT.set_stacked_decode("auto")
     assert TT._stacked_decode_ok(TT.NO_QUANT, cache0, 1, TCFG.num_heads)
-    _assert_same(a, _run_steps(fp32[1], _clone(cache0), tok))
+    a = _run_steps(fp32[1], _clone(cache0), tok)
+    spy = Spy(_per_layer_fp)
+    monkeypatch.setattr(TT, "flash_decode_gqa_stacked", spy)
+    b = _run_steps(fp32[1], _clone(cache0), tok)
+    assert spy.calls == 4 * TCFG.num_layers
+    _assert_same(a, b)
 
 
 def test_stacked_multi_slot_matches(fp32, monkeypatch):
-    """Per-row positions take the per-layer form at "auto" and the stacked
-    form under True (JAX `transformer.py:1017`): the same bits."""
+    """Per-row positions on the int8 cache take the stacked form (JAX
+    takes it there under `set_stacked_decode(True)`, `transformer.py:
+    1017`): the same bits as the per-layer form."""
     tok = torch.tensor([[3], [5]])
     cache0 = TT.init_kv_cache(TCFG, 2, 64, quantized=8, device="cpu")
     pos = torch.tensor([5, 9])
     spy = Spy(TT.flash_decode_gqa_s8_stacked)
     monkeypatch.setattr(TT, "flash_decode_gqa_s8_stacked", spy)
     a = TT.decode_step_multi(fp32[1], _clone(cache0), tok, pos, TCFG)
-    assert spy.calls == 0
-    TT.set_stacked_decode(True)
-    b = TT.decode_step_multi(fp32[1], _clone(cache0), tok, pos, TCFG)
     assert spy.calls == TCFG.num_layers
+    monkeypatch.setattr(TT, "flash_decode_gqa_s8_stacked", _per_layer_s8)
+    b = TT.decode_step_multi(fp32[1], _clone(cache0), tok, pos, TCFG)
     _assert_same(a, b)
 
 
@@ -188,8 +207,10 @@ def test_predicate_routing():
     TT.set_decode_kernel("auto")
     assert TT._stacked_decode_ok(TT.NO_QUANT, cache_q, 1, hq)
     assert not TT._stacked_decode_ok(TT.NO_QUANT, cache_q, 2, hq)  # prefill
-    TT.set_stacked_decode(False)
-    assert not TT._stacked_decode_ok(TT.NO_QUANT, cache_q, 1, hq)
+    JT.set_stacked_decode(False)
+    TT.set_stacked_decode(False)  # JAX's gate closes; the port's forms agree, so it stays
+    assert not JT._stacked_decode_ok(JT.NO_QUANT, JT.init_kv_cache(CFG, 2, 64, quantized=8), 1)
+    assert TT._stacked_decode_ok(TT.NO_QUANT, cache_q, 1, hq)
     TT.set_stacked_decode("auto")
     rq = TT.RuntimeQuantConfig(k=TT.QuantSpec(n_bits=8))
     assert not TT._stacked_decode_ok(rq, cache_fp, 1, hq)
@@ -252,18 +273,7 @@ def test_decode_attn_env_sets_the_default(fp32):
     assert bad.returncode != 0 and "L3Q_DECODE_ATTN" in bad.stderr
 
 
-# ------------------------------------------------------ L3Q_WINDOW_MERGE ----
-@pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("sink", [0, 2, 3])
-@pytest.mark.parametrize("gather", [False, True])
-def test_use_piece_merge_matches_jax(monkeypatch, packed, sink, gather):
-    if gather:
-        monkeypatch.setenv("L3Q_WINDOW_MERGE", "gather")
-    else:
-        monkeypatch.delenv("L3Q_WINDOW_MERGE", raising=False)
-    assert TW._use_piece_merge(packed, sink) == JW._use_piece_merge(packed, sink)
-
-
+# --------------------------------------------- JAX's L3Q_WINDOW_MERGE ----
 def _merge_inputs(packed, seed):
     L, B, H, T, D, KW = 2, 3, 2, 16, 4, 5
     rng = np.random.default_rng(seed)
@@ -284,8 +294,14 @@ def _merge_inputs(packed, seed):
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("sink", [0, 2, 3])
 @pytest.mark.parametrize("pos0", [0, 13, [0, 2, 3], [11, 20, 33]])
-def test_gather_merge_knob_matches_jax(monkeypatch, packed, sink, pos0):
-    monkeypatch.setenv("L3Q_WINDOW_MERGE", "gather")
+@pytest.mark.parametrize("gather", [True, False])
+def test_gather_merge_knob_matches_jax(monkeypatch, packed, sink, pos0, gather):
+    """The port's merge (which reads no knob) against JAX's gather merge
+    under `L3Q_WINDOW_MERGE=gather` and its default choice without it."""
+    if gather:
+        monkeypatch.setenv("L3Q_WINDOW_MERGE", "gather")
+    else:
+        monkeypatch.delenv("L3Q_WINDOW_MERGE", raising=False)
     cache, win = _merge_inputs(packed, seed=sink + 3 * packed)
     ref = JW.merge_window_into_cache({k: jnp.asarray(v) for k, v in cache.items()},
                                      tuple(jnp.asarray(w) for w in win),
@@ -295,19 +311,6 @@ def test_gather_merge_knob_matches_jax(monkeypatch, packed, sink, pos0):
                                      tuple(torch.from_numpy(w) for w in win), tp0, TCFG, sink)
     for k in tkv.CACHE_KEYS:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
-
-
-@pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("sink", [0, 2])
-def test_piece_and_gather_merges_agree(packed, sink):
-    cache, win = _merge_inputs(packed, seed=11)
-    pos = torch.tensor([4, 14, 30])
-    for key, w in (("k_q", win[0]), ("k_s", win[1])):
-        a, b = torch.from_numpy(cache[key].copy()), torch.from_numpy(cache[key].copy())
-        pk = packed and key == "k_q"
-        TW._ring_piece_merge(a, torch.from_numpy(w), pos, 16, pk, sink)
-        TW._ring_gather_merge(b, torch.from_numpy(w), pos, 16, pk, sink)
-        assert torch.equal(a, b), key
 
 
 # ------------------------------------- L3Q_SERVE_CLAMP and L3Q_SERVE_DEBUG ----
@@ -330,5 +333,5 @@ def test_serve_clamp_and_debug_match_jax(models, jax_kernel_route, monkeypatch, 
 
     ref, got = run_both(models, drive, max_slots=2, max_len=64)
     assert got == ref
-    assert counts[0] == counts[1]
-    assert counts[1] == {"max": 3, "min": 5}[clamp]  # JAX's counts
+    assert counts[0] == {"max": 3, "min": 5}[clamp]  # JAX's counts
+    assert counts[1] == 3  # the port reads no L3Q_SERVE_CLAMP
