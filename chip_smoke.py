@@ -1017,6 +1017,87 @@ def check_flash(P, gen, results):
         results.setdefault("B7", {})[label] = err
 
 
+#: (B, S, H, G, D) of the B7.stats, B7.dkv and B7.dq checks: OmniQuant's
+#: block training at Llama-3-8B width (batch 2, S = 2048), one q tile of
+#: rows at S = 128, D = 64, and rep 3 (24 query heads over 8)
+OMNI_ATTN = (2, 2048, 32, 8, 128)
+FLASH_BWD_CASES = ((1, 128, 32, 8, 128), OMNI_ATTN, (1, 512, 32, 8, 64), (1, 256, 24, 8, 128))
+
+
+def rows_within(name, got, ref, tol, floor=None):
+    """Every row (last axis) of `got` within `tol` * its own max|ref|, or
+    within `tol` * `floor` (per row) where that is larger."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite output")
+    row_err, row_max = (got - ref).abs().amax(dim=-1), ref.abs().amax(dim=-1)
+    scale = row_max if floor is None else torch.maximum(row_max, floor)
+    ratio = row_err / scale.clamp(min=1e-30)
+    at = tuple(int(i) for i in torch.unravel_index(ratio.argmax(), ratio.shape))
+    log(f"  {name}: max_abs_err {float(row_err.max()):.3e}, max over rows of max|err| / "
+        f"{'max|ref|' if floor is None else 'max(max|ref|, floor)'} {float(ratio.max()):.3e} "
+        f"(tolerance {tol:g} per row; worst row {at}: max|err| {float(row_err[at]):.3e}, "
+        f"max|ref| {float(row_max[at]):.3e}"
+        + ("" if floor is None else f", floor {float(floor[at]):.3e}") + ")")
+    if not bool((row_err <= tol * scale).all()):
+        raise AssertionError(f"{name}: a row's error is above {tol} * its max|ref|")
+    return float(row_err.max())
+
+
+def check_flash_bwd(P, gen, results):
+    """B7.stats, B7.dkv and B7.dq at FLASH_BWD_CASES, bf16, against their
+    plain versions on the same inputs: o row by row within 2e-2 of each
+    row's max|ref| (B7's bound); m within 1e-6 * max(1, |m|) and l within
+    1e-5 * l; dq, dk and dv (the backward fed the kernel's own o, m and l)
+    row by row within 2e-2 of each row's max|ref|; two calls bit-equal.
+
+    A gradient row is a sum of terms (dq_i of ds_ij k_j, dk_j of ds_ij
+    q_i, dv_j of p_ij do_i) whose coefficients both versions round to bf16
+    at the same point, from fp32 values that their other sum orders leave a
+    few ulps apart (ds = (dp - di) * p * scale, dp and di summed in other
+    orders): where one lands on the other side of a bf16 rounding tie, the
+    row moves by up to 2^-8 of that term. A row whose terms cancel (a dq
+    row's ds sum to 0, and row 0's dp - di is rounding noise: its exact dq
+    is 0) can be far smaller than its terms, so each row is held to 2e-2 of
+    its own max|ref| or of its largest term before cancellation
+    (`backward_terms`), whichever is larger."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import flash_attention as fa
+
+    for b, s, h, g, d in FLASH_BWD_CASES:
+        q, k, v = b7_inputs(gen, s, b, h, g, d)
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        label = f"B={b} S={s} H={h} G={g} D={d}"
+        o, m, l = fa.flash_attention_stats_cuda(q, k, v)
+        ro, rm, rl = fa.attention_stats_plain(q, k, v)
+        err_o = rows_within(f"B7.stats o {label}", o, ro, 2e-2)
+        dm = (m - rm).abs()
+        dl = (l - rl).abs()
+        log(f"  B7.stats m {label}: max|err| {float(dm.max()):.3e}, max|err| / max(1, |m|) "
+            f"{float((dm / rm.abs().clamp(min=1)).max()):.3e} (tolerance 1e-6); l: max|err| / l "
+            f"{float((dl / rl).max()):.3e} (tolerance 1e-5)")
+        if not bool((dm <= 1e-6 * rm.abs().clamp(min=1)).all() and (dl <= 1e-5 * rl).all()):
+            raise AssertionError(f"B7.stats {label}: m or l outside its bound")
+        o2, m2, l2 = fa.flash_attention_stats_cuda(q, k, v)
+        if not (torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)):
+            raise AssertionError(f"B7.stats {label}: two calls differ")
+        grads = fa.flash_attention_bwd_cuda(q, k, v, o, do, m, l)
+        refs = fa.flash_attention_bwd_plain(q, k, v, o, do, m, l)
+        floors = fa.backward_terms(q, k, v, o, do, m, l)
+        for name, got, ref, floor in zip(("dq", "dk", "dv"), grads, refs, floors):
+            err = rows_within(f"B7.{'dq' if name == 'dq' else 'dkv'} {name} {label}", got, ref,
+                              2e-2, floor)
+            results.setdefault("B7.dq" if name == "dq" else "B7.dkv", {})[f"{label} {name}"] = err
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, m, l)
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"B7.dkv/B7.dq {label}: two calls differ")
+        results.setdefault("B7.stats", {})[label] = err_o
+        del q, k, v, do, o, m, l, ro, rm, rl, grads, refs, again
+        torch.cuda.empty_cache()
+
+
 def profile_decode(P, params, cache, tok, pos, cfg, card, steps=4):
     """Device time by kernel over a few decode steps, and the device's busy
     share of the wall time (torch.profiler)."""
@@ -1852,7 +1933,8 @@ def check_c2(P):
     kernel's predicate chooses (the counts name it): TINY_LLAMA
     `forward_logits` at S = 128 (D = 16: eager, not B7; fp32 weights, 1e-4
     of max|logit|); decode on a llama of TINY_LLAMA's widths with rep 6 on
-    the int8, int4 and fp32 caches (eager, no B5 or B6 form; RTN W4 g32
+    the int8, int4 and fp32 caches (B5 and B6 with rep padded to 8, none
+    turned away to the eager attention; RTN W4 g32
     weights: B7's bound, 2e-2 of each row's max|logit|: B1/B2's bf16
     inputs, and a KV code that rounds the other way on the card); linears with N %
     16 != 0, with K not a whole number of 64-row tiles and with a group size
@@ -1896,12 +1978,13 @@ def check_c2(P):
             out, _ = P.greedy_generate(p, cache, prompt[:, -1:].to(dev), 41, 4, rcfg)
             outs[dev] = (step.float().cpu(), out.cpu(), launches.snapshot())
         c = outs["cuda"][2]
-        key = "B6.eager" if bits is False else "B5.eager"
-        forms = [k for k in c if k.startswith(("B5", "B6")) and not k.endswith(".eager") and c[k]]
-        if forms or c[key] != 5 * rcfg.num_layers:
-            raise AssertionError(f"rep 6 {bits}: kernels {forms}, {key} {c[key]}")
+        forms = {k: c[k] for k in c if k.startswith(("B5", "B6")) and not k.endswith(".eager")
+                 and c[k]}
+        if sum(forms.values()) < 5 * rcfg.num_layers or c["B5.eager"] or c["B6.eager"]:
+            raise AssertionError(f"rep 6 {bits}: kernels {forms}, B5.eager {c['B5.eager']}, "
+                                 f"B6.eager {c['B6.eager']}")
         compare_rows(f"rep-6 decode step, {'fp32' if bits is False else f'int{bits}'} cache "
-                     f"({key} {c[key]}, greedy {outs['cuda'][1].tolist()})",
+                     f"(rep padded to 8: {forms}, greedy {outs['cuda'][1].tolist()})",
                      outs["cuda"][0], outs["cpu"][0], 2e-2)
 
     gen = np.random.default_rng(8)
@@ -1928,6 +2011,164 @@ def check_c2(P):
         ref = qa.a8_plain(xq, s_x, qt.data, "u4", qt.scale, qt.zero, gs, torch.float32)
         c = launches.snapshot()
         compare(f"  v3 (B3.v3 {c['B3.v3']}, B3.gemm {c['B3.gemm']})", got, ref, 0.0)
+
+
+#: the OmniQuant phase's bounds: first step's loss (relative) and LWC
+#: gradients (||diff|| / ||ref||) through B7.stats/B7.dkv/B7.dq against the
+#: eager attention under autograd
+OMNI_LOSS_TOL = 1e-3
+OMNI_GRAD_TOL = 2e-2
+
+
+def quantize_cfg(P):
+    """Llama-3-8B widths, depth cut to 2 layers (for time)."""
+    import dataclasses
+
+    return dataclasses.replace(P.LLAMA3_8B, num_layers=2)
+
+
+def drive_quantize(P, card):
+    """The calibration quantizers at Llama-3-8B width (2 layers: the depth
+    cut), bf16 random-normal parameters from a seed, 4 calibration windows of
+    2048 tokens:
+
+    1. GPTQ W4 g128 (`gptq_quantize_model`, packed): the capture's and the
+       propagation's attention through B7; per layer, each linear's output
+       SNR on the inputs its solve saw no worse than RTN's (`snr_error`,
+       lower is better); seconds per layer.
+    2. OmniQuant W4 g128 LWC, 2 epochs, batch 2: the first training step's
+       loss within OMNI_LOSS_TOL and its LWC gradients within OMNI_GRAD_TOL
+       of the same step under `set_flash(False)`; `omniquant_model` launching
+       B7.stats, B7.dkv and B7.dq once per layer and step; each layer's last
+       epoch loss at or below its first; the model's output MSE against the
+       fp model (final hidden states on the calibration windows, the "xla"
+       backend) below RTN's, the model-level criterion of JAX's
+       `tests/test_algorithms.py:188-201`.
+    3. `forward_logits` [1, 2048] of both quantized models under "pallas":
+       finite, no call turned away from its kernel (`launches.ROUTES`)."""
+    import numpy as np
+    import torch
+    from llama3_quantization_tpu_torch.models import transformer as TT
+    from llama3_quantization_tpu_torch.quant import calibration as TC
+    from llama3_quantization_tpu_torch.quant import gptq as TG
+    from llama3_quantization_tpu_torch.quant import omniquant as TO
+
+    cfg = quantize_cfg(P)
+    spec = P.QuantSpec(n_bits=4, group_size=GS)
+    params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 7),
+                           dtype=torch.bfloat16, device="cuda")
+    calib = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, (4, 2048))
+    counts = {}
+    log(f"quantize phase: Llama-3-8B widths, {cfg.num_layers} layers (depth cut), bf16, "
+        f"calibration 4 x 2048 tokens  [{card}]")
+
+    stamps = [time.perf_counter()]
+
+    def tick(l, n, errs):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log(f"  GPTQ layer {l}/{n}: {stamps[-1] - stamps[-2]:.2f} s  [{card}]")
+
+    gq = run_counted(counts, "GPTQ W4 g128 (capture and propagation through B7)",
+                     lambda: TC.gptq_quantize_model(params, cfg, calib, spec, pack=True,
+                                                    progress=tick),
+                     must=("B7",))
+    # each linear on the inputs its solve saw (the GPTQ stream), against RTN
+    with torch.no_grad():
+        tokens = TC.calib_tensor(params, calib)
+        h, cos_sin, mask = TC.embed_calibration(params, cfg, tokens)
+        for l in range(cfg.num_layers):
+            p_fp, p_q = TC._layer_slice(params["layers"], l), TC._layer_slice(gq["layers"], l)
+            with P.backend("xla"):
+                caps = TC.layer_linear_inputs(p_fp, h, cfg, P.NO_QUANT, cos_sin, mask)
+                for name in TC.linear_names(cfg):
+                    x = caps[name].reshape(-1, caps[name].shape[-1])
+                    ref = x.float() @ p_fp[name]["w"].float()
+                    snr_g = TG.snr_error(P.qmatmul(x, p_q[name]["w"]), ref)
+                    snr_r = TG.snr_error(P.qmatmul(x, P.quantize_rtn(p_fp[name]["w"], spec)), ref)
+                    log(f"  layer {l} {name}: output SNR (noise/signal) GPTQ {snr_g:.4e}, "
+                        f"RTN {snr_r:.4e}")
+                    if not snr_g <= snr_r:
+                        raise AssertionError(f"GPTQ layer {l} {name}: SNR {snr_g} worse than "
+                                             f"RTN's {snr_r}")
+                del caps
+                h = TC.run_layer_xla(p_q, h, cfg, P.NO_QUANT, cos_sin, mask)
+        del h
+
+    # OmniQuant: the first step, kernels against the eager attention
+    ocfg = TO.OmniConfig(wspec=spec, epochs=2, batch_size=2, pack=True)  # sets wspec.lwc
+    with torch.no_grad():
+        h, cos_sin, mask = TC.embed_calibration(params, cfg, TC.calib_tensor(params, calib[:2]))
+        p0 = TC._layer_slice(params["layers"], 0)
+        target = TT.decoder_layer(p0, h, cfg, P.NO_QUANT, cos_sin, mask)
+    aux = {"lwc": TO.init_layer_lwc(p0, cfg, ocfg.wspec)}
+    launches_before = dict(P.launches.COUNTS)
+    (loss, grads), dt = timed(lambda: TO.omni_loss_and_grads(
+        aux, p0, h, target, target, cfg, ocfg, P.NO_QUANT, cos_sin, mask))
+    step_counts = {k: P.launches.COUNTS[k] - launches_before[k]
+                   for k in ("B7.stats", "B7.dkv", "B7.dq", "B7.eager")}
+    if step_counts != {"B7.stats": 1, "B7.dkv": 1, "B7.dq": 1, "B7.eager": 0}:
+        raise AssertionError(f"OmniQuant step launches: {step_counts}")
+    TT.set_flash(False)
+    try:
+        (rloss, rgrads), rdt = timed(lambda: TO.omni_loss_and_grads(
+            aux, p0, h, target, target, cfg, ocfg, P.NO_QUANT, cos_sin, mask))
+    finally:
+        TT.set_flash("auto")
+    got = torch.cat([x.flatten() for x in TO._aux_leaves(grads)])
+    ref = torch.cat([x.flatten() for x in TO._aux_leaves(rgrads)])
+    lrel = abs(float(loss) - float(rloss)) / abs(float(rloss))
+    grel = float((got - ref).norm() / ref.norm())
+    log(f"  OmniQuant first step (layer 0, batch 2 x 2048): loss {float(loss):.6e} through "
+        f"B7.stats/B7.dkv/B7.dq ({dt:.3f} s) vs {float(rloss):.6e} eager ({rdt:.3f} s): "
+        f"relative {lrel:.3e} (tolerance {OMNI_LOSS_TOL:g}); LWC grads ||diff||/||ref|| "
+        f"{grel:.3e} (tolerance {OMNI_GRAD_TOL:g})  [{card}]")
+    if not (lrel <= OMNI_LOSS_TOL and grel <= OMNI_GRAD_TOL):
+        raise AssertionError("OmniQuant step through the kernels is off the eager step")
+    del h, target, grads, rgrads, got, ref
+    torch.cuda.empty_cache()
+
+    epochs = []
+    oq, odt = timed(lambda: run_counted(
+        counts, "OmniQuant W4 g128 LWC (2 epochs, batch 2: B7.stats, B7.dkv, B7.dq)",
+        lambda: TO.omniquant_model(params, cfg, calib, ocfg, epoch_log=epochs),
+        must=("B7.stats", "B7.dkv", "B7.dq")))
+    steps = cfg.num_layers * ocfg.epochs * (len(calib) // ocfg.batch_size)
+    c = counts["OmniQuant W4 g128 LWC (2 epochs, batch 2: B7.stats, B7.dkv, B7.dq)"]
+    log(f"  OmniQuant: {odt:.2f} s for {cfg.num_layers} layers ({odt / cfg.num_layers:.2f} s a "
+        f"layer), {steps} training steps; epoch losses {epochs}; launches B7.stats "
+        f"{c['B7.stats']}, B7.dkv {c['B7.dkv']}, B7.dq {c['B7.dq']}  [{card}]")
+    if not c["B7.stats"] == c["B7.dkv"] == c["B7.dq"] == steps:
+        raise AssertionError(f"OmniQuant: {steps} steps, launches {c}")
+    for l in range(cfg.num_layers):
+        losses = [loss_ for layer, _, loss_ in epochs if layer == l]
+        first, last = losses[0], losses[-1]
+        if not last <= first:
+            raise AssertionError(f"OmniQuant layer {l}: last epoch's loss {last} above {first}")
+    rtn = P.quantize_model_rtn(params, cfg, spec, pack=True)
+    with torch.no_grad(), P.backend("xla"):
+        toks = TC.calib_tensor(params, calib)
+        ref = P.forward_hidden(params, toks, cfg).float()
+        mse = {name: float(((P.forward_hidden(tree, toks, cfg).float() - ref) ** 2).mean())
+               for name, tree in (("omniquant", oq), ("rtn", rtn))}
+        log(f"  final hidden state MSE against the fp model on the calibration windows: "
+            f"OmniQuant {mse['omniquant']:.6e}, RTN {mse['rtn']:.6e}  [{card}]")
+        if not mse["omniquant"] < mse["rtn"]:
+            raise AssertionError(f"OmniQuant: the model's output MSE not below RTN's {mse}")
+        del ref
+    del rtn
+
+    toks = torch.from_numpy(calib[:1]).cuda()
+    for name, tree in (("GPTQ", gq), ("OmniQuant", oq)):
+        logits = run_counted(counts, f"forward_logits [1, 2048] {name} W4 g128 (pallas)",
+                             lambda: P.forward_logits(tree, toks, cfg), must=("B2", "B7"))
+        if not bool(logits.isfinite().all()):
+            raise AssertionError(f"{name} forward_logits: non-finite logits")
+        log(f"  {name} forward_logits [1, 2048]: finite, max|logit| "
+            f"{float(logits.float().abs().max()):.4f}")
+    del params, gq, oq
+    torch.cuda.empty_cache()
+    return sum_counts(counts)
 
 
 def to_device(tree, device):
@@ -2418,17 +2659,8 @@ def prefill_bench(P, card):
         torch.cuda.empty_cache()
 
 
-def time_kernels(P, card, launches_total, errs, probes_only=False):
-    """Per-kernel ms beside plain ms, bound and library yardstick (only the
-    weight-stream probes' with `probes_only`)."""
-    import torch
-    import torch.nn.functional as F
-    from llama3_quantization_tpu_torch.ops import decode_attention as da
-    from llama3_quantization_tpu_torch.ops import flash_attention as fa
-    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-
+def add_row(card, launches_total):
+    """The kernels line's row maker: one row, logged beside the card."""
     def add(kid, name, source, replaces, shape, ms, plain_ms, nbytes, ops, peak, lib_ms, err):
         b_ms, by = bound_ms(nbytes, ops, peak)
         row = {
@@ -2440,6 +2672,97 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
         log(f"{kid} {name} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({by}), library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  [{card}]")
         return row
+
+    return add
+
+
+def time_by_kernel(fn, iters: int, names, warmup: int = 2):
+    """Mean device ms of one call of `fn` spent in the kernels whose names
+    contain each of `names` (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {n: sum(e.device_time_total for e in evs if n in e.key) / iters / 1e3 for n in names}
+    if not all(v > 0 for v in out.values()):
+        raise RuntimeError(f"the profiler saw no device time for {names}: {[e.key for e in evs]}")
+    return out
+
+
+def time_b7_grad(card, launches_total, errs, gen, add):
+    """B7.stats, B7.dkv and B7.dq at OmniQuant's shape (B = 2, S = 2048, H =
+    32, G = 8, D = 128, bf16): kernel device time by kernel name, the plain
+    versions' (the plain backward computes dq, dk and dv in one call: its
+    time stands in both rows), and SDPA (causal, `enable_gqa`) as the
+    library: its forward for B7.stats, its backward alone (autograd of a
+    kept graph, the forward excluded) in both backward rows. Bounds: bytes
+    each input read once and each output written once; FLOPs 2 * D per
+    causal (q, k) pair for each product: 2 in the forward, 4 in B7.dkv
+    (q k^T, do v^T, p^T do, ds^T q), 3 in B7.dq (q k^T, do v^T, ds k)."""
+    import torch
+    import torch.nn.functional as F
+    from llama3_quantization_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, g, d = OMNI_ATTN
+    q, k, v = b7_inputs(gen, s, b, h, g, d)
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    o, m, l = fa.flash_attention_stats_cuda(q, k, v)
+    pairs = b * h * s * (s + 1) / 2
+    io = 2 * b * s * d * (2 * h + 2 * g)  # q, k, v, do (or o) in bf16
+    stats_ms = time_by_kernel(lambda: fa.flash_attention_stats_cuda(q, k, v), 20,
+                              ["flash_fwd_kernel"])["flash_fwd_kernel"]
+    bwd = time_by_kernel(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, m, l), 10,
+                         ["flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"])
+    plain_fwd = time_ms(lambda i: fa.attention_stats_plain(q, k, v), 3, warmup=1)
+    plain_bwd = time_ms(lambda i: fa.flash_attention_bwd_plain(q, k, v, o, do, m, l), 2, warmup=1)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_fwd = time_ms(lambda i: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                               enable_gqa=True), 20)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (qh, kh, vh)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    doh = do.transpose(1, 2).contiguous()
+    lib_bwd = time_ms(lambda i: torch.autograd.grad(out, leaves, doh, retain_graph=True), 10)
+    label = f"B={b} S={s} H={h} G={g} D={d}"
+    shape = f"{label} bf16 causal (OmniQuant's block training at Llama-3-8B width)"
+    src = "llama3_quantization_tpu_torch/csrc/"
+    lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    dkv_err = max(v_ for k_, v_ in errs.get("B7.dkv", {}).items() if k_.startswith(label))
+    dq_err = max(v_ for k_, v_ in errs.get("B7.dq", {}).items() if k_.startswith(label))
+    return [
+        add("B7.stats", "flash_attn_fwd with m, l", src + "flash_attention.cu", lib + ":758",
+            shape + " (library: SDPA forward)", stats_ms, plain_fwd,
+            2 * b * s * d * (2 * h + 2 * g) + 8 * b * h * s, 4 * d * pairs, BF16_FLOPS, lib_fwd,
+            errs["B7.stats"][label]),
+        add("B7.dkv", "flash_attn_bwd_dkv", src + "flash_attention_bwd.cu", lib + ":796",
+            shape + " (plain: the whole backward; library: SDPA backward)",
+            bwd["flash_bwd_dkv_kernel"], plain_bwd, io + 12 * b * h * s + 4 * b * s * g * d,
+            8 * d * pairs, BF16_FLOPS, lib_bwd, dkv_err),
+        add("B7.dq", "flash_attn_bwd_dq", src + "flash_attention_bwd.cu", lib + ":1146",
+            shape + " (plain: the whole backward; library: SDPA backward)",
+            bwd["flash_bwd_dq_kernel"], plain_bwd, io + 12 * b * h * s + 2 * b * s * h * d,
+            6 * d * pairs, BF16_FLOPS, lib_bwd, dq_err),
+    ]
+
+
+def time_kernels(P, card, launches_total, errs, probes_only=False):
+    """Per-kernel ms beside plain ms, bound and library yardstick (only the
+    weight-stream probes' with `probes_only`)."""
+    import torch
+    import torch.nn.functional as F
+    from llama3_quantization_tpu_torch.ops import decode_attention as da
+    from llama3_quantization_tpu_torch.ops import flash_attention as fa
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    add = add_row(card, launches_total)
 
     if probes_only:
         return time_probes(P, card, launches_total, errs, add)
@@ -2507,6 +2830,7 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
                            "llama3_quantization_tpu/models/transformer.py:168",
                            f"B=1 S={s} H=32 G=8 D=128 bf16 causal", ms, plain_ms, nbytes, ops,
                            BF16_FLOPS, lib_ms, errs["B7"][f"S={s}"]))
+    b7_rows += time_b7_grad(card, launches_total, errs, gen, add)
     b3_rows = time_b3(P, gen, add, errs)
     w3_rows = time_b2_w3(P, gen, add, errs)
     # one row per kernel form in the summary line (B1 at both of its path
@@ -2519,7 +2843,8 @@ def time_kernels(P, card, launches_total, errs, probes_only=False):
     qmm_rows = {name: rows_ for name, rows_ in qmm_rows.items()
                 if name in ("qmm_gemv", "qmm_gemv M=8", "qmm_gemm")}
     return ([rows_[2] for rows_ in qmm_rows.values()] + [rows_[0] for rows_ in form_rows.values()]
-            + [b6_rows[0], b6_rows[2], b7_rows[0]] + b3_rows + w3_rows + probe_rows)
+            + [b6_rows[0], b6_rows[2], b7_rows[0]] + b7_rows[2:] + b3_rows + w3_rows
+            + probe_rows)
 
 
 def time_b5(P, gen, plain=False):
@@ -2734,6 +3059,10 @@ def main() -> int:
     ap.add_argument("--eval", action="store_true",
                     help="only build and check the kernels (the C2 shapes included), then the "
                          "study's golden rows and the full-width eval phase")
+    ap.add_argument("--quantize", action="store_true",
+                    help="only build and check the kernels, then the calibration quantizers at "
+                         "Llama-3-8B width (GPTQ, OmniQuant through B7's gradient) and the "
+                         "study's golden rows")
     ap.add_argument("--microbench", action="store_true",
                     help="only check, drive and time the weight-stream probes B8-B10 through "
                          "the microbench entry points")
@@ -2805,6 +3134,7 @@ def main() -> int:
     check_b5_split(P, gen)
     check_fp_decode(P, gen, errs)
     check_flash(P, gen, errs)
+    check_flash_bwd(P, gen, errs)
     check_window_merge(P, gen)
     check_xla_route(P, gen)
     check_probes(P, gen, errs)
@@ -2812,6 +3142,17 @@ def main() -> int:
     torch.cuda.synchronize()
     if args.kernels_only:
         log("kernel checks passed")
+        return 0
+    if args.quantize:
+        paths = [drive_quantize(P, card), drive_golden(P, card)]
+        total = {key: sum(p[key] for p in paths) for key in paths[0]}
+        log(f"launches: {json.dumps(total)}")
+        rows = time_b7_grad(card, total, errs, torch.Generator(device="cuda").manual_seed(SEED + 2),
+                            add_row(card, total))
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        }}), flush=True)
         return 0
     if args.eval:
         golden = drive_golden(P, card)
@@ -2831,6 +3172,7 @@ def main() -> int:
     paths.append(drive_s4_decode(P, card, profile=args.profile))
     paths.append(drive_a8_serving(P, card, profile=args.profile))
     paths.append(drive_golden(P, card))
+    paths.append(drive_quantize(P, card))
     params = build_rtn_params(P)
     paths.append(drive_rtn_checks(P, params, card))
     paths.append(drive_routes(P, params, card))

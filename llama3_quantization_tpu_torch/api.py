@@ -1,13 +1,16 @@
 """Top-level convenience API (port of `llama3_quantization_tpu/api.py`):
 one entry point over the quantization algorithms.
 
-`quantize` keeps JAX's signature and checks. The port has RTN so far
-(`models/params.quantize_model_rtn`); every other method raises
-`NotImplementedError` until the quantizers are ported (ROADMAP A 3).
+`quantize` keeps JAX's signature, checks and dispatch (`api.py:61-111`):
+RTN, GPTQ, AWQ, SmoothQuant (+ RTN), OmniQuant and observer-driven mixed
+precision. HQQ and IR-QLoRA raise `NotImplementedError` until the next
+quantizer slice (ROADMAP A 3).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import sys
 from typing import Any, Optional
 
 import numpy as np
@@ -39,9 +42,36 @@ def quantize(
         from .models.params import quantize_model_rtn
 
         return quantize_model_rtn(params, cfg, spec, pack=pack)
-    if method in METHODS:
+    if method == "gptq":
+        from .quant.calibration import gptq_quantize_model
+
+        return gptq_quantize_model(params, cfg, calib_tokens, spec, pack=pack, **kwargs)
+    if method == "awq":
+        from .quant.awq import awq_quantize_model
+
+        return awq_quantize_model(params, cfg, calib_tokens, spec, pack=pack, **kwargs)
+    if method == "smoothquant":
+        from .models.params import quantize_model_rtn
+        from .quant.smoothquant import smoothquant_model
+
+        smoothed = smoothquant_model(params, cfg, calib_tokens, **kwargs)
+        return quantize_model_rtn(smoothed, cfg, spec, pack=pack)
+    if method == "omniquant":
+        from .quant.omniquant import OmniConfig, omniquant_model
+
+        ocfg = OmniConfig(wspec=dataclasses.replace(spec, lwc=True), pack=pack, **kwargs)
+        return omniquant_model(params, cfg, calib_tokens, ocfg)
+    if method == "mixed":
+        from .quant.mixed import mixed_precision_gptq
+
+        upgrade = kwargs.pop("upgrade_spec", None) or dataclasses.replace(spec, n_bits=8)
+        out, upgraded = mixed_precision_gptq(params, cfg, calib_tokens, spec, upgrade, **kwargs)
+        if upgraded:
+            print(f"[mixed] upgraded: {sorted(upgraded)}", file=sys.stderr)
+        return out
+    if method in ("hqq", "irqlora"):
         raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP A 3, the quantizers); "
-            "the port has 'rtn'"
+            f"method {method!r} is not ported yet (ROADMAP A 3: HQQ, NF4 and IR-QLoRA are the "
+            "next quantizer slice)"
         )
     raise ValueError(f"unknown method {method!r}; choose from {METHODS}")

@@ -3,8 +3,11 @@
 `params_from_numpy(tree)` takes the JAX tree already flattened to numpy:
 nested dicts of numpy arrays, with each `QuantizedTensor` given as a dict
 of its fields and meta (`data`, `scale`, `zero`, `bits`, `group_size`,
-`k`, `n`, `packed`, `sym`, optionally `g_idx` and `out_dtype`). Layouts
-and dtypes are kept as they are, bf16 included.
+`k`, `n`, `packed`, `sym`, optionally `g_idx` and `out_dtype`; a GPTQ
+act-order result carries its `g_idx`). Lists and tuples (JAX's act-stats
+list) are walked too, so OmniQuant's LWC/LET aux trees and SmoothQuant's
+activation statistics come across the same way. Layouts and dtypes are
+kept as they are, bf16 included.
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ def params_from_numpy(tree: Mapping[str, Any], device="cuda"):
             if all(f in node for f in _QT_FIELDS):
                 return _qtensor(node, dev)
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
         return tensor_from_numpy(node, dev)
 
     return walk(tree)

@@ -30,6 +30,13 @@
 // the output is normalised once at the end. Tiles past the diagonal are
 // never loaded, a warpgroup skips a tile wholly above its rows, and only
 // tiles that cross the diagonal or the sequence's end are masked.
+//
+// B7.stats: given `m` and `l` ([B, H, S] fp32), the same launch also writes
+// each row's max of the scaled logits and its sum of exp(s - max), the
+// residuals of the library's forward with `save_residuals=True`
+// (flash_attention.py:236-251, the same pallas_call :758) that the
+// backward kernels (flash_attention_bwd.cu) read. Without them nothing
+// else changes.
 
 #include "common.cuh"
 
@@ -85,8 +92,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 template <int D, int NWG>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int S, int H,
-    int G, float scale) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ mo, float* __restrict__ lo, int S, int H, int G, float scale) {
   constexpr int DB = D / 64, BQ = 64 * NWG;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* Qs = smem;                        // [NWG][DB] blocks
@@ -227,6 +234,11 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_fwd_kernel(
     l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
+  if (mo != nullptr && tig == 0) {  // B7.stats
+    const size_t i = ((size_t)b * H + h) * S;
+    if (r0 < S) { mo[i + r0] = m0; lo[i + r0] = l0; }
+    if (r1 < S) { mo[i + r1] = m1; lo[i + r1] = l1; }
+  }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -252,8 +264,8 @@ int tensor_map_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
 }
 
 template <int D, int NWG>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int G,
-           float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, float* m, float* l, int B,
+           int S, int H, int G, float scale, cudaStream_t st) {
   CUtensorMap tq{}, tk{}, tv{};
   int err = tensor_map_bshd(&tq, q, B, S, H, D, 64);
   if (!err) err = tensor_map_bshd(&tk, k, B, S, G, D, BKV);
@@ -266,22 +278,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   if (err) return err;
   dim3 grid(H * B, (S + 64 * NWG - 1) / (64 * NWG));
   flash_fwd_kernel<D, NWG><<<grid, NWG * 128 + 32, smem, st>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, S, H, G, scale);
+      tq, tk, tv, (__nv_bfloat16*)out, m, l, S, H, G, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q/out bf16 [B, S, H, D]; k/v bf16 [B, S, G, D]; D in {64, 128}; H % G == 0;
-// 16-byte aligned rows; bq: q rows per block, 128 or 64; scale: fp32
-// 1 / sqrt(D).
+// 16-byte aligned rows; m/l: fp32 [B, H, S] outputs (B7.stats) or both null;
+// bq: q rows per block, 128 or 64; scale: fp32 1 / sqrt(D).
 extern "C" int l3q_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
-                                  int B, int S, int H, int G, int D, int bq, float scale,
-                                  void* stream) {
+                                  float* m, float* l, int B, int S, int H, int G, int D, int bq,
+                                  float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128 && bq == 128) return launch<128, 2>(q, k, v, out, B, S, H, G, scale, st);
-  if (D == 128 && bq == 64) return launch<128, 1>(q, k, v, out, B, S, H, G, scale, st);
-  if (D == 64 && bq == 128) return launch<64, 2>(q, k, v, out, B, S, H, G, scale, st);
-  if (D == 64 && bq == 64) return launch<64, 1>(q, k, v, out, B, S, H, G, scale, st);
+  if (D == 128 && bq == 128) return launch<128, 2>(q, k, v, out, m, l, B, S, H, G, scale, st);
+  if (D == 128 && bq == 64) return launch<128, 1>(q, k, v, out, m, l, B, S, H, G, scale, st);
+  if (D == 64 && bq == 128) return launch<64, 2>(q, k, v, out, m, l, B, S, H, G, scale, st);
+  if (D == 64 && bq == 64) return launch<64, 1>(q, k, v, out, m, l, B, S, H, G, scale, st);
   return (int)cudaErrorInvalidValue;
 }

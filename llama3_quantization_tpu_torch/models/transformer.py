@@ -28,11 +28,9 @@ with `set_decode_kernel("interpret")`:
   between them in JAX (`:394-431`), only checks its mode here. A shape
   turned away is counted (`B5.eager`, `B6.eager`, `B7.eager` in
   `ops/launches.py`). JAX's decode kernels take any rep (they pad the
-  query rows to 8, `decode_attention.py:123,243,325`); B4/B5 and B6 have
-  forms for rep 1, 2, 4 and 8 only, so rep 3 or 6 (24 or 48 query heads
-  over 8 KV heads at D = 128) decodes eagerly on the card where the TPU
-  runs its kernel: a gap in the port's kernel coverage (ROADMAP C), not
-  JAX's route;
+  query rows to 8, `decode_attention.py:123,243,325`); B4/B5 and B6 take
+  any rep up to 8 (their wrappers pad it to a form of 1, 2, 4 or 8), and
+  a rep above 8 decodes eagerly (no port configuration has one);
 - `set_decode_kernel(False)` sends every cached step, on all three caches,
   to the eager attention over the read-back cache and turns the windowed
   decode off (JAX `:374`, `windowed.py:112-123`): the route JAX takes
@@ -296,6 +294,19 @@ def _attention(
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def full_attention(q, k, v, mask, cfg: ModelConfig, rq: RuntimeQuantConfig = NO_QUANT):
+    """Causal attention over the full sequence (no cache): B7 at S >=
+    FLASH_MIN_SEQ where its gate and `b7_takes` let it, the eager
+    `_attention` otherwise (`transformer.py:203-204`, `allow_flash=True`).
+    Differentiable on both routes: under autograd B7 runs with its gradient
+    kernels (`ops/flash_attention.FlashAttentionFn`)."""
+    use_flash = q.shape[1] >= FLASH_MIN_SEQ and _flash_ok(rq)
+    if use_flash and not b7_takes(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_):
+        COUNTS["B7.eager"] += 1
+        use_flash = False
+    return flash_attention(q, k, v) if use_flash else _attention(q, k, v, mask, rq)
+
+
 def _kernel_mask(mask: torch.Tensor, b: int, t: int) -> torch.Tensor:
     """[s=1, T] or per-row [B, 1, T] additive mask -> finite contiguous
     [B, T] for the decode kernel (row b keeps its own mask)."""
@@ -372,11 +383,7 @@ def _attn_block(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if cache is None:
-        use_flash = s >= FLASH_MIN_SEQ and _flash_ok(rq)
-        if use_flash and not b7_takes(cfg.num_heads, cfg.num_kv_heads, hd):
-            COUNTS["B7.eager"] += 1
-            use_flash = False
-        attn = flash_attention(q, k, v) if use_flash else _attention(q, k, v, mask, rq)
+        attn = full_attention(q, k, v, mask, cfg, rq)
     elif "k" in cache:  # fp cache (`transformer.py:500-514,567-593`)
         ck, cv = cache["k"], cache["v"]
         _write_cache_stacked(ck, k, layer, cache_pos)

@@ -31,6 +31,13 @@ points, and `decode_fp_split_plain` is the split algorithm in PyTorch.
 any Pallas kernel: plain tensor ops on either device, selected by
 `models.transformer.set_decode_attn("xla")`.
 
+The kernels hold rep 1, 2, 4 and 8 query heads per K/V head
+(`DECODE_REPS`); the CUDA wrappers take any rep up to 8 by padding each
+group's query rows with zeros up to the next form (3 -> 4, 5/6/7 -> 8, as
+JAX pads them to 8, `:123,243,325`) and slicing o, m and l back. That is
+exact: every row's s8 quantization, softmax and PV are its own, so a zero
+row changes no other row.
+
 The wrappers use the plain version for CPU tensors; for CUDA tensors they
 launch the kernel or raise. `b5_takes` and `b6_takes` are the ranges of
 shapes the kernels take, which their raises and the decode gates in
@@ -107,27 +114,54 @@ def block_size(t: int, block_t: int = 1024) -> int:
     return min(block_t, t)
 
 
-#: query heads per K/V head that the decode kernels' layouts hold
+#: query heads per K/V head that the decode kernels' layouts hold; the
+#: wrappers pad any other rep up to 8 to the next of them (`padded_rep`)
 DECODE_REPS = (1, 2, 4, 8)
+MAX_DECODE_REP = 8
+
+
+def padded_rep(rep: int) -> int:
+    """The kernel form that serves `rep` query heads per K/V head."""
+    return next(r for r in DECODE_REPS if r >= rep)
+
+
+def _pad_rep(q: torch.Tensor, g: int, rp: int) -> torch.Tensor:
+    """q [B, 1, G * rep, D] -> [B, 1, G * rp, D]: each group's query rows
+    followed by zero rows."""
+    b, s, hq, d = q.shape
+    rep = hq // g
+    if rp == rep:
+        return q
+    qg = q.reshape(b, s, g, rep, d)
+    return torch.cat([qg, qg.new_zeros((b, s, g, rp - rep, d))], dim=3).reshape(b, s, g * rp, d)
+
+
+def _unpad_rep(o: torch.Tensor, g: int, rep: int) -> torch.Tensor:
+    """o [B, 1, G * rp, D] -> [B, 1, G * rep, D]."""
+    b, s, hp, d = o.shape
+    if hp == g * rep:
+        return o
+    return o.reshape(b, s, g, hp // g, d)[:, :, :, :rep].reshape(b, s, g * rep, d)
 
 
 def b5_takes(hq: int, g: int, d: int, t: int, block_t: int, int4: bool) -> bool:
     """Does B4/B5 take one token of `hq` query heads over `g` K/V heads of
     head dim `d` against a cache of `t` tokens in T blocks of `block_t`?
-    rep = hq / g in DECODE_REPS, D % 16 == 0 and D <= 256, T a whole
-    number of blocks (of an even length on the int4 pack)."""
+    rep = hq / g of at most 8 (the wrapper pads it to a form of
+    DECODE_REPS), D % 16 == 0 and D <= 256, T a whole number of blocks (of
+    an even length on the int4 pack)."""
     bt = block_size(t, block_t)
-    return (g > 0 and hq % g == 0 and hq // g in DECODE_REPS and d % 16 == 0 and d <= 256
+    return (g > 0 and hq % g == 0 and hq // g <= MAX_DECODE_REP and d % 16 == 0 and d <= 256
             and bt > 0 and t % bt == 0 and not (int4 and bt % 2))
 
 
 def b6_takes(hq: int, g: int, d: int, t: int, block_t: int, dtype) -> bool:
     """Does B6 take one token of `hq` query heads over `g` K/V heads of
     head dim `d` against a `dtype` cache of `t` tokens in T blocks of
-    `block_t`? rep in DECODE_REPS, D % 8 == 0 and D <= 256, T a whole
-    number of blocks, a bf16 or fp32 cache."""
+    `block_t`? rep of at most 8 (padded to a form of DECODE_REPS), D % 8 ==
+    0 and D <= 256, T a whole number of blocks, a bf16 or fp32 cache."""
     bt = block_size(t, block_t)
-    return (g > 0 and hq % g == 0 and hq // g in DECODE_REPS and d % 8 == 0 and d <= 256
+    return (g > 0 and hq % g == 0 and hq // g <= MAX_DECODE_REP and d % 8 == 0 and d <= 256
             and bt > 0 and t % bt == 0 and dtype in (torch.bfloat16, torch.float32))
 
 
@@ -294,7 +328,7 @@ def decode_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=102
     bt = block_size(t, block_t)
     dev = q.device
     if s != 1 or not b5_takes(hq, g, d, t, block_t, int4):
-        raise ValueError(f"B4 takes one token, rep in {DECODE_REPS}, D % 16 == 0, D <= 256 and "
+        raise ValueError(f"B4 takes one token, rep <= {MAX_DECODE_REP}, D % 16 == 0, D <= 256 and "
                          f"T % block == 0 (b5_takes); got S={s}, rep={hq / g}, D={d}, T={t}")
     if q.dtype not in (torch.bfloat16, torch.float32) or not q.is_contiguous():
         raise TypeError("q must be contiguous bfloat16 or float32")
@@ -311,22 +345,25 @@ def decode_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=102
         raise TypeError(f"output dtype must be bfloat16 or float32, got {out_dtype}")
     if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
         raise ValueError("B4 reads k_q and v_q as TMA boxes: 16-byte aligned buffers")
-    out = torch.empty((b, 1, hq, d), dtype=out_dtype, device=dev)
+    rp = padded_rep(rep)
+    qp = _pad_rep(q, g, rp)
+    out = torch.empty((b, 1, g * rp, d), dtype=out_dtype, device=dev)
     m = l = None
     if return_stats:
-        m = torch.empty((b, g, rep), dtype=torch.float32, device=dev)
+        m = torch.empty((b, g, rp), dtype=torch.float32, device=dev)
         l = torch.empty_like(m)
     err = _lib().l3q_decode_s8(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(), k_s.data_ptr(),
+        qp.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(), k_s.data_ptr(),
         v_q.data_ptr(), v_s.data_ptr(), mask.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), None if m is None else m.data_ptr(),
-        None if l is None else l.data_ptr(), b, g, rep, t, d, bt, plan.cluster, int(int4),
+        None if l is None else l.data_ptr(), b, g, rp, t, d, bt, plan.cluster, int(int4),
         float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)), _amax(int4),
         _build.stream_ptr(dev),
     )
     _build.check(err, "decode_s8 (B4/B5)")
     COUNTS[launch_key(int4, return_stats)] += 1
-    return (out, m, l) if return_stats else out
+    out = _unpad_rep(out, g, rep)
+    return (out, m[..., :rep], l[..., :rep]) if return_stats else out
 
 
 def flash_decode_gqa_s8(q, k_q, k_s, v_q, v_s, mask, out_dtype=torch.bfloat16, block_t=1024,
@@ -519,7 +556,7 @@ def decode_fp(q, k, v, mask, block_t=512):
     dev = q.device
     dt = k.dtype
     if s != 1 or not b6_takes(hq, g, d, t, block_t, dt):
-        raise ValueError(f"B6 takes one token, rep in {DECODE_REPS}, D % 8 == 0, D <= 256, "
+        raise ValueError(f"B6 takes one token, rep <= {MAX_DECODE_REP}, D % 8 == 0, D <= 256, "
                          f"T % block == 0 and a bfloat16 or float32 cache (b6_takes); got "
                          f"S={s}, rep={hq / g}, D={d}, T={t}, {dt}")
     for name, x, xdt, shape in (
@@ -532,17 +569,19 @@ def decode_fp(q, k, v, mask, block_t=512):
         raise ValueError("B6 loads k and v rows as 16-byte vectors: 16-byte aligned buffers")
     c = fp_split_chunk(b * g, t, bt)
     nc = t // c
-    out = torch.empty((b, 1, hq, d), dtype=dt, device=dev)
+    rp = padded_rep(rep)
+    qp = _pad_rep(q, g, rp)
+    out = torch.empty((b, 1, g * rp, d), dtype=dt, device=dev)
     # scores, chunk maxima, m_prefix, l partials, PV partials (decode_fp.cu)
-    scratch = torch.empty(b * g * rep * (t + 3 * nc + nc * d), dtype=torch.float32, device=dev)
+    scratch = torch.empty(b * g * rp * (t + 3 * nc + nc * d), dtype=torch.float32, device=dev)
     err = _lib_fp().l3q_decode_fp(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), int(dt == torch.bfloat16), b, g, rep, t, d, bt, c,
+        qp.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), int(dt == torch.bfloat16), b, g, rp, t, d, bt, c,
         float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)), _build.stream_ptr(dev),
     )
     _build.check(err, "decode_fp (B6)")
     COUNTS[fp_launch_key(dt)] += 1
-    return out
+    return _unpad_rep(out, g, rep)
 
 
 def flash_decode_gqa(q, k, v, mask, block_t=512):

@@ -27,11 +27,14 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """`x / c` rounded as one IEEE division on every device, as JAX and the
     kernels round it. PyTorch's CUDA kernel multiplies by the reciprocal of
     a Python-scalar divisor, which is off by one ulp for some x and moves
-    codes that sit on a rounding tie; a 0-dim device tensor divides."""
+    codes that sit on a rounding tie; a 0-dim device tensor divides. The
+    cached divisor is made outside inference mode, so that a later call
+    under autograd may use it."""
     key = (x.device, x.dtype, c)
     d = _DIVISORS.get(key)
     if d is None:
-        d = _DIVISORS[key] = torch.full((), c, dtype=x.dtype, device=x.device)
+        with torch.inference_mode(False):
+            d = _DIVISORS[key] = torch.full((), c, dtype=x.dtype, device=x.device)
     return x / d
 
 

@@ -85,8 +85,16 @@ def _float_or_bf16(dtype: torch.dtype) -> torch.dtype:
     return dtype if dtype.is_floating_point else torch.bfloat16
 
 
-def quantize_rtn(w: torch.Tensor, spec: QuantSpec, pack: bool = False) -> QuantizedTensor:
-    """Round-to-nearest real quantization of a `[K, N]` weight."""
+def quantize_rtn(
+    w: torch.Tensor,
+    spec: QuantSpec,
+    pack: bool = False,
+    lwc_up: Optional[torch.Tensor] = None,
+    lwc_low: Optional[torch.Tensor] = None,
+) -> QuantizedTensor:
+    """Round-to-nearest real quantization of a `[K, N]` weight; under
+    `spec.lwc` the ranges are clipped by the LWC logits (`[N, G, 1]` or
+    `[N, 1]`, as `quantizer.lwc_init` makes them)."""
     k, n = w.shape
     if not spec.enabled:
         raise ValueError("n_bits >= 16 disables quantization; keep the fp weight")
@@ -96,7 +104,7 @@ def quantize_rtn(w: torch.Tensor, spec: QuantSpec, pack: bool = False) -> Quanti
     if k % gs:
         raise ValueError(f"K={k} not divisible by group_size={gs}")
     wt = w.float().T  # [N, K]
-    scale, zp = minmax_scale_zp(wt, spec)  # [N, G, 1] or [N, 1]
+    scale, zp = minmax_scale_zp(wt, spec, lwc_up, lwc_low)  # [N, G, 1] or [N, 1]
     grouped = wt.reshape(n, k // gs, gs)
     q = torch.round(grouped / scale.reshape(n, -1, 1))
     if zp is not None:

@@ -1,6 +1,6 @@
 """The study table's golden rows on the port (counterpart of the root
-`tools/reproduce_study.py:87-183` for the rows `fp`, `rtn`, `rtn_s4` and
-`rtn_a8`).
+`tools/reproduce_study.py:87-183` for the rows `fp`, `rtn`, `gptq`, `awq`,
+`smoothquant`, `omniquant`, `mixed`, `rtn_s4` and `rtn_a8`).
 
 The same recipe as the JAX study: `TINY_LLAMA` with the parameters JAX's
 `init_params(PRNGKey(0), float32)` gives (kept in `tiny_llama_init.npz`
@@ -9,9 +9,11 @@ beside this file, held equal to JAX's by `tests/test_torch_eval.py`),
 calibration windows from the front half and PPL windows from the back
 half, RTN `QuantSpec(4, 32)` (unpacked only under "a8"), SEQLEN 64, 8
 calibration windows, a PPL limit of 24 windows, and piqa / arc_easy
-zero-shot on the documents written out below. `fp` and `rtn` run under the
-"xla" backend (the JAX package's default), `rtn_s4` and `rtn_a8` under
-"s4" and "a8".
+zero-shot on the documents written out below, each method with the root
+study's kwargs (`KWARGS`: GPTQ and mixed at blocksize 32, OmniQuant for one
+epoch). `fp`, `rtn` and the calibration quantizers run under the "xla"
+backend (the JAX package's default), `rtn_s4` and `rtn_a8` under "s4" and
+"a8".
 
     python -m llama3_quantization_tpu_torch.tools.reproduce_study            # on the card
     python -m llama3_quantization_tpu_torch.tools.reproduce_study --device cpu --check
@@ -38,7 +40,10 @@ GOLDEN = REPO / "tests" / "fixtures" / "golden_study.json"
 CORPUS = REPO / "tests" / "fixtures" / "wikitext2_slice.txt"
 
 #: the rows the port reproduces, each with its matmul backend
-ROWS = {"fp": "xla", "rtn": "xla", "rtn_s4": "s4", "rtn_a8": "a8"}
+ROWS = {"fp": "xla", "rtn": "xla", "gptq": "xla", "awq": "xla", "smoothquant": "xla",
+        "omniquant": "xla", "mixed": "xla", "rtn_s4": "s4", "rtn_a8": "a8"}
+#: each method's kwargs, the root study's (`tools/reproduce_study.py:38-57`)
+KWARGS = {"gptq": {"blocksize": 32}, "omniquant": {"epochs": 1}, "mixed": {"blocksize": 32}}
 
 SEQLEN = 64
 NSAMPLES_CALIB = 8
@@ -70,10 +75,15 @@ TASK_DATA = {
 
 def load_tiny_params(device="cuda"):
     """JAX's `init_params(TINY_LLAMA, PRNGKey(0), float32)`, from the npz."""
+    return load_params_npz(PARAMS_NPZ, device)
+
+
+def load_params_npz(path, device="cuda"):
+    """A parameter tree from an npz of flattened `a/b/c` keys (JAX layout)."""
     from ..convert import params_from_numpy
 
     tree: Dict = {}
-    with np.load(PARAMS_NPZ) as z:
+    with np.load(path) as z:
         for key in z.files:
             node = tree
             *path, leaf = key.split("/")
@@ -137,7 +147,8 @@ def run_study(methods: Optional[Iterable[str]] = None, device="cuda", params=Non
             qp = params
         else:
             qp = quantize(params, cfg, method=base, spec=spec, calib_tokens=calib,
-                          pack=exec_backend != "a8")  # a8 takes unpacked s8 containers
+                          pack=exec_backend != "a8",  # a8 takes unpacked s8 containers
+                          **KWARGS.get(method, {}))
         with mm.backend(exec_backend), torch.inference_mode():
             ppl = compute_ppl(qp, cfg, testenc, seqlen=SEQLEN, limit=PPL_LIMIT)
             lm = TorchLM(qp, cfg, Tok(tok), batch_size=4, max_length=SEQLEN, device=dev)

@@ -589,6 +589,77 @@ def test_flash_kernel_matches_plain(cuda_device, s, d, b, rep):
     assert bool((row_err <= 2e-2 * row_max).all()), float((row_err / row_max).max())
 
 
+@pytest.mark.parametrize("b,s,h,g,d", [(1, 128, 8, 2, 128), (2, 320, 6, 2, 64)])
+def test_flash_backward_kernels_match_plain(cuda_device, b, s, h, g, d):
+    """B7.stats, B7.dkv and B7.dq, bf16 (rep 4 on whole tiles; rep 3 on a
+    ragged S): o row by row within 2e-2 of its max|ref|, m within 1e-6 *
+    max(1, |m|), l within 1e-5 * l; dq, dk, dv (fed the kernel's own o, m,
+    l) row by row within 2e-2 of the larger of its max|ref| and its largest
+    single term (`backward_terms`); each launch counted once; two calls
+    bit-equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, do = (torch.randn((b, s, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, g, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    launches.reset()
+    o, m, l = fa.flash_attention_stats_cuda(q, k, v)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, do, m, l)
+    counts = launches.snapshot()
+    assert (counts["B7.stats"], counts["B7.dkv"], counts["B7.dq"], counts["B7"]) == (1, 1, 1, 0)
+    ro, rm, rl = fa.attention_stats_plain(q, k, v)
+    row_err, row_max = (o.float() - ro.float()).abs().amax(-1), ro.float().abs().amax(-1)
+    assert bool((row_err <= 2e-2 * row_max).all())
+    assert bool(((m - rm).abs() <= 1e-6 * rm.abs().clamp(min=1)).all())
+    assert bool(((l - rl).abs() <= 1e-5 * rl).all())
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, do, m, l)
+    for got, ref, term in zip(grads, refs, fa.backward_terms(q, k, v, o, do, m, l)):
+        row_err = (got.float() - ref.float()).abs().amax(-1)
+        scale = torch.maximum(ref.float().abs().amax(-1), term)
+        assert bool((row_err <= 2e-2 * scale).all()), float((row_err / scale).max())
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, do, m, l)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+def test_omniquant_step_through_the_kernels_matches_eager(cuda_device):
+    """One OmniQuant LWC step (W4 g32, fp32 weights, S = 256, batch 2) on a
+    llama of head dim 64: through B7.stats, B7.dkv and B7.dq (one launch
+    each) against the same step under `set_flash(False)` (the eager
+    attention under autograd): loss within 1e-3 relative, LWC gradients
+    within 2e-2 in ||diff|| / ||ref|| (B7 rounds q, k, v, p and ds to
+    bf16)."""
+    from llama3_quantization_tpu_torch.models import transformer as TT
+    from llama3_quantization_tpu_torch.quant import calibration as TC
+    from llama3_quantization_tpu_torch.quant import omniquant as TO
+
+    cfg = dataclasses.replace(P.TINY_LLAMA, hidden_size=128, num_heads=2, num_kv_heads=1)
+    params = _to(P.init_params(cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+                               device="cpu"), cuda_device)
+    p_l = TC._layer_slice(params["layers"], 0)
+    ocfg = TO.OmniConfig(wspec=P.QuantSpec(n_bits=4, group_size=32, lwc=True))
+    aux = {"lwc": TO.init_layer_lwc(p_l, cfg, ocfg.wspec)}
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    h, target = (torch.randn((2, 256, 128), generator=gen, device=cuda_device) for _ in range(2))
+    cos_sin = TT.rope_cos_sin(torch.arange(256, device=cuda_device)[None], 64, cfg.rope_theta,
+                              torch.float32, cfg.rope_scaling_)
+    mask = TT.causal_mask(256, device=cuda_device)
+    step = lambda: TO.omni_loss_and_grads(aux, p_l, h, target, target, cfg, ocfg,  # noqa: E731
+                                          TT.NO_QUANT, cos_sin, mask)
+    launches.reset()
+    loss, grads = step()
+    counts = launches.snapshot()
+    assert (counts["B7.stats"], counts["B7.dkv"], counts["B7.dq"]) == (1, 1, 1)
+    TT.set_flash(False)
+    try:
+        rloss, rgrads = step()
+    finally:
+        TT.set_flash("auto")
+    assert abs(float(loss) - float(rloss)) <= 1e-3 * abs(float(rloss))
+    got = torch.cat([x.flatten() for x in TO._aux_leaves(grads)])
+    ref = torch.cat([x.flatten() for x in TO._aux_leaves(rgrads)])
+    assert float((got - ref).norm() / ref.norm()) <= 2e-2
+
+
 def test_tiny_model_on_card_matches_cpu(cuda_device):
     """TINY_LLAMA W4 g32 (fp32 activations): the card's prefill and decode
     logits track the CPU's (plain versions) and every kernel but B7 (S < 128)
@@ -755,10 +826,10 @@ def test_c2_tiny_forward_at_128(cuda_device):
 @pytest.mark.parametrize("rep", [3, 6])
 @pytest.mark.parametrize("bits", [8, 4, False])
 def test_c2_rep_outside_the_decode_kernels(cuda_device, rep, bits):
-    """rep 3 and 6 (B4/B5 and B6 take 1, 2, 4, 8) on the int8, int4 and fp32
-    caches: every single-token step takes the eager attention (counted, no
-    B5 or B6 form launched), greedy_generate falls back from the windowed
-    decode, and prefill and step logits track the CPU's: within 1e-2 of
+    """rep 3 and 6 (B4/B5 and B6 pad them to their rep-4 and rep-8 forms) on
+    the int8, int4 and fp32 caches: every single-token step launches the
+    cache's decode kernel (none turned away to the eager attention), and
+    prefill and step logits track the CPU's: within 1e-2 of
     their scale on the fp32 cache (B1/B2's bf16 inputs), within B7's bound
     (2e-2 of each row's own max) on the int8 and int4 caches, where a KV
     code that rounds the other way on the card moves a row further (an int4
@@ -782,8 +853,8 @@ def test_c2_rep_outside_the_decode_kernels(cuda_device, rep, bits):
     gpu = run(cuda_device)
     counts = launches.snapshot()
     forms = ("B6", "B6.f32") if bits is False else ("B5", "B5.stats", "B5.int4", "B5.int4.stats")
-    assert all(counts[k] == 0 for k in forms)
-    assert counts["B6.eager" if bits is False else "B5.eager"] == 6 * cfg.num_layers
+    assert sum(counts[k] for k in forms) >= 6 * cfg.num_layers
+    assert counts["B6.eager"] == counts["B5.eager"] == 0
     for got, ref in zip(gpu[:3], cpu[:3]):
         if bits is False:
             torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * float(ref.abs().max()))

@@ -9,11 +9,14 @@ and the study's golden rows.
 - `windowed_nll_fn`, `compute_ppl` and `eval_ppl_suite` against JAX's on
   the same parameters (fp32, the "xla" backend on both sides, RTN W4 g32
   and fp), relative error <= 1e-5.
-- `api.quantize`: "rtn" is `quantize_model_rtn` (packed or not); every
-  other method of JAX's list raises `NotImplementedError`; JAX's argument
+- `api.quantize`: "rtn" is `quantize_model_rtn` (packed or not); GPTQ,
+  AWQ, SmoothQuant, OmniQuant and mixed dispatch and quantize every decoder
+  linear; HQQ and IR-QLoRA raise `NotImplementedError`; JAX's argument
   checks hold.
-- `tools/reproduce_study.run_study`: the `fp`, `rtn`, `rtn_s4` and
-  `rtn_a8` rows against `tests/fixtures/golden_study.json` directly,
+- `tools/reproduce_study.run_study`: every row of `ROWS` (`fp`, `rtn`,
+  `gptq`, `awq`, `smoothquant`, `omniquant`, `mixed`, `rtn_s4`, `rtn_a8`,
+  each with the root study's kwargs) against
+  `tests/fixtures/golden_study.json` directly,
   within |got - golden| <= 2e-3 * max(1, |golden|); its parameter npz
   equals JAX's `init_params(TINY_LLAMA, PRNGKey(0), float32)` bit for bit.
 """
@@ -42,6 +45,7 @@ from llama3_quantization_tpu_torch.models import configs as tcfg
 from llama3_quantization_tpu_torch.models.params import quantize_model_rtn as t_rtn
 from llama3_quantization_tpu_torch.ops import matmul as tmm
 from llama3_quantization_tpu_torch.quant.quantizer import QuantSpec
+from llama3_quantization_tpu_torch.quant.qtensor import QuantizedTensor
 from llama3_quantization_tpu_torch.tools import reproduce_study as study
 from test_torch_model import to_numpy_tree
 
@@ -195,10 +199,21 @@ def test_quantize_rtn_is_quantize_model_rtn(tiny, pack):
 
 @pytest.mark.parametrize("method", [m for m in api.METHODS if m != "rtn"])
 def test_quantize_other_methods_wait_for_the_quantizers(tiny, method):
+    """HQQ and IR-QLoRA wait for the next quantizer slice; the calibration
+    quantizers dispatch as JAX's (every decoder linear quantized, packed
+    where asked; mixed keeps unpacked containers)."""
     _, tp = tiny["fp"]
     calib = np.zeros((2, 16), np.int32)
-    with pytest.raises(NotImplementedError, match="A 3"):
-        api.quantize(tp, TCFG, method, calib_tokens=calib)
+    if method in ("hqq", "irqlora"):
+        with pytest.raises(NotImplementedError, match="A 3"):
+            api.quantize(tp, TCFG, method, calib_tokens=calib)
+        return
+    kw = {"epochs": 1} if method == "omniquant" else {}
+    out = api.quantize(tp, TCFG, method, QuantSpec(n_bits=4, group_size=32), calib_tokens=calib,
+                       **kw)
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        w = out["layers"][name]["w"]
+        assert isinstance(w, QuantizedTensor) and w.packed == (method != "mixed")
 
 
 def test_quantize_checks_like_jax(tiny):
@@ -243,6 +258,7 @@ def test_study_settings_are_the_root_studys():
         root.SEQLEN, root.NSAMPLES_CALIB, root.PPL_LIMIT)
     assert study.TASK_DATA == root.TASK_DATA
     assert set(study.ROWS) <= set(root.METHODS)
+    assert all(study.KWARGS.get(m, {}) == root.METHODS[m] for m in study.ROWS if m != "fp")
 
 
 @pytest.fixture(scope="module")

@@ -16,10 +16,11 @@
   group size fits; each padded call is counted.
 - The attention gates against JAX's eager route (the route JAX's gates
   take for these shapes): `TINY_LLAMA` `forward_logits` at S = 128 (D =
-  16, which B7 does not take) and decode on int8, int4 and fp caches of a
-  llama with rep 3 and 6 (which B4/B5 and B6 do not take): logits within
-  1e-5 of max|logit|, greedy tokens identical, the turned-away calls
-  counted (`B7.eager`, `B5.eager`, `B6.eager`), and no windowed decode.
+  16, which B7 does not take; logits within 1e-5 of max|logit|, the
+  turned-away calls counted in `B7.eager`), and decode on int8, int4 and
+  fp caches of a llama with rep 3 and 6, which B4/B5 and B6 take by
+  padding the query rows: JAX's interpreted kernel route's logits within
+  1e-5 of max|logit| and its greedy tokens, none turned away.
 """
 
 import dataclasses
@@ -112,8 +113,8 @@ B5_TABLE = [  # (hq, g, d, t, block_t, int4), takes
     ((32, 8, 128, 512, 512, False), True),
     ((32, 8, 128, 2048, 1024, True), True),
     ((4, 2, 16, 64, 512, False), True),       # TINY_LLAMA
-    ((24, 8, 128, 512, 512, False), False),   # rep 3
-    ((48, 8, 128, 512, 512, True), False),    # rep 6
+    ((24, 8, 128, 512, 512, False), True),    # rep 3: padded to 4
+    ((48, 8, 128, 512, 512, True), True),     # rep 6: padded to 8
     ((64, 8, 128, 512, 512, False), True),    # rep 8
     ((128, 8, 128, 512, 512, False), False),  # rep 16
     ((71, 1, 64, 512, 512, False), False),    # FALCON_7B: rep 71
@@ -130,8 +131,8 @@ B6_TABLE = [  # (hq, g, d, t, block_t, dtype), takes
     ((32, 8, 128, 512, 512, torch.float32), True),
     ((32, 8, 128, 512, 512, torch.float16), False),
     ((4, 2, 16, 64, 512, torch.bfloat16), True),
-    ((24, 8, 128, 512, 512, torch.bfloat16), False),  # rep 3
-    ((48, 8, 128, 512, 512, torch.bfloat16), False),  # rep 6
+    ((24, 8, 128, 512, 512, torch.bfloat16), True),   # rep 3: padded to 4
+    ((48, 8, 128, 512, 512, torch.bfloat16), True),   # rep 6: padded to 8
     ((32, 8, 24, 512, 512, torch.bfloat16), True),    # D % 8
     ((32, 8, 20, 512, 512, torch.bfloat16), False),
     ((32, 8, 264, 512, 512, torch.bfloat16), False),
@@ -477,13 +478,15 @@ def rep_models(request):
 
 @pytest.mark.parametrize("bits", [8, 4, False])
 def test_rep_outside_the_decode_kernels_takes_the_eager_route(rep_models, bits):
-    """rep 3 and 6 on the int8, int4 and fp caches: every single-token step
-    is turned away from B5 / B6 to the eager path (counted), no window is
-    taken, and the greedy tokens and logits are JAX's on its eager route."""
+    """rep 3 and 6 on the int8, int4 and fp caches, which B4/B5 and B6 now
+    take by padding each group's query rows to the next form (4, 8): every
+    single-token step takes the cache's decode kernel (its plain version
+    here; none turned away), and the greedy tokens and logits are JAX's on
+    its interpreted kernel route, whose kernels pad rep to 8 themselves."""
     jcfg_, tcfg_, jparams, tparams = rep_models
     prompt = np.random.default_rng(3).integers(0, jcfg_.vocab_size, (1, 9))
     jcache = JT.init_kv_cache(jcfg_, 1, 64, dtype=jnp.float32, quantized=bits)
-    JT.set_decode_kernel(False)
+    JT.set_decode_kernel("interpret")
     try:
         jl, jcache = JT.decode_step(jparams, jcache, jnp.asarray(prompt), 0, jcfg_)
         jt, _ = JT.greedy_generate(jparams, jcache, jnp.argmax(jl[:, -1], -1)[:, None], 9, 6,
@@ -491,12 +494,10 @@ def test_rep_outside_the_decode_kernels_takes_the_eager_route(rep_models, bits):
     finally:
         JT.set_decode_kernel("auto")
     tcache = TT.init_kv_cache(tcfg_, 1, 64, dtype=torch.float32, quantized=bits, device="cpu")
-    assert not TW.windowed_ok(tcfg_, tcache)
     tl, tcache = TT.decode_step(tparams, tcache, torch.from_numpy(prompt), 0, tcfg_)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=1e-5 * np.abs(np.asarray(jl)).max())
     launches.reset()
     tt, _ = TT.greedy_generate(tparams, tcache, tl[:, -1].argmax(-1)[:, None], 9, 6, tcfg_)
     assert tt.tolist() == np.asarray(jt).tolist()
-    key = "B6.eager" if bits is False else "B5.eager"
-    assert launches.COUNTS[key] == 6 * tcfg_.num_layers
+    assert launches.COUNTS["B6.eager"] == launches.COUNTS["B5.eager"] == 0

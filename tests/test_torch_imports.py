@@ -125,6 +125,56 @@ def test_port_runs_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_quantizers_run_with_jax_blocked(tmp_path):
+    """The calibration quantizers (GPTQ, mixed, SmoothQuant, AWQ,
+    OmniQuant with LWC and LET), B7's gradient, `utils/pytree_io` and the
+    act-stats tool run with JAX and the JAX package blocked."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["llama3_quantization_tpu"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch import api
+        from llama3_quantization_tpu_torch.ops import flash_attention as fa
+        from llama3_quantization_tpu_torch.quant import (awq, calibration, gptq, mixed, omniquant,
+                                                          smoothing, smoothquant)
+        from llama3_quantization_tpu_torch.tools import generate_act_stats
+        from llama3_quantization_tpu_torch.utils import pytree_io
+
+        cfg = P.TINY_LLAMA
+        params = P.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                               device="cpu")
+        calib = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+        spec = P.QuantSpec(n_bits=4, group_size=32)
+        for method, kw in (("gptq", {{"blocksize": 32}}), ("mixed", {{"blocksize": 32}}),
+                           ("awq", {{}}), ("smoothquant", {{}}),
+                           ("omniquant", {{"epochs": 1, "let": True}})):
+            out = api.quantize(params, cfg, method, spec, calib_tokens=calib, **kw)
+            assert isinstance(out["layers"]["down"]["w"], P.QuantizedTensor), method
+        q = torch.randn(1, 128, 4, 64, requires_grad=True)
+        k = torch.randn(1, 128, 2, 64, requires_grad=True)
+        fa.flash_attention(q, k, k).sum().backward()
+        assert q.grad is not None and k.grad is not None
+        tree = {{"a": torch.ones(2), "b": {{"c": torch.zeros(3)}}}}
+        pytree_io.save_pytree_npz("{tmp_path}/t.npz", tree)
+        assert torch.equal(pytree_io.load_pytree_npz("{tmp_path}/t.npz", tree)["b"]["c"],
+                           tree["b"]["c"])
+        generate_act_stats.main(["--device", "cpu", "--nsamples", "2", "--seqlen", "16",
+                                 "--out", "{tmp_path}/s.npz"])
+        assert len(smoothquant.load_act_stats("{tmp_path}/s.npz")) == cfg.num_layers
+        assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_gemv_plans_and_wrappers_run_with_jax_blocked():
     """The GEMV forms' plans, their CPU routes and the wrappers' checks (B1
     in `ops/fused_qmatmul.py`, B3's GEMV form in `ops/qmatmul_a8.py`, the

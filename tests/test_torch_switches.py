@@ -214,7 +214,8 @@ def test_predicate_routing():
     TT.set_stacked_decode("auto")
     rq = TT.RuntimeQuantConfig(k=TT.QuantSpec(n_bits=8))
     assert not TT._stacked_decode_ok(rq, cache_fp, 1, hq)
-    assert not TT._stacked_decode_ok(TT.NO_QUANT, cache_fp, 1, 3 * TCFG.num_kv_heads)  # rep 3
+    assert TT._stacked_decode_ok(TT.NO_QUANT, cache_fp, 1, 3 * TCFG.num_kv_heads)  # rep 3: padded
+    assert not TT._stacked_decode_ok(TT.NO_QUANT, cache_fp, 1, 16 * TCFG.num_kv_heads)  # rep 16
     for mod in (JT, TT):
         with pytest.raises(ValueError):
             mod.set_stacked_decode("on")
