@@ -7,7 +7,10 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --profile       # also profile decode steps and serving windows
     python3 chip_smoke.py --prefill-bench # --kernel-bench, B2 at M = 128-2048, forward_logits (pallas, s4, a8)
     python3 chip_smoke.py --kernel-bench  # only time the B5 forms, B2 W4/W3 gate/up (L2-warm and cold),
-                                          # B6, B3.gemm, B7, and the GEMVs (B1, B3.v3, B3.s4, B3.s8)
+                                          # B6, B3.gemm, B7, B7.stats/dkv/dq at OmniQuant's shape
+                                          # beside SDPA, and the GEMVs (B1, B3.v3, B3.s4, B3.s8)
+    python3 chip_smoke.py --kernel-bench b7grad  # only B7.stats, B7.dkv and B7.dq (groups: b5 b2
+                                                 # b6 b3 b7 b7grad gemv)
     python3 chip_smoke.py --serve-profile # only one 8-slot serving window by kernel (pallas int8/fp, a8)
     python3 chip_smoke.py --decode-drift  # only the full-depth B5, B6 and B3 kernel-vs-plain decodes
     python3 chip_smoke.py --microbench    # only the weight-stream probes B8-B10 and their entry points
@@ -115,6 +118,7 @@ those phases' share with `--kernel-bench`, e.g.
     L3Q_ABLATE=9 python3 chip_smoke.py --kernel-bench  # B3 without unpack, B7 without V loads
     L3Q_ABLATE=256 python3 chip_smoke.py --kernel-bench  # the GEMVs' copies alone
     L3Q_ABLATE=512 python3 chip_smoke.py --kernel-bench  # B5's copies alone
+    L3Q_ABLATE=2048 python3 chip_smoke.py --kernel-bench b7grad  # B7.dkv's and B7.dq's copies alone
     L3Q_ABLATE=1024 python3 chip_smoke.py --microbench   # B9's and B10's copies alone
 
 Under `L3Q_ABLATE`, `--microbench` skips the probes' checks and oracles
@@ -126,6 +130,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1019,9 +1024,11 @@ def check_flash(P, gen, results):
 
 #: (B, S, H, G, D) of the B7.stats, B7.dkv and B7.dq checks: OmniQuant's
 #: block training at Llama-3-8B width (batch 2, S = 2048), one q tile of
-#: rows at S = 128, D = 64, and rep 3 (24 query heads over 8)
+#: rows at S = 128, D = 64, rep 3 (24 query heads over 8), and the ragged
+#: S = 200 (neither B7.dkv's 128-key nor the 64-row tiles divide it)
 OMNI_ATTN = (2, 2048, 32, 8, 128)
-FLASH_BWD_CASES = ((1, 128, 32, 8, 128), OMNI_ATTN, (1, 512, 32, 8, 64), (1, 256, 24, 8, 128))
+FLASH_BWD_CASES = ((1, 128, 32, 8, 128), OMNI_ATTN, (1, 512, 32, 8, 64), (1, 256, 24, 8, 128),
+                   (1, 200, 32, 8, 128))
 
 
 def rows_within(name, got, ref, tol, floor=None):
@@ -2424,24 +2431,47 @@ def clock_line() -> str:
     return out.stdout.strip() or out.stderr.strip()
 
 
-def kernel_bench(P, card, gen):
-    """The four B5 forms at T = 512 and 2048 (`time_b5`) and B5 under other
-    cluster caps (`bench_b5_clusters`); B2 on W4 and W3
-    (bit planes) gate/up at M = 128 with one weight (L2-warm: 29 MB and 22
-    MB of codes fit the 50 MB L2) and with four
-    copies cycling (cold), with the SM clock beside; B6 at its timed shapes
-    beside SDPA; B3's tiled form (s4 and per-column s8 fused gate-up, o and
-    down at M = 128, 512 and 2048) beside bf16 `torch.matmul`; B7 at S =
-    128, 512, 2048 and 8192 beside SDPA. Only the checkout's own package is
-    imported, so running this from two checkouts in one call compares their
-    designs on one card."""
-    import torch
-    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+#: `--kernel-bench`'s groups, in the order they run
+BENCH_GROUPS = ("b5", "b2", "b6", "b3", "b7", "b7grad", "gemv")
 
+
+def kernel_bench(P, card, gen, groups=BENCH_GROUPS):
+    """The benches of `groups`, in BENCH_GROUPS' order: the four B5 forms
+    at T = 512 and 2048 and B5 under other cluster caps ("b5"); B2 W4/W3
+    gate/up at M = 128, L2-warm and cold ("b2"); B6 beside SDPA ("b6");
+    B3's tiled form beside bf16 `torch.matmul` ("b3"); B7 at S = 128, 512,
+    2048 and 8192 beside SDPA ("b7"); B7.stats, B7.dkv and B7.dq at
+    OmniQuant's shape beside SDPA's forward and backward ("b7grad"); the
+    GEMVs ("gemv"). Only the checkout's own package is imported, so running
+    this from two checkouts in one call compares their designs on one
+    card."""
+    benches = {
+        "b5": lambda: bench_b5(P, card, gen), "b2": lambda: bench_b2(P, card, gen),
+        "b6": lambda: bench_b6(card, gen), "b3": lambda: bench_b3_gemm(P, card, gen),
+        "b7": lambda: bench_b7(card, gen), "b7grad": lambda: bench_b7_grad(card, gen),
+        "gemv": lambda: bench_gemv(P, card, gen),
+    }
+    for group in BENCH_GROUPS:
+        if group in groups:
+            benches[group]()
+
+
+def bench_b5(P, card, gen):
+    """The four B5 forms at T = 512 and 2048 (`time_b5`) and B5 under other
+    cluster caps (`bench_b5_clusters`)."""
     for key, b, t, ms, _, nbytes, ops, shape in time_b5(P, gen):
         b_ms, by = bound_ms(nbytes, ops, INT8_OPS)
         log(f"kernel bench: {key} {shape}: {ms:.4f} ms, bound {b_ms:.5f} ms ({by})  [{card}]")
     bench_b5_clusters(P, card, gen)
+
+
+def bench_b2(P, card, gen):
+    """B2 on W4 and W3 (bit planes) gate/up at M = 128 with one weight
+    (L2-warm: 29 MB and 22 MB of codes fit the 50 MB L2) and with four
+    copies cycling (cold), with the SM clock beside."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
     k, n = LINEAR_SHAPES["gate/up"]
     for bits in (4, 3):
         qts = [P.quantize_rtn(torch.randn((k, n), generator=gen, device="cuda"),
@@ -2454,12 +2484,13 @@ def kernel_bench(P, card, gen):
                 f"{'copy (L2-warm)' if copies == 1 else 'copies (cold)'}: {ms:.4f} ms device "
                 f"time; sm clock, max, power, temperature: {clock_line()}  [{card}]")
         del qts
+
+
+def bench_b6(card, gen):
+    """B6 at its timed shapes (`time_b6`) beside SDPA."""
     for b, t, stacked, ms, _, lib_ms in time_b6(gen):
         log(f"kernel bench: B6 B={b} T={t} {'stacked' if stacked else 'per-layer'}: {ms:.4f} ms "
             f"(CUDA graph, events), SDPA {lib_ms:.4f} ms  [{card}]")
-    bench_b3_gemm(P, card, gen)
-    bench_b7(card, gen)
-    bench_gemv(P, card, gen)
 
 
 def bench_b5_clusters(P, card, gen):
@@ -2697,16 +2728,15 @@ def time_by_kernel(fn, iters: int, names, warmup: int = 2):
     return out
 
 
-def time_b7_grad(card, launches_total, errs, gen, add):
-    """B7.stats, B7.dkv and B7.dq at OmniQuant's shape (B = 2, S = 2048, H =
-    32, G = 8, D = 128, bf16): kernel device time by kernel name, the plain
-    versions' (the plain backward computes dq, dk and dv in one call: its
-    time stands in both rows), and SDPA (causal, `enable_gqa`) as the
-    library: its forward for B7.stats, its backward alone (autograd of a
-    kept graph, the forward excluded) in both backward rows. Bounds: bytes
-    each input read once and each output written once; FLOPs 2 * D per
-    causal (q, k) pair for each product: 2 in the forward, 4 in B7.dkv
-    (q k^T, do v^T, p^T do, ds^T q), 3 in B7.dq (q k^T, do v^T, ds k)."""
+def b7_grad_times(gen):
+    """B7.stats, B7.dkv and B7.dq at OmniQuant's shape (`OMNI_ATTN`: B = 2,
+    S = 2048, H = 32, G = 8, D = 128, bf16 causal): each kernel's device
+    time by name (torch.profiler), SDPA's (causal, `enable_gqa`) forward and
+    its backward alone (autograd of a kept graph, the forward excluded), the
+    inputs, and the bounds' bytes and FLOPs: each input read once and each
+    output written once; 2 * D FLOPs per causal (q, k) pair for each
+    product, 2 in the forward, 4 in B7.dkv (q k^T, do v^T, p^T do, ds^T q)
+    and 3 in B7.dq (q k^T, do v^T, ds k)."""
     import torch
     import torch.nn.functional as F
     from llama3_quantization_tpu_torch.ops import flash_attention as fa
@@ -2717,20 +2747,50 @@ def time_b7_grad(card, launches_total, errs, gen, add):
     o, m, l = fa.flash_attention_stats_cuda(q, k, v)
     pairs = b * h * s * (s + 1) / 2
     io = 2 * b * s * d * (2 * h + 2 * g)  # q, k, v, do (or o) in bf16
-    stats_ms = time_by_kernel(lambda: fa.flash_attention_stats_cuda(q, k, v), 20,
-                              ["flash_fwd_kernel"])["flash_fwd_kernel"]
+    out = {"inputs": (q, k, v, o, do, m, l)}
+    out["stats"] = time_by_kernel(lambda: fa.flash_attention_stats_cuda(q, k, v), 20,
+                                  ["flash_fwd_kernel"])["flash_fwd_kernel"]
     bwd = time_by_kernel(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, m, l), 10,
                          ["flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"])
+    out["dkv"], out["dq"] = bwd["flash_bwd_dkv_kernel"], bwd["flash_bwd_dq_kernel"]
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    out["lib_fwd"] = time_ms(lambda i: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), 20)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (qh, kh, vh)]
+    res = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    doh = do.transpose(1, 2).contiguous()
+    out["lib_bwd"] = time_ms(lambda i: torch.autograd.grad(res, leaves, doh, retain_graph=True), 10)
+    out["bytes"] = {"stats": io + 8 * b * h * s, "dkv": io + 12 * b * h * s + 4 * b * s * g * d,
+                    "dq": io + 12 * b * h * s + 2 * b * s * h * d}
+    out["flops"] = {"stats": 4 * d * pairs, "dkv": 8 * d * pairs, "dq": 6 * d * pairs}
+    return out
+
+
+def bench_b7_grad(card, gen):
+    """`b7_grad_times` logged beside the bounds and SDPA (the quick parent
+    against tree comparison of B7's gradient kernels)."""
+    t = b7_grad_times(gen)
+    label = "B={} S={} H={} G={} D={}".format(*OMNI_ATTN)
+    for key, name, lib in (("stats", "B7.stats", "lib_fwd"), ("dkv", "B7.dkv", "lib_bwd"),
+                           ("dq", "B7.dq", "lib_bwd")):
+        b_ms, by = bound_ms(t["bytes"][key], t["flops"][key], BF16_FLOPS)
+        sdpa = "SDPA forward" if key == "stats" else "SDPA backward"
+        log(f"kernel bench: {name} {label} bf16 causal: {t[key]:.4f} ms, bound {b_ms:.4f} ms "
+            f"({by}, {b_ms / t[key]:.1%} of it), {sdpa} {t[lib]:.4f} ms  [{card}]")
+
+
+def time_b7_grad(card, launches_total, errs, gen, add):
+    """The kernels line's rows of B7.stats, B7.dkv and B7.dq: `b7_grad_times`
+    and the plain versions' times (the plain backward computes dq, dk and dv
+    in one call: its time stands in both rows); SDPA's forward is the
+    library of B7.stats, its backward alone that of both backward rows."""
+    from llama3_quantization_tpu_torch.ops import flash_attention as fa
+
+    t = b7_grad_times(gen)
+    q, k, v, o, do, m, l = t["inputs"]
     plain_fwd = time_ms(lambda i: fa.attention_stats_plain(q, k, v), 3, warmup=1)
     plain_bwd = time_ms(lambda i: fa.flash_attention_bwd_plain(q, k, v, o, do, m, l), 2, warmup=1)
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_fwd = time_ms(lambda i: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                               enable_gqa=True), 20)
-    leaves = [x.detach().clone().requires_grad_(True) for x in (qh, kh, vh)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-    doh = do.transpose(1, 2).contiguous()
-    lib_bwd = time_ms(lambda i: torch.autograd.grad(out, leaves, doh, retain_graph=True), 10)
-    label = f"B={b} S={s} H={h} G={g} D={d}"
+    label = "B={} S={} H={} G={} D={}".format(*OMNI_ATTN)
     shape = f"{label} bf16 causal (OmniQuant's block training at Llama-3-8B width)"
     src = "llama3_quantization_tpu_torch/csrc/"
     lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -2738,17 +2798,14 @@ def time_b7_grad(card, launches_total, errs, gen, add):
     dq_err = max(v_ for k_, v_ in errs.get("B7.dq", {}).items() if k_.startswith(label))
     return [
         add("B7.stats", "flash_attn_fwd with m, l", src + "flash_attention.cu", lib + ":758",
-            shape + " (library: SDPA forward)", stats_ms, plain_fwd,
-            2 * b * s * d * (2 * h + 2 * g) + 8 * b * h * s, 4 * d * pairs, BF16_FLOPS, lib_fwd,
-            errs["B7.stats"][label]),
+            shape + " (library: SDPA forward)", t["stats"], plain_fwd, t["bytes"]["stats"],
+            t["flops"]["stats"], BF16_FLOPS, t["lib_fwd"], errs["B7.stats"][label]),
         add("B7.dkv", "flash_attn_bwd_dkv", src + "flash_attention_bwd.cu", lib + ":796",
-            shape + " (plain: the whole backward; library: SDPA backward)",
-            bwd["flash_bwd_dkv_kernel"], plain_bwd, io + 12 * b * h * s + 4 * b * s * g * d,
-            8 * d * pairs, BF16_FLOPS, lib_bwd, dkv_err),
+            shape + " (plain: the whole backward; library: SDPA backward)", t["dkv"], plain_bwd,
+            t["bytes"]["dkv"], t["flops"]["dkv"], BF16_FLOPS, t["lib_bwd"], dkv_err),
         add("B7.dq", "flash_attn_bwd_dq", src + "flash_attention_bwd.cu", lib + ":1146",
-            shape + " (plain: the whole backward; library: SDPA backward)",
-            bwd["flash_bwd_dq_kernel"], plain_bwd, io + 12 * b * h * s + 2 * b * s * h * d,
-            6 * d * pairs, BF16_FLOPS, lib_bwd, dq_err),
+            shape + " (plain: the whole backward; library: SDPA backward)", t["dq"], plain_bwd,
+            t["bytes"]["dq"], t["flops"]["dq"], BF16_FLOPS, t["lib_bwd"], dq_err),
     ]
 
 
@@ -3041,14 +3098,16 @@ def main() -> int:
                     help="only --kernel-bench, B2 at M = 128, 512, 2048 and forward_logits at "
                          "S = 512, 2048 under the pallas, s4 and a8 backends (run it from two "
                          "checkouts in one call to compare them)")
-    ap.add_argument("--kernel-bench", action="store_true",
-                    help="only time the B5 forms at T = 512 and 2048, B2 W4/W3 gate/up at M = "
-                         "128 (L2-warm and cold), B6 beside "
-                         "SDPA, B3's tiled form (s4, per-column s8: gate-up, o, down at M = 128, "
-                         "512, 2048) beside torch.matmul, B7 (S = 128 to 8192) beside SDPA, and "
-                         "the GEMV forms (B1 at M = 1, 5, 8, 64; B3.v3 and B3.s4 at M = 1, "
-                         "B3.s8 at M = 8) beside torch.matmul (run it from two checkouts in one "
-                         "call to compare them)")
+    ap.add_argument("--kernel-bench", nargs="*", choices=BENCH_GROUPS, metavar="GROUP",
+                    help="only time the B5 forms at T = 512 and 2048 (b5), B2 W4/W3 gate/up at "
+                         "M = 128, L2-warm and cold (b2), B6 beside SDPA (b6), B3's tiled form "
+                         "(s4, per-column s8: gate-up, o, down at M = 128, 512, 2048) beside "
+                         "torch.matmul (b3), B7 (S = 128 to 8192) beside SDPA (b7), B7.stats, "
+                         "B7.dkv and B7.dq at OmniQuant's shape beside SDPA's forward and "
+                         "backward (b7grad), and the GEMV forms (B1 at M = 1, 5, 8, 64; B3.v3 "
+                         "and B3.s4 at M = 1, B3.s8 at M = 8) beside torch.matmul (gemv); the "
+                         "GROUPs named, else all (run it from two checkouts in one call to "
+                         "compare them)")
     ap.add_argument("--serve-profile", action="store_true",
                     help="only profile one 8-slot serving window by kernel: pallas on the int8 "
                          "and the fp cache, fused a8 (run it from two checkouts in one call to "
@@ -3094,14 +3153,19 @@ def main() -> int:
     reports = _build.build_all()
     log(f"kernels built in {time.time() - t0:.1f} s")
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            fn = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if fn:
+                entry = fn.group(1)
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas {name} {entry}: {line.strip()}")
     if args.prefill_bench:
         prefill_bench(P, card)
         return 0
-    if args.kernel_bench:
-        kernel_bench(P, card, torch.Generator(device="cuda").manual_seed(SEED + 6))
+    if args.kernel_bench is not None:
+        kernel_bench(P, card, torch.Generator(device="cuda").manual_seed(SEED + 6),
+                     args.kernel_bench or BENCH_GROUPS)
         return 0
     if args.serve_profile:
         serve_profile(P, card)

@@ -16,8 +16,10 @@
 // and B3's GEMV form): 64 the unpack, 128 the mma.sync, 256 all compute
 // (copies only); B4/B5: 512 all compute and the cluster exchanges (copies
 // only); B9/B10 (the weight-stream probes): 1024 all compute, the
-// exchanges and the epilogue (copies only). `ops/_build.py` passes it from
-// the environment variable of the same name.
+// exchanges and the epilogue (copies only); B7.dkv and B7.dq: 2048 every
+// wgmma, exp and epilogue product (copies only: the TMA ring, the rows'
+// statistics, the stores). `ops/_build.py` passes it from the environment
+// variable of the same name.
 #ifndef L3Q_ABLATE
 #define L3Q_ABLATE 0
 #endif

@@ -12,7 +12,13 @@ Differentiating through it replaces the library's `jax.custom_vjp`
 the forward with `save_residuals=True` (B7.stats: B7's launch also writing
 each row's max m and unnormalised sum l), then `_flash_attention_dkv_kernel`
 (B7.dkv) and `_flash_attention_dq_kernel` (B7.dq), both in
-`csrc/flash_attention_bwd.cu`. `FlashAttentionFn` is that gradient:
+`csrc/flash_attention_bwd.cu`: TMA rings and `wgmma` products, as B7's
+forward. B7.dkv runs a block per (128 keys, K/V group, batch), two
+warpgroups of 64 keys holding dK and dV in fp32 across the group's rep
+heads while 64-row Q and dO tiles stream through a ring; B7.dq a block per
+(128 q rows, head, batch), K and V tiles of 64 keys streaming past Q and
+dO. `python3 chip_smoke.py --kernel-bench` times both (and B7.stats) at
+OmniQuant's shape beside SDPA. `FlashAttentionFn` is that gradient:
 `flash_attention` takes it only when grad is enabled and an input requires
 grad, so inference, eval and serving keep B7's launch as it was.
 `attention_stats_plain` and `flash_attention_bwd_plain` are the plain

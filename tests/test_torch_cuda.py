@@ -589,10 +589,12 @@ def test_flash_kernel_matches_plain(cuda_device, s, d, b, rep):
     assert bool((row_err <= 2e-2 * row_max).all()), float((row_err / row_max).max())
 
 
-@pytest.mark.parametrize("b,s,h,g,d", [(1, 128, 8, 2, 128), (2, 320, 6, 2, 64)])
+@pytest.mark.parametrize("b,s,h,g,d", [(1, 128, 8, 2, 128), (2, 320, 6, 2, 64),
+                                       (1, 200, 8, 2, 128)])
 def test_flash_backward_kernels_match_plain(cuda_device, b, s, h, g, d):
     """B7.stats, B7.dkv and B7.dq, bf16 (rep 4 on whole tiles; rep 3 on a
-    ragged S): o row by row within 2e-2 of its max|ref|, m within 1e-6 *
+    ragged S; rep 4 at S = 200, which neither B7.dkv's 128-key tiles nor
+    the 64-row tiles divide): o row by row within 2e-2 of its max|ref|, m within 1e-6 *
     max(1, |m|), l within 1e-5 * l; dq, dk, dv (fed the kernel's own o, m,
     l) row by row within 2e-2 of the larger of its max|ref| and its largest
     single term (`backward_terms`); each launch counted once; two calls
