@@ -14,6 +14,8 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --serve-profile # only one 8-slot serving window by kernel (pallas int8/fp, a8)
     python3 chip_smoke.py --decode-drift  # only the full-depth B5, B6 and B3 kernel-vs-plain decodes
     python3 chip_smoke.py --microbench    # only the weight-stream probes B8-B10 and their entry points
+    python3 chip_smoke.py --cli           # only the kernel checks, phase 10 (the CLI slice) and the
+                                          # golden rows
 
 Phases, in order; any failure exits non-zero:
   1. require CUDA and print the card's name and power limit;
@@ -23,6 +25,8 @@ Phases, in order; any failure exits non-zero:
      the main paths' shapes, with the tolerances stated below: B1 at M = 1,
      2, 5, 8, 16, 33 and 64 on the four decoder linears and on 2-bit, 4-bit,
      int8 and uint8 codes at group sizes 32, 64, 128 and K on a ragged N,
+     B1 at M = 1 and 8 and B2 at M = 128 and 2048 on HQQ W4 weights (the
+     continuous float zeros of `hqq_solve`, g64 and g128, the four linears),
      B1's batch invariance (rows of M = 8 and 64 bit-equal to the M = 1
      calls), B2 at M = 65, 128, 200 and 512, B2 on 3-bit planes at the same
      M, B2's batch invariance (rows 0..7 of M = 128 and M = 72 bit-equal),
@@ -104,7 +108,19 @@ Phases, in order; any failure exits non-zero:
      oracle (< 1e-5) and the unpack numerics (u8 dot2 / cat < 1e-5, bf16 <
      2e-2 of the fake-quant oracle);
   9. time each kernel form, its plain version and a library yardstick, with
-     the least time the card could take for the same work (its bound).
+     the least time the card could take for the same work (its bound);
+ 10. the CLI slice (`drive_cli`, run before the RTN paths of 7): `cli.main`
+     in this process with `--net llama3-8b --quant_method hqq --wbits 4
+     --group_size 128 --eval_ppl` over 2 windows of 2048 (fp32 weights,
+     full depth, pallas: B2 and B7), the PPL against B1's and B2's plain
+     versions (|d ln PPL| <= 1e-2) and the xla route (reported); a
+     checkpoint at 8B width and 2 layers through `--save_dir`, reloaded bit
+     for bit; HQQ at full depth on the default engine (fp cache, B1 at M =
+     8 and B6, pipelined = sequential) and 32 greedy steps on the int8 cache
+     (B5, decode vs forward < 0.15); IR-QLoRA at 8B width and 2 layers
+     (tau_n = 100): `icq_search` on the card against the CPU, PPL over 2
+     windows (B7), 8 greedy steps on the fp cache (B6). The golden rows
+     (phase 7's) include `hqq` and `irqlora`.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel form that a path should run and did not, or one it
@@ -2178,6 +2194,285 @@ def drive_quantize(P, card):
     return sum_counts(counts)
 
 
+def check_qmatmul_hqq(P, gen, results):
+    """B1 at M = 1 and 8 and B2 at M = 128 and 2048 on HQQ W4 weights: the
+    continuous float zeros of `hqq_solve` on seeded random-normal weights, at
+    group sizes 64 and 128, on every decoder linear shape; B2 rounds each
+    zero to bf16 as JAX's kernel does (`pallas_qmatmul.py:98`), its plain
+    version too."""
+    import math
+
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+    from llama3_quantization_tpu_torch.quant.hqq import hqq_quantize_weight
+
+    for label, (k, n) in LINEAR_SHAPES.items():
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        for gs in (64, 128):
+            qt = hqq_quantize_weight(w, P.QuantSpec(n_bits=4, group_size=gs), pack=True)
+            frac = float((qt.zero - qt.zero.round()).abs().mean())
+            if not frac > 0.01:
+                raise AssertionError(f"HQQ g{gs} {label}: zeros not continuous ({frac})")
+            for kid, m in HQQ_QMM_CASES:
+                kern, plain = ((fq.qmm_gemv, fq.qmm_gemv_plain) if kid == "B1"
+                               else (fq.qmm_gemm, fq.qmm_gemm_plain))
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                compare(f"{kid} HQQ g{gs} {label} M={m} fp32-out", kern(x, qt, torch.float32),
+                        plain(x, qt, torch.float32), 1e-4)
+                err = compare(f"{kid} HQQ g{gs} {label} M={m} bf16-out",
+                              kern(x, qt, torch.bfloat16), plain(x, qt, torch.bfloat16), 1e-2)
+                results.setdefault(kid, {})[f"HQQ g{gs} {label} M={m}"] = err
+        del w
+
+
+#: (kernel id, M) of the HQQ-weight checks: decode and the 8-slot engine
+#: (B1), a 128-token prefill and a PPL window of 2048 (B2)
+HQQ_QMM_CASES = (("B1", 1), ("B1", 8), ("B2", 128), ("B2", 2048))
+#: the CLI's `--seed` default: `--net` parameters come from this seed
+CLI_SEED = 2
+
+
+def cli_run(P, counts, label, argv, must=()):
+    """`cli.main(argv)` in this process, counted; returns (the results JSON
+    it printed last, the quantized tree and the seconds `api.quantize`
+    took)."""
+    import contextlib
+    import io
+
+    import torch
+    from llama3_quantization_tpu_torch import api, cli
+
+    seen = {}
+    orig = api.quantize
+
+    def spy(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen["params"] = orig(*a, **k)
+        torch.cuda.synchronize()
+        seen["secs"] = time.perf_counter() - t0
+        return seen["params"]
+
+    out = io.StringIO()
+    api.quantize = spy
+    try:
+        with contextlib.redirect_stdout(out):
+            run_counted(counts, label, lambda: cli.main(argv), must=must)
+    finally:
+        api.quantize = orig
+    lines = out.getvalue().strip().splitlines()
+    log(f"  cli.main {' '.join(argv)}: printed {lines[-1]}")
+    return json.loads(lines[-1]), seen.get("params"), seen.get("secs")
+
+
+def icq_card_vs_cpu(w, tau_n=10):
+    """`icq_search` on the card against the same call on the CPU: the
+    chosen factor equal on >= 99% of blocks and, where it is equal, the
+    codes, absmax and tau codes equal; returns (equal share, blocks)."""
+    import torch
+    from llama3_quantization_tpu_torch.quant import irqlora as TI
+
+    def run(x):
+        wb = x.float().reshape(-1, 256, 64)
+        tau0 = TI._median(wb)
+        absmax0 = (wb - tau0).abs().amax(dim=2, keepdim=True)
+        factors = torch.from_numpy(TI.icq_factors(0.1, tau_n)).to(x.device)
+        best = TI.icq_best(wb, tau0, absmax0, factors)
+        return best.cpu(), TI.icq_search(x, tau_range=0.1, tau_n=tau_n)
+
+    best_g, qg = run(w)
+    best_c, qc = run(w.cpu())
+    same = best_g == best_c
+    share = float(same.float().mean())
+    codes = (qg.codes.cpu() == qc.codes).all(-1).reshape(same.shape)
+    absmax = (qg.absmax.cpu() == qc.absmax).reshape(same.shape)
+    tau = (qg.tau_codes.cpu() == qc.tau_codes).reshape(same.shape)
+    if not (share >= 0.99 and bool((codes & absmax & tau)[same].all())):
+        raise AssertionError(f"icq_search card vs CPU: factor equal on {share:.4f} of blocks; "
+                             f"outputs equal where it is: {bool((codes & absmax & tau)[same].all())}")
+    return share, same.numel()
+
+
+def drive_cli(P, card):
+    """Phase 10, the CLI slice:
+
+    1. `cli.main` in this process at full Llama-3-8B width and depth: `--net
+       llama3-8b` (fp32, seed 2), HQQ W4 g128 packed, `--eval_ppl` over 2
+       windows of 2048 (`--limit 2`, JAX's `default_rng(0)` ids) on the
+       port's default backend (pallas: B2 and B7); the results line parses,
+       the PPL is finite, and no call leaves its kernel. The same windows
+       through B1's and B2's plain versions with the eager attention: |d ln
+       PPL| <= EVAL_LN_PPL_TOL; through the xla route: reported.
+    2. A checkpoint at 8B width, depth cut to 2 layers: `cli.main ... --save_dir`
+       (HQQ W4 g128 packed), `load_checkpoint` into the same model rebuilt
+       here: every leaf and `forward_logits` [1, 128] bit-equal. The
+       directory is removed afterwards.
+    3. HQQ W4 g128 at full depth (bf16, the random-normal weights
+       `build_rtn_params` starts from) on the decode paths: the default
+       engine (fp cache) pipelined = sequential on B1 at M = 8 and B6; a
+       128-token prefill and 32 greedy steps on the int8 cache (B5), decode
+       against the teacher-forced forward < 0.15.
+    4. IR-QLoRA at 8B width, 2 layers, the reference's tau_n = 100: ICQ
+       seconds a layer; `icq_search` on the card against the CPU on layer
+       0's k projection at tau_n = 10 (`icq_card_vs_cpu`); `compute_ppl`
+       over 2 windows of 2048 (B7) and 8 greedy steps on the fp cache (B6),
+       decode against forward < 0.15."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from llama3_quantization_tpu_torch import api
+    from llama3_quantization_tpu_torch.eval import compute_ppl
+    from llama3_quantization_tpu_torch.models import configs as TCFG
+    from llama3_quantization_tpu_torch.models.hf_loader import load_checkpoint
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+    from llama3_quantization_tpu_torch.utils.pytree_io import tree_leaves
+
+    counts, checks = {}, {}
+    cfg = P.LLAMA3_8B
+    spec = P.QuantSpec(n_bits=4, group_size=GS)
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="l3q_cli_")
+    try:
+        # 1. the CLI's PPL run at full width and depth
+        argv = ["--net", "llama3-8b", "--quant_method", "hqq", "--wbits", "4", "--group_size",
+                str(GS), "--eval_ppl", "--ppl_datasets", "wikitext2", "--seqlen", "2048",
+                "--limit", "2", "--output_json", os.path.join(tmp, "results.json")]
+        res, hq, secs = cli_run(P, counts, "cli.main --net llama3-8b hqq W4 g128 --eval_ppl "
+                                "(2 windows of 2048, pallas)", argv, must=("B2", "B7"))
+        ppl = res["wikitext2"]
+        if not (math.isfinite(ppl) and json.loads(open(argv[-1]).read()) == res):
+            raise AssertionError(f"cli.main: PPL {ppl}, or --output_json differs from stdout")
+        log(f"  HQQ W4 g128, {cfg.num_layers} layers (fp32 weights): {secs:.2f} s, "
+            f"{secs / cfg.num_layers:.3f} s a layer  [{card}]")
+        stream = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2048 * 4))
+        orig = fq.qmm_gemv, fq.qmm_gemm
+        P.set_flash(False)
+        try:
+            fq.qmm_gemv, fq.qmm_gemm = fq.qmm_gemv_plain, fq.qmm_gemm_plain
+            ppl_plain = run_counted(checks, "HQQ PPL, B1/B2 plain, eager attention (check)",
+                                    lambda: compute_ppl(hq, cfg, stream, seqlen=2048, limit=2),
+                                    never=("B1", "B2", "B7"))
+            fq.qmm_gemv, fq.qmm_gemm = orig
+            with P.backend("xla"):
+                ppl_xla = run_counted(checks, "HQQ PPL, xla route (check)",
+                                      lambda: compute_ppl(hq, cfg, stream, seqlen=2048, limit=2),
+                                      never=("B1", "B2", "B7"))
+        finally:
+            fq.qmm_gemv, fq.qmm_gemm = orig
+            P.set_flash("auto")
+        d_plain = abs(math.log(ppl) - math.log(ppl_plain))
+        d_xla = abs(math.log(ppl) - math.log(ppl_xla))
+        log(f"  HQQ PPL (2 windows of 2048): kernels {ppl:.4f}, plain versions {ppl_plain:.4f} "
+            f"(|d ln PPL| {d_plain:.3e}, limit {EVAL_LN_PPL_TOL:g}), xla route {ppl_xla:.4f} "
+            f"(|d ln PPL| {d_xla:.3e}, reported: B2 rounds HQQ's float zeros to bf16)  [{card}]")
+        if not d_plain <= EVAL_LN_PPL_TOL:
+            raise AssertionError(f"HQQ PPL kernels {ppl} against plain {ppl_plain}")
+        del hq
+        torch.cuda.empty_cache()
+
+        # 2. a checkpoint at 8B width, 2 layers, through --save_dir
+        small = quantize_cfg(P)
+        name = "llama3-8b-2layers"
+        ckpt = os.path.join(tmp, "ckpt")
+        TCFG.NAMED_CONFIGS[name] = small
+        try:
+            (_, saved, _), dt = timed(lambda: cli_run(
+                P, checks, "cli.main --net llama3-8b (2 layers) hqq --save_dir (check)",
+                ["--net", name, "--quant_method", "hqq", "--wbits", "4", "--group_size", str(GS),
+                 "--save_dir", ckpt]))
+        finally:
+            del TCFG.NAMED_CONFIGS[name]
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        like = api.quantize(P.init_params(small, torch.Generator(device="cuda").manual_seed(
+            CLI_SEED), dtype=torch.float32), small, "hqq", spec)
+        loaded, dt_load = timed(lambda: load_checkpoint(ckpt, like))
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(saved), tree_leaves(loaded)))
+        rebuilt = all(torch.equal(a, b) for a, b in zip(tree_leaves(saved), tree_leaves(like)))
+        toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator(
+            device="cuda").manual_seed(SEED + 12), device="cuda")
+        with torch.inference_mode():
+            a, b = P.forward_logits(saved, toks, small), P.forward_logits(loaded, toks, small)
+        log(f"  checkpoint (8B width, 2 layers, HQQ W4 g128 packed): {size / 2**30:.2f} GiB "
+            f"written with the run in {dt:.1f} s, loaded in {dt_load:.1f} s; leaves bit-equal "
+            f"{same} (rebuilt model {rebuilt}); forward_logits [1, 128] bit-equal "
+            f"{bool(torch.equal(a, b))}  [{card}]")
+        if not (same and torch.equal(a, b)):
+            raise AssertionError("checkpoint round trip is not bit-equal")
+        shutil.rmtree(ckpt)
+        del saved, like, loaded, a, b
+        torch.cuda.empty_cache()
+
+        # 3. HQQ at full depth on the decode paths
+        t0 = time.time()
+        fp = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 4))
+        hq = api.quantize(fp, cfg, "hqq", spec)
+        del fp
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"  HQQ W4 g128 (bf16 random-normal weights, {cfg.num_layers} layers) in "
+            f"{time.time() - t0:.2f} s")
+        serve_and_compare(P, hq, cfg, card, "HQQ serve fp", counts, FP_MUST, min_distinct=64,
+                          quantized_cache=False, never=B5_KEYS)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+        cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
+        lg, cache = P.decode_step(hq, cache, prompt, 0, cfg)
+        first = lg[:, -1].argmax(dim=-1)[:, None]
+        toks, _ = run_counted(counts, "HQQ greedy_generate 32 steps (int8 cache)",
+                              lambda: P.greedy_generate(hq, cache, first, 128, 32, cfg),
+                              must=("B1", "B5"), never=("B6",))
+        rel = decode_vs_forward(P, hq, cfg, prompt, torch.cat([first, toks[:, :8]], 1), 8)
+        log(f"  HQQ greedy decode (int8 cache): {len(set(toks[0].tolist()))} distinct tokens in "
+            f"32; decode-vs-forward max rel logit error {rel:.3e} (limit 0.15)")
+        if not rel < 0.15:
+            raise AssertionError(f"HQQ decode/forward divergence: rel err {rel:.4f}")
+        del hq, cache
+        torch.cuda.empty_cache()
+
+        # 4. IR-QLoRA at 8B width, 2 layers, tau_n = 100
+        fp = P.init_params(small, torch.Generator(device="cuda").manual_seed(SEED + 7))
+        share, blocks = icq_card_vs_cpu(fp["layers"]["k"]["w"][0])
+        log(f"  icq_search card vs CPU (k projection [4096, 1024], tau_n 10): chosen factor "
+            f"equal on {share:.4f} of {blocks} blocks; codes, absmax, tau codes equal there")
+        stamps = [time.perf_counter()]
+
+        def tick(l, n):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            log(f"  ICQ layer {l}/{n} (tau_n 100, 201 factors): {stamps[-1] - stamps[-2]:.2f} s  "
+                f"[{card}]")
+
+        ir = api.quantize(fp, small, "irqlora", progress=tick)
+        moved = float((ir["layers"]["down"]["w"].float() - fp["layers"]["down"]["w"].float())
+                      .abs().max())
+        del fp
+        ppl_ir = run_counted(counts, "IR-QLoRA compute_ppl [1, 2048] x 2 (B7)",
+                             lambda: compute_ppl(ir, small, stream, seqlen=2048, limit=2),
+                             must=("B7",))
+        cache = P.init_kv_cache(small, 1, 512)
+        lg, cache = P.decode_step(ir, cache, prompt, 0, small)
+        first = lg[:, -1].argmax(dim=-1)[:, None]
+        toks, _ = run_counted(counts, "IR-QLoRA greedy_generate 8 steps (fp cache)",
+                              lambda: P.greedy_generate(ir, cache, first, 128, 8, small),
+                              must=("B6",), never=B5_KEYS)
+        rel = decode_vs_forward(P, ir, small, prompt, torch.cat([first, toks], 1), False)
+        log(f"  IR-QLoRA (2 layers, weights moved up to {moved:.3e}): PPL {ppl_ir:.4f} over 2 "
+            f"windows; greedy decode (fp cache) vs forward max rel logit error {rel:.3e} "
+            f"(limit 0.15)  [{card}]")
+        if not (math.isfinite(ppl_ir) and moved > 0 and rel < 0.15):
+            raise AssertionError(f"IR-QLoRA: PPL {ppl_ir}, moved {moved}, rel err {rel}")
+        del ir, cache
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 10 (the CLI slice) in {time.time() - t_phase:.1f} s  [{card}]")
+    return sum_counts(counts)
+
+
 def to_device(tree, device):
     """A parameter tree (dicts of tensors and QuantizedTensors) on `device`."""
     import dataclasses
@@ -2196,8 +2491,9 @@ GOLDEN_REL = 2e-3
 
 
 def drive_golden(P, card):
-    """The study's golden rows on the card: `run_study(["fp", "rtn",
-    "rtn_s4", "rtn_a8"], device="cuda")` (TINY_LLAMA fp32, PPL over 24
+    """The study's golden rows on the card: `run_study(list(ROWS),
+    device="cuda")`, every decoder row (fp, rtn, gptq, awq, smoothquant,
+    omniquant, hqq, irqlora, mixed, rtn_s4, rtn_a8; TINY_LLAMA fp32, PPL over 24
     windows of 64 tokens, piqa and arc_easy zero-shot) against
     `tests/fixtures/golden_study.json` within |got - golden| <= 2e-3 *
     max(1, |golden|). The s4 and a8 rows run B3."""
@@ -3122,6 +3418,11 @@ def main() -> int:
                     help="only build and check the kernels, then the calibration quantizers at "
                          "Llama-3-8B width (GPTQ, OmniQuant through B7's gradient) and the "
                          "study's golden rows")
+    ap.add_argument("--cli", action="store_true",
+                    help="only build and check the kernels (HQQ weights on B1 and B2 among "
+                         "them), then phase 10 (the CLI at full Llama-3-8B width and depth with "
+                         "HQQ, a checkpoint round trip, HQQ on the decode paths, IR-QLoRA) and "
+                         "the study's golden rows")
     ap.add_argument("--microbench", action="store_true",
                     help="only check, drive and time the weight-stream probes B8-B10 through "
                          "the microbench entry points")
@@ -3189,6 +3490,7 @@ def main() -> int:
         }}), flush=True)
         return 0
     check_qmatmul(P, gen, errs)
+    check_qmatmul_hqq(P, gen, errs)
     check_b1_forms(P, gen)
     check_b1_batch_invariance(P, gen)
     check_b2_w3(P, gen, errs)
@@ -3218,6 +3520,14 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
         }}), flush=True)
         return 0
+    if args.cli:
+        paths = [drive_cli(P, card), drive_golden(P, card)]
+        total = {key: sum(p[key] for p in paths) for key in paths[0]}
+        log(f"launches: {json.dumps(total)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        }}), flush=True)
+        return 0
     if args.eval:
         golden = drive_golden(P, card)
         params = build_rtn_params(P)
@@ -3237,6 +3547,7 @@ def main() -> int:
     paths.append(drive_a8_serving(P, card, profile=args.profile))
     paths.append(drive_golden(P, card))
     paths.append(drive_quantize(P, card))
+    paths.append(drive_cli(P, card))
     params = build_rtn_params(P)
     paths.append(drive_rtn_checks(P, params, card))
     paths.append(drive_routes(P, params, card))

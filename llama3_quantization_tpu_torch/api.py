@@ -2,9 +2,9 @@
 one entry point over the quantization algorithms.
 
 `quantize` keeps JAX's signature, checks and dispatch (`api.py:61-111`):
-RTN, GPTQ, AWQ, SmoothQuant (+ RTN), OmniQuant and observer-driven mixed
-precision. HQQ and IR-QLoRA raise `NotImplementedError` until the next
-quantizer slice (ROADMAP A 3).
+RTN, GPTQ, AWQ, SmoothQuant (+ RTN), HQQ, OmniQuant, IR-QLoRA (the spec
+ignored: the NF4 codebook fixes 4 bits) and observer-driven mixed
+precision.
 """
 
 from __future__ import annotations
@@ -69,9 +69,12 @@ def quantize(
         if upgraded:
             print(f"[mixed] upgraded: {sorted(upgraded)}", file=sys.stderr)
         return out
-    if method in ("hqq", "irqlora"):
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP A 3: HQQ, NF4 and IR-QLoRA are the "
-            "next quantizer slice)"
-        )
+    if method == "hqq":
+        from .quant.hqq import hqq_quantize_model
+
+        return hqq_quantize_model(params, cfg, spec, pack=pack, **kwargs)
+    if method == "irqlora":
+        from .quant.irqlora import irqlora_quantize_model
+
+        return irqlora_quantize_model(params, cfg, **kwargs)
     raise ValueError(f"unknown method {method!r}; choose from {METHODS}")

@@ -13,6 +13,7 @@ from .base import (  # noqa: F401
     Task,
     rf,
 )
+from .caching import CachingLM  # noqa: F401
 from .evaluator import evaluate, make_table, pattern_match, simple_evaluate  # noqa: F401
 from .lm import BaseLM, TorchLM  # noqa: F401
 from .tasks import TASK_REGISTRY, get_task_dict  # noqa: F401

@@ -1,0 +1,316 @@
+"""HF checkpoint directories and the port's own checkpoints (port of
+`llama3_quantization_tpu/models/hf_loader.py`, for llama).
+
+`from_hf_checkpoint` reads a local HF directory (config.json and its
+safetensors shards, or the torch `.bin` fallback) into the stacked-layer
+parameter tree, weights transposed to `[in, out]`; `save_hf_checkpoint`
+writes the inverse. The safetensors format is read and written here (an
+8-byte little-endian header length, a JSON header, then the raw bytes),
+so that neither `safetensors` nor `transformers` is needed; F32, F16 and
+BF16 come back as torch tensors (numpy has no bfloat16, torch has).
+`config_from_hf` is a copy of the JAX package's (framework-free), held
+equal by `tests/test_torch_checkpoint.py`.
+
+`save_checkpoint` / `load_checkpoint` keep JAX's layout: `params.npz`
+(`utils/pytree_io.py`, leaf i of the tree in JAX's order as `leaf_{i}`,
+QuantizedTensors included) and `manifest.json` with the config, so a
+directory either package writes loads in the other. JAX's orbax
+checkpoints (`save_checkpoint_orbax`, sharded pod saves) wait for
+`torch.distributed.checkpoint` (ROADMAP A 5). The OPT, Falcon and Mixtral
+branches wait for the other architectures (ROADMAP A 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import struct
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .configs import ModelConfig
+
+
+def config_from_hf(path: str) -> ModelConfig:
+    """Translate a HF config.json into a ModelConfig."""
+    with open(os.path.join(path, "config.json")) as f:
+        raw = json.load(f)
+    mt = raw.get("model_type", "llama")
+    # HF `rope_scaling` (Llama-3.1 "llama3" NTK-by-parts, or "linear");
+    # ignoring this silently breaks long-context logits parity.
+    rs = raw.get("rope_scaling") or {}
+    rs_kind = rs.get("rope_type", rs.get("type"))
+    if rs_kind == "default":
+        rs_kind = None
+    rope_scaling_fields = dict(
+        rope_scaling_type=rs_kind,
+        rope_scaling_factor=rs.get("factor", 1.0),
+        rope_low_freq_factor=rs.get("low_freq_factor", 1.0),
+        rope_high_freq_factor=rs.get("high_freq_factor", 4.0),
+        rope_original_max_pos=rs.get("original_max_position_embeddings", 8192),
+    )
+    if mt == "llama":
+        return ModelConfig(
+            arch="llama",
+            **rope_scaling_fields,
+            vocab_size=raw["vocab_size"],
+            hidden_size=raw["hidden_size"],
+            intermediate_size=raw["intermediate_size"],
+            num_layers=raw["num_hidden_layers"],
+            num_heads=raw["num_attention_heads"],
+            num_kv_heads=raw.get("num_key_value_heads", raw["num_attention_heads"]),
+            max_position_embeddings=raw.get("max_position_embeddings", 8192),
+            rope_theta=raw.get("rope_theta", 10000.0),
+            rms_norm_eps=raw.get("rms_norm_eps", 1e-5),
+            tie_word_embeddings=raw.get("tie_word_embeddings", False),
+        )
+    if mt == "mixtral":
+        return ModelConfig(
+            arch="mixtral",
+            vocab_size=raw["vocab_size"],
+            hidden_size=raw["hidden_size"],
+            intermediate_size=raw["intermediate_size"],
+            num_layers=raw["num_hidden_layers"],
+            num_heads=raw["num_attention_heads"],
+            num_kv_heads=raw.get("num_key_value_heads", raw["num_attention_heads"]),
+            max_position_embeddings=raw.get("max_position_embeddings", 32768),
+            rope_theta=raw.get("rope_theta", 1e6),
+            rms_norm_eps=raw.get("rms_norm_eps", 1e-5),
+            num_experts=raw.get("num_local_experts", 8),
+            num_experts_per_tok=raw.get("num_experts_per_tok", 2),
+            tie_word_embeddings=raw.get("tie_word_embeddings", False),
+        )
+    if mt in ("falcon", "RefinedWeb", "RefinedWebModel"):
+        n_heads = raw.get("num_attention_heads", raw.get("n_head"))
+        # HF FalconAttention's precedence: `num_kv_heads` only applies under
+        # new_decoder_architecture; otherwise multi_query forces 1 KV head
+        # (the config still serializes num_kv_heads == num_attention_heads).
+        if raw.get("new_decoder_architecture", False):
+            n_kv = raw.get("num_kv_heads") or raw.get("n_head_kv") or n_heads
+        elif raw.get("multi_query", True):
+            n_kv = 1
+        else:
+            n_kv = n_heads
+        return ModelConfig(
+            arch="falcon",
+            vocab_size=raw["vocab_size"],
+            hidden_size=raw["hidden_size"],
+            intermediate_size=4 * raw["hidden_size"],
+            num_layers=raw.get("num_hidden_layers", raw.get("n_layer")),
+            num_heads=n_heads,
+            num_kv_heads=n_kv,
+            max_position_embeddings=raw.get("max_position_embeddings", 2048),
+            rope_theta=raw.get("rope_theta", 10000.0),
+            activation="gelu",
+            parallel_block=raw.get("parallel_attn", True),
+            tie_word_embeddings=raw.get("tie_word_embeddings", False),
+        )
+    if mt == "opt":
+        return ModelConfig(
+            arch="opt",
+            vocab_size=raw["vocab_size"],
+            hidden_size=raw["hidden_size"],
+            intermediate_size=raw["ffn_dim"],
+            num_layers=raw["num_hidden_layers"],
+            num_heads=raw["num_attention_heads"],
+            num_kv_heads=raw["num_attention_heads"],
+            max_position_embeddings=raw["max_position_embeddings"],
+            activation="relu",
+            tie_word_embeddings=raw.get("tie_word_embeddings", True),
+            do_layer_norm_before=raw.get("do_layer_norm_before", True),
+        )
+    raise ValueError(f"unsupported model_type {mt}")
+
+
+# ---------------------------------------------------------------------------
+# safetensors: u64 little-endian header length, JSON header, raw bytes
+# ---------------------------------------------------------------------------
+
+#: safetensors dtype name -> (torch dtype, numpy dtype of the same bytes)
+ST_DTYPES = {
+    "F32": (torch.float32, np.float32),
+    "F16": (torch.float16, np.float16),
+    "BF16": (torch.bfloat16, np.uint16),
+}
+_ST_NAMES = {t: name for name, (t, _) in ST_DTYPES.items()}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of one safetensors file, as CPU tensors."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in ST_DTYPES:
+            raise ValueError(f"{path}: {name} is {info['dtype']}; weights are F32, F16 or BF16")
+        tdtype, ndtype = ST_DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        arr = np.array(data[begin:end]).view(ndtype).reshape(info["shape"])
+        out[name] = torch.from_numpy(arr).view(tdtype)
+    del data
+    return out
+
+
+def write_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> None:
+    """Write `tensors` as `safetensors.torch.save_file` lays them out: by
+    element size (largest first), then by name; a compact JSON header padded
+    with spaces to 8 bytes."""
+    tensors = {k: v.detach().contiguous().cpu() for k, v in tensors.items()}
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header, offset = {}, 0
+    for name in order:
+        t = tensors[name]
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name in order:
+            f.write(tensors[name].reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def _load_tensors(path: str) -> Dict[str, torch.Tensor]:
+    """Read all weight shards (safetensors preferred, torch .bin fallback)."""
+    tensors: Dict[str, torch.Tensor] = {}
+    st_files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if st_files:
+        for fname in st_files:
+            tensors.update(read_safetensors(os.path.join(path, fname)))
+        return tensors
+    bin_files = sorted(f for f in os.listdir(path) if f.endswith(".bin"))
+    if not bin_files:
+        raise FileNotFoundError(f"no safetensors/bin shards in {path}")
+    for fname in bin_files:
+        sd = torch.load(os.path.join(path, fname), map_location="cpu", weights_only=True)
+        tensors.update(sd)
+    return tensors
+
+
+# HF parameter name templates: ours -> (template, transpose)
+_LLAMA_LAYER = {
+    "q": ("model.layers.{i}.self_attn.q_proj.weight", True),
+    "k": ("model.layers.{i}.self_attn.k_proj.weight", True),
+    "v": ("model.layers.{i}.self_attn.v_proj.weight", True),
+    "o": ("model.layers.{i}.self_attn.o_proj.weight", True),
+    "gate": ("model.layers.{i}.mlp.gate_proj.weight", True),
+    "up": ("model.layers.{i}.mlp.up_proj.weight", True),
+    "down": ("model.layers.{i}.mlp.down_proj.weight", True),
+    "ln1.w": ("model.layers.{i}.input_layernorm.weight", False),
+    "ln2.w": ("model.layers.{i}.post_attention_layernorm.weight", False),
+}
+
+
+def _llama_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.arch != "llama":
+        raise NotImplementedError(
+            f"{what}: arch {cfg.arch!r} waits for the other architectures (ROADMAP A 4)")
+
+
+def from_hf_checkpoint(path: str, cfg: Optional[ModelConfig] = None, dtype=torch.bfloat16,
+                       device="cuda") -> tuple:
+    """Load (params, cfg) from a local HF checkpoint directory, each weight
+    through float32 into `dtype` on `device` (JAX's `astype(np.float32)`
+    then `jnp.asarray(..., dtype)`)."""
+    cfg = cfg or config_from_hf(path)
+    _llama_only(cfg, "from_hf_checkpoint")
+    dev = resolve_device(device)
+    raw = _load_tensors(path)
+
+    def get(name, transpose=False):
+        t = raw[name].float()
+        return (t.T if transpose else t).contiguous().to(device=dev, dtype=dtype)
+
+    layers: Dict[str, Any] = {}
+    for ours, (tmpl, tr) in _LLAMA_LAYER.items():
+        stacked = torch.stack([get(tmpl.format(i=i), tr) for i in range(cfg.num_layers)])
+        if "." in ours:
+            top, sub = ours.split(".")
+            layers.setdefault(top, {})[sub] = stacked
+        else:
+            layers.setdefault(ours, {})["w"] = stacked
+    params: Dict[str, Any] = {"layers": layers, "embed": get("model.embed_tokens.weight"),
+                              "norm": {"w": get("model.norm.weight")}}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = get("lm_head.weight", transpose=True)
+    return params, cfg
+
+
+def save_hf_checkpoint(params, cfg: ModelConfig, path: str) -> None:
+    """Write an fp parameter tree as a HF-format directory (config.json and
+    model.safetensors in float32 with transformers' names), the inverse of
+    `from_hf_checkpoint` (`hf_loader.py:341-422`)."""
+    _llama_only(cfg, "save_hf_checkpoint")
+    os.makedirs(path, exist_ok=True)
+    hf_cfg = {
+        "model_type": "llama",
+        "architectures": ["LlamaForCausalLM"],
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "torch_dtype": "float32",
+    }
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+
+    def leaf(entry, ours):
+        if "." in ours:
+            top, sub = ours.split(".")
+            return entry.get(top, {}).get(sub)
+        return entry.get(ours, {}).get("w")
+
+    def fp32(t) -> torch.Tensor:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"save_hf_checkpoint writes fp parameters, got {type(t).__name__}")
+        return t.detach().to("cpu", torch.float32)
+
+    tensors: Dict[str, torch.Tensor] = {}
+    for ours, (tmpl, tr) in _LLAMA_LAYER.items():
+        stacked = leaf(params["layers"], ours)
+        if stacked is None:
+            continue
+        arr = fp32(stacked)
+        for i in range(cfg.num_layers):
+            tensors[tmpl.format(i=i)] = (arr[i].T if tr else arr[i]).contiguous()
+    tensors["model.embed_tokens.weight"] = fp32(params["embed"])
+    tensors["model.norm.weight"] = fp32(params["norm"]["w"])
+    if "lm_head" in params and not cfg.tie_word_embeddings:
+        tensors["lm_head.weight"] = fp32(params["lm_head"]).T.contiguous()
+    write_safetensors(tensors, os.path.join(path, "model.safetensors"))
+
+
+def save_checkpoint(params, cfg: ModelConfig, path: str) -> None:
+    """Persist a (possibly quantized) parameter tree with its config
+    (`hf_loader.py:425-438`): `params.npz` and `manifest.json`."""
+    from ..utils.pytree_io import save_pytree_npz
+
+    os.makedirs(path, exist_ok=True)
+    save_pytree_npz(os.path.join(path, "params.npz"), params)
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump({"config": dataclasses.asdict(cfg)}, f)
+
+
+def load_checkpoint(path: str, params_like) -> Any:
+    """Restore leaves into the structure of `params_like` (same tree), each
+    on the device and in the dtype of the leaf it replaces."""
+    from ..utils.pytree_io import load_pytree_npz
+
+    return load_pytree_npz(os.path.join(path, "params.npz"), params_like)

@@ -1,6 +1,9 @@
-"""The study table's golden rows on the port (counterpart of the root
-`tools/reproduce_study.py:87-183` for the rows `fp`, `rtn`, `gptq`, `awq`,
-`smoothquant`, `omniquant`, `mixed`, `rtn_s4` and `rtn_a8`).
+"""The study table on the port, in two halves.
+
+**The golden rows** (counterpart of the root `tools/reproduce_study.py:87-183`
+for every decoder row: `fp`, `rtn`, `gptq`, `awq`, `smoothquant`,
+`omniquant`, `hqq`, `irqlora`, `mixed`, `rtn_s4` and `rtn_a8`; the
+`seq2seq_*` rows wait for ROADMAP A 4).
 
 The same recipe as the JAX study: `TINY_LLAMA` with the parameters JAX's
 `init_params(PRNGKey(0), float32)` gives (kept in `tiny_llama_init.npz`
@@ -21,6 +24,16 @@ backend (the JAX package's default), `rtn_s4` and `rtn_a8` under "s4" and
 `--check` compares every number with `tests/fixtures/golden_study.json`
 within |got - golden| <= 2e-3 * max(1, |golden|) and exits non-zero on a
 miss.
+
+**The study sweep** (port of `llama3_quantization_tpu/tools/reproduce_study.py`):
+the method x bit-width matrix of the study (`STUDY_CONFIGS`, each
+`method:wbits:group[_aN]`) through the port's `cli.main`, and its markdown
+table. It is entered by that tool's flags (`--configs`, `--net`,
+`--model`, `--synthetic`, `--tasks`, `--ppl_datasets`, `--calib_dataset`,
+`--nsamples`, `--seqlen`, `--limit`, `--out`), with `--device`:
+
+    python -m llama3_quantization_tpu_torch.tools.reproduce_study --device cpu \
+        --net tiny-llama --synthetic --configs rtn:4:32 hqq:4:32 --seqlen 64 --limit 2
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -41,9 +55,11 @@ CORPUS = REPO / "tests" / "fixtures" / "wikitext2_slice.txt"
 
 #: the rows the port reproduces, each with its matmul backend
 ROWS = {"fp": "xla", "rtn": "xla", "gptq": "xla", "awq": "xla", "smoothquant": "xla",
-        "omniquant": "xla", "mixed": "xla", "rtn_s4": "s4", "rtn_a8": "a8"}
+        "omniquant": "xla", "hqq": "xla", "irqlora": "xla", "mixed": "xla", "rtn_s4": "s4",
+        "rtn_a8": "a8"}
 #: each method's kwargs, the root study's (`tools/reproduce_study.py:38-57`)
-KWARGS = {"gptq": {"blocksize": 32}, "omniquant": {"epochs": 1}, "mixed": {"blocksize": 32}}
+KWARGS = {"gptq": {"blocksize": 32}, "omniquant": {"epochs": 1}, "hqq": {"iters": 10},
+          "irqlora": {"tau_n": 10, "blocksize2": 4}, "mixed": {"blocksize": 32}}
 
 SEQLEN = 64
 NSAMPLES_CALIB = 8
@@ -174,7 +190,118 @@ def golden_misses(table: Dict[str, Dict[str, float]]):
             if not abs(v - golden[m][k]) <= 2e-3 * max(1.0, abs(golden[m][k]))]
 
 
+STUDY_CONFIGS = [
+    "rtn:8:", "rtn:4:128", "rtn:3:128", "rtn:2:128",
+    "gptq:8:", "gptq:4:128", "gptq:3:128", "gptq:2:128",
+    "awq:4:128", "awq:3:128",
+    "smoothquant:8:_a8",
+    "hqq:4:64", "hqq:3:64", "hqq:2:64",
+    "omniquant:3:128", "omniquant:2:128",
+    "irqlora:4:", "mixed:2:32",
+]
+
+CSQA_TASKS = "piqa,arc_easy,arc_challenge,hellaswag,winogrande"
+
+#: the sweep's flags (the JAX tool's); any of them selects the sweep
+SWEEP_FLAGS = ("--configs", "--net", "--model", "--synthetic", "--tasks", "--ppl_datasets",
+               "--calib_dataset", "--nsamples", "--seqlen", "--limit", "--out")
+
+
+def parse_config(cfg_str: str):
+    act = None
+    if "_a" in cfg_str:
+        cfg_str, a = cfg_str.rsplit("_a", 1)
+        act = int(a)
+    method, wbits, group = cfg_str.split(":")
+    return method, int(wbits), int(group) if group else None, act
+
+
+def sweep(argv=None):
+    """The study sweep (`reproduce_study.py:48-118`): the tasks checked
+    once, then one `cli.main` run per config, a run that raises recorded
+    and the sweep continued (an exit stops it, as in JAX); prints the
+    markdown table and returns the rows."""
+    p = argparse.ArgumentParser("reproduce_study")
+    p.add_argument("--model", default=None)
+    p.add_argument("--net", default=None)
+    p.add_argument("--configs", nargs="*", default=STUDY_CONFIGS)
+    p.add_argument("--tasks", default=CSQA_TASKS)
+    p.add_argument("--ppl_datasets", default="wikitext2,c4,ptb")
+    p.add_argument("--calib_dataset", default="wikitext2")
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic calib/eval data (smoke test)")
+    p.add_argument("--nsamples", type=int, default=128)
+    p.add_argument("--seqlen", type=int, default=2048)
+    p.add_argument("--limit", type=int, default=-1)
+    p.add_argument("--out", default=None)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    from ..cli import check_tasks, main as cli_main
+
+    if args.tasks and not args.synthetic:
+        check_tasks([t for t in args.tasks.split(",") if t])
+    rows = []
+    for cfg_str in args.configs:
+        method, wbits, group, act = parse_config(cfg_str)
+        cli_args = [
+            "--quant_method", method, "--wbits", str(wbits),
+            "--calib_dataset", "synthetic" if args.synthetic else args.calib_dataset,
+            "--nsamples", str(args.nsamples), "--seqlen", str(args.seqlen),
+            "--eval_ppl", "--ppl_datasets", args.ppl_datasets,
+            "--limit", str(args.limit), "--device", args.device,
+        ]
+        if group:
+            cli_args += ["--group_size", str(group)]
+        if act:
+            cli_args += ["--abits", str(act)]
+        if args.tasks and not args.synthetic:
+            cli_args += ["--tasks", args.tasks]
+        if args.model:
+            cli_args += ["--model", args.model]
+        else:
+            cli_args += ["--net", args.net or "tiny-llama"]
+        print(f"=== {cfg_str} ===", file=sys.stderr)
+        t0 = time.time()
+        try:
+            results = cli_main(cli_args)
+        except Exception as e:  # record and continue the sweep
+            print(f"{cfg_str} FAILED: {e}", file=sys.stderr)
+            rows.append((cfg_str, {"error": str(e)}))
+            continue
+        results["_seconds"] = round(time.time() - t0, 1)
+        rows.append((cfg_str, results))
+
+    ppl_cols = args.ppl_datasets.split(",")
+    task_cols = [t for t in args.tasks.split(",") if t] if not args.synthetic else []
+    header = "| config | " + " | ".join(ppl_cols + task_cols) + " |"
+    sep = "|" + "---|" * (1 + len(ppl_cols) + len(task_cols))
+    lines = [header, sep]
+    for cfg_str, res in rows:
+        cells = []
+        for c in ppl_cols:
+            v = res.get(c)
+            cells.append(f"{v:.2f}" if isinstance(v, float) else "—")
+        for t in task_cols:
+            v = res.get(t, {})
+            acc = v.get("acc") if isinstance(v, dict) else None
+            cells.append(f"{acc*100:.1f}" if isinstance(acc, float) else "—")
+        lines.append(f"| {cfg_str} | " + " | ".join(cells) + " |")
+    table = "\n".join(lines)
+    print(table)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(table + "\n\n```json\n" + json.dumps(dict(rows), default=str, indent=1)
+                    + "\n```\n")
+        print(f"wrote {args.out}", file=sys.stderr)
+    return rows
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if any(a.split("=")[0] in SWEEP_FLAGS for a in argv):
+        sweep(argv)
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--methods", default=",".join(ROWS))

@@ -199,14 +199,16 @@ def test_quantize_rtn_is_quantize_model_rtn(tiny, pack):
 
 @pytest.mark.parametrize("method", [m for m in api.METHODS if m != "rtn"])
 def test_quantize_other_methods_wait_for_the_quantizers(tiny, method):
-    """HQQ and IR-QLoRA wait for the next quantizer slice; the calibration
-    quantizers dispatch as JAX's (every decoder linear quantized, packed
-    where asked; mixed keeps unpacked containers)."""
+    """Every method dispatches as JAX's: every decoder linear quantized,
+    packed where asked (mixed keeps unpacked containers); IR-QLoRA ignores
+    the spec and, at its default block size, skips TINY_LLAMA's linears as
+    the reference does (fp kept, `test_torch_nf4_irqlora.py`)."""
     _, tp = tiny["fp"]
     calib = np.zeros((2, 16), np.int32)
-    if method in ("hqq", "irqlora"):
-        with pytest.raises(NotImplementedError, match="A 3"):
-            api.quantize(tp, TCFG, method, calib_tokens=calib)
+    if method == "irqlora":
+        out = api.quantize(tp, TCFG, method, calib_tokens=calib, tau_n=2)
+        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+            assert torch.equal(out["layers"][name]["w"], tp["layers"][name]["w"])
         return
     kw = {"epochs": 1} if method == "omniquant" else {}
     out = api.quantize(tp, TCFG, method, QuantSpec(n_bits=4, group_size=32), calib_tokens=calib,

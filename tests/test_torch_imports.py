@@ -275,6 +275,55 @@ def test_eval_runs_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_cli_slice_runs_with_jax_and_hf_packages_blocked(tmp_path):
+    """The CLI, the HF loader and checkpoints, HQQ, NF4 and IR-QLoRA need
+    neither JAX, the JAX package, `safetensors` nor `transformers`: the
+    CLI quantizes with HQQ, evaluates and saves; the checkpoint and an HF
+    directory round-trip; IR-QLoRA and NF4 run."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "llama3_quantization_tpu", "safetensors", "transformers"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch import api, cli
+        from llama3_quantization_tpu_torch.models import hf_loader
+        from llama3_quantization_tpu_torch.quant import hqq, irqlora, nf4
+        from llama3_quantization_tpu_torch.utils import pytree_io
+
+        res = cli.main(["--device", "cpu", "--net", "tiny-llama", "--quant_method", "hqq",
+                        "--wbits", "4", "--group_size", "32", "--eval_ppl", "--ppl_datasets",
+                        "wikitext2", "--seqlen", "32", "--limit", "1", "--save_dir",
+                        "{tmp_path}/ck"])
+        assert res["wikitext2"] > 1
+        cfg = P.TINY_LLAMA
+        fp = P.init_params(cfg, torch.Generator().manual_seed(2), dtype=torch.float32,
+                           device="cpu")
+        hq = api.quantize(fp, cfg, "hqq", P.QuantSpec(n_bits=4, group_size=32))
+        back = hf_loader.load_checkpoint("{tmp_path}/ck", hq)
+        assert all(torch.equal(a, b) for a, b in zip(pytree_io.tree_leaves(back),
+                                                     pytree_io.tree_leaves(hq)))
+        hf_loader.save_hf_checkpoint(fp, cfg, "{tmp_path}/hf")
+        again, _ = hf_loader.from_hf_checkpoint("{tmp_path}/hf", dtype=torch.float32,
+                                                device="cpu")
+        assert torch.equal(again["layers"]["q"]["w"], fp["layers"]["q"]["w"])
+        ir = api.quantize(fp, cfg, "irqlora", tau_n=2, blocksize2=4)
+        assert not torch.equal(ir["layers"]["q"]["w"], fp["layers"]["q"]["w"])
+        t = nf4.nf4_quantize(torch.randn(70, 9))
+        assert nf4.nf4_dequantize(t).shape == (70, 9)
+        assert not any(m in ("jax", "safetensors", "transformers")
+                       or m.startswith(("jax.", "llama3_quantization_tpu.", "safetensors.",
+                                        "transformers."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("name", ["qmatmul", "qmatmul_a8", "decode_attention", "decode_fp",
                                   "flash_attention", "w4_stream", "w4_bd", "qmm_u8"])
 def test_kernel_sources_ship(name):
