@@ -16,6 +16,9 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --microbench    # only the weight-stream probes B8-B10 and their entry points
     python3 chip_smoke.py --cli           # only the kernel checks, phase 10 (the CLI slice) and the
                                           # golden rows
+    python3 chip_smoke.py --harness       # only the kernel checks and phase 11 (the rest of the
+                                          # harness, IR and STS at full width)
+    python3 chip_smoke.py --harness --harness-seed 1  # the same on other weights and documents
 
 Phases, in order; any failure exits non-zero:
   1. require CUDA and print the card's name and power limit;
@@ -120,7 +123,27 @@ Phases, in order; any failure exits non-zero:
      (B5, decode vs forward < 0.15); IR-QLoRA at 8B width and 2 layers
      (tau_n = 100): `icq_search` on the card against the CPU, PPL over 2
      windows (B7), 8 greedy steps on the fp cache (B6). The golden rows
-     (phase 7's) include `hqq` and `irqlora`.
+     (phase 7's) include `hqq` and `irqlora`;
+ 11. the rest of the harness (`drive_harness`, run after the eval phase, on
+     its RTN W4 g128 model at full width and depth, `ByteTokenizer`):
+     `simple_evaluate(TorchLM(batch_size=4), ...)` on seeded documents in
+     each task's raw schema (hellaswag, winogrande, an MMLU subject,
+     lambada_openai, wikitext's rolling windows of 2048, gsm8k's
+     `greedy_until` of at most 32 tokens) with an n-gram pickle the port's
+     janitor wrote from half the hellaswag docs, on the kernel route and on
+     B1's and B2's plain versions with the eager attention: per-token
+     log-likelihoods within 1e-2 (fp32 activations; with bf16 ones within
+     HARNESS_LL_BF16_TOL, which a faulty route's reading must exceed in the
+     same run), ln word_perplexity within 1e-2, gsm8k's tokens equal to
+     `greedy_generate` from the same bucketed prefill, `acc_decontaminate`
+     exactly the clean half's accuracy; `UPRReranker` on 2 queries x 8
+     passages within 1e-2 a query token of the plain versions (fp32
+     activations, B7 at buckets of 256 and up); `STSEncoder` on 16 pairs,
+     each embedding's cosine to the plain versions' >= 0.999; `HFCausalLM`
+     over `forward_logits` within 1e-4 a token of `TorchLM` on the 27 study
+     requests; `cli.main --tasks hellaswag,winogrande,hendrycksTest-*` at 2
+     layers offline (every name passes the checks and is skipped with
+     JAX's message). Which janitor path ran (native or Python) is printed.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel form that a path should run and did not, or one it
@@ -1184,6 +1207,27 @@ def run_counted(counts, label, fn, must=(), never=(), routes_ok=False):
     return out
 
 
+class plain_versions:
+    """B1 and B2 stood in by their plain versions (or by the `forms` given,
+    a (gemv, gemm) pair) and, unless `flash`, B7 off (the eager attention):
+    the reference route of the eval checks."""
+
+    def __init__(self, P, flash=False, forms=None):
+        from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+        self.P, self.fq, self.flash = P, fq, flash
+        self.forms = forms or (fq.qmm_gemv_plain, fq.qmm_gemm_plain)
+
+    def __enter__(self):
+        self.orig = self.fq.qmm_gemv, self.fq.qmm_gemm
+        self.fq.qmm_gemv, self.fq.qmm_gemm = self.forms
+        self.P.set_flash("auto" if self.flash else False)
+
+    def __exit__(self, *exc):
+        self.fq.qmm_gemv, self.fq.qmm_gemm = self.orig
+        self.P.set_flash("auto")
+
+
 def timed(fn):
     """(fn(), host seconds), with the card synchronized on both sides."""
     import torch
@@ -1444,9 +1488,9 @@ def drive_fp_paths(P, params, card, profile=False):
     return sum_counts(counts)
 
 
-def build_rtn_params(P):
-    """Llama-3-8B with seeded random-normal weights RTN-quantized to W4 g128
-    packed, on the card. The synthetic packed codes (uniform nibbles, zero
+def build_rtn_params(P, seed=0):
+    """Llama-3-8B with seeded random-normal weights (SEED + 4 + `seed`)
+    RTN-quantized to W4 g128 packed, on the card. The synthetic packed codes (uniform nibbles, zero
     point 8) give every linear a mean code offset of -0.5, a rank-1 bias
     under which the logits barely depend on the input (one argmax at every
     position); these weights keep token streams input-dependent, so that
@@ -1455,7 +1499,7 @@ def build_rtn_params(P):
 
     cfg = P.LLAMA3_8B
     t0 = time.time()
-    fp = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 4))
+    fp = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 4 + seed))
     params = P.quantize_model_rtn(fp, cfg, P.QuantSpec(n_bits=4, group_size=GS), pack=True)
     del fp
     torch.cuda.synchronize()
@@ -2328,7 +2372,6 @@ def drive_cli(P, card):
     from llama3_quantization_tpu_torch.eval import compute_ppl
     from llama3_quantization_tpu_torch.models import configs as TCFG
     from llama3_quantization_tpu_torch.models.hf_loader import load_checkpoint
-    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
     from llama3_quantization_tpu_torch.utils.pytree_io import tree_leaves
 
     counts, checks = {}, {}
@@ -2349,20 +2392,17 @@ def drive_cli(P, card):
         log(f"  HQQ W4 g128, {cfg.num_layers} layers (fp32 weights): {secs:.2f} s, "
             f"{secs / cfg.num_layers:.3f} s a layer  [{card}]")
         stream = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2048 * 4))
-        orig = fq.qmm_gemv, fq.qmm_gemm
-        P.set_flash(False)
-        try:
-            fq.qmm_gemv, fq.qmm_gemm = fq.qmm_gemv_plain, fq.qmm_gemm_plain
+        with plain_versions(P):
             ppl_plain = run_counted(checks, "HQQ PPL, B1/B2 plain, eager attention (check)",
                                     lambda: compute_ppl(hq, cfg, stream, seqlen=2048, limit=2),
                                     never=("B1", "B2", "B7"))
-            fq.qmm_gemv, fq.qmm_gemm = orig
+        P.set_flash(False)
+        try:
             with P.backend("xla"):
                 ppl_xla = run_counted(checks, "HQQ PPL, xla route (check)",
                                       lambda: compute_ppl(hq, cfg, stream, seqlen=2048, limit=2),
                                       never=("B1", "B2", "B7"))
         finally:
-            fq.qmm_gemv, fq.qmm_gemm = orig
             P.set_flash("auto")
         d_plain = abs(math.log(ppl) - math.log(ppl_plain))
         d_xla = abs(math.log(ppl) - math.log(ppl_xla))
@@ -2610,13 +2650,11 @@ def drive_eval(P, params, card):
                    for x, y, (_, cont) in zip(a, b, reqs))
 
     def plain_route(label, gemv, gemm):
-        """`lm_.loglikelihood` with B1 and B2 stood in by `gemv` and `gemm`."""
-        orig = fq.qmm_gemv, fq.qmm_gemm
-        fq.qmm_gemv, fq.qmm_gemm = gemv, gemm
-        try:
-            return reference_route(label, lambda: lm_.loglikelihood(reqs))
-        finally:
-            fq.qmm_gemv, fq.qmm_gemm = orig
+        """`lm_.loglikelihood` with B1 and B2 stood in by `gemv` and `gemm`
+        and B7 off, counted as a check."""
+        with plain_versions(P, forms=(gemv, gemm)):
+            return run_counted(checks, label, lambda: lm_.loglikelihood(reqs),
+                               never=("B1", "B2", "B7"))
 
     def loglikelihoods(p, label, witness=False):
         """The requests on the kernel route (B2), through B1's and B2's
@@ -2654,10 +2692,7 @@ def drive_eval(P, params, card):
                              f"versions: {d_plain} per token (limit {EVAL_LL_BF16_TOL})")
     # fp32 activations (embedding, norms and head in fp32; the same packed
     # RTN linears, which still round x to bf16): the routes' own difference
-    wide = dict(params, embed=params["embed"].float(), lm_head=params["lm_head"].float(),
-                norm={"w": params["norm"]["w"].float()},
-                layers={**params["layers"], "ln1": {"w": params["layers"]["ln1"]["w"].float()},
-                        "ln2": {"w": params["layers"]["ln2"]["w"].float()}})
+    wide = fp32_activations(params)
     d_plain, _ = loglikelihoods(wide, "fp32 activations")
     del wide
     if not d_plain <= EVAL_LL_TOL:
@@ -2698,6 +2733,17 @@ def drive_eval(P, params, card):
     return sum_counts(counts)
 
 
+def fp32_activations(params):
+    """`params` with the embedding, the norms and the head in fp32 (the same
+    quantized linears, which still round x to bf16): the forward keeps its
+    activations in fp32."""
+    layers = params["layers"]
+    return dict(params, embed=params["embed"].float(), lm_head=params["lm_head"].float(),
+                norm={"w": params["norm"]["w"].float()},
+                layers={**layers, "ln1": {"w": layers["ln1"]["w"].float()},
+                        "ln2": {"w": layers["ln2"]["w"].float()}})
+
+
 def reversed_plain(fq):
     """B1's and B2's plain versions (`qmm_gemv_plain`, `qmm_gemm_plain`)
     with every sum over K taken in the reverse order: the same function
@@ -2718,6 +2764,418 @@ def reversed_plain(fq):
         return torch.matmul(x2d.to(torch.bfloat16).float().flip(-1), w).to(out_dtype)
 
     return gemv, gemm
+
+
+#: K of the down projection, whose last group the control leaves out
+DOWN_K = 14336
+
+
+def dropped_group_plain(fq):
+    """B1's and B2's plain versions with a fault that a kernel's loop over
+    K could have: the last group of input channels of every linear of K =
+    DOWN_K (the down projection, 1 of its 112 groups) left out of the sum."""
+
+    def cut(x2d, qt):
+        if qt.k != DOWN_K:
+            return x2d
+        x2d = x2d.clone()
+        x2d[:, -(qt.group_size or qt.k):] = 0
+        return x2d
+
+    return (lambda x2d, qt, out_dtype: fq.qmm_gemv_plain(cut(x2d, qt), qt, out_dtype),
+            lambda x2d, qt, out_dtype: fq.qmm_gemm_plain(cut(x2d, qt), qt, out_dtype))
+
+
+#: phase 11's bounds: the UPR score (-mean CE a query token) of the kernel
+#: route against the plain versions with fp32 activations, the cosine of
+#: each STS embedding to the plain versions' (fp32 activations), and
+#: `HFCausalLM` over `forward_logits` against `TorchLM` a continuation token.
+#: With fp32 activations the log-likelihoods are held to the eval check's
+#: EVAL_LL_TOL, and wikitext's |d ln word_perplexity| to EVAL_LN_PPL_TOL
+UPR_TOL = 1e-2
+STS_MIN_COS = 0.999
+#: phase 11's per-token |d ll| with the model's bf16 activations, kernels
+#: against B1's and B2's plain versions with the eager attention: set
+#: between what a sound route reads there (`reversed_plain` with B7: at
+#: most 3.066e-2) and what a faulty one reads (`dropped_group_plain`: at
+#: least 1.811e-1), on the phase's own requests at two seeds (`--harness
+#: --harness-seed 0` and `1`, one run each on an H100 80GB HBM3 at 700 W;
+#: the kernels read 2.739e-2 and 2.257e-2)
+HARNESS_LL_BF16_TOL = 5e-2
+HF_CAUSAL_TOL = 1e-4
+#: the harness tasks of phase 11 (`reproduce_study.SYNTHETIC_TASKS`'s order)
+#: and `greedy_until`'s budget there (BaseLM's 256 cut for time)
+HARNESS_TASKS = ("hellaswag", "winogrande", "hendrycksTest-abstract_algebra", "lambada_openai",
+                 "wikitext", "gsm8k")
+HARNESS_GEN_TOKS = 32
+
+
+def harness_deltas(tok, ref_calls, got_calls):
+    """Between two runs of the same requests (each request type both runs
+    asked for, one call a type as `simple_evaluate` makes them): the largest
+    |d log-likelihood| a continuation token and that continuation's tokens,
+    the greedy flags equal and their number, and the largest |d rolling
+    log-likelihood| a token."""
+    d_ll, at, same, n, d_roll = 0.0, 0, 0, 0, 0.0
+    got_by_kind = {kind: (reqs, out) for kind, reqs, out in got_calls}
+    for kind, reqs, a in ref_calls:
+        if kind not in got_by_kind:
+            continue
+        reqs2, b = got_by_kind[kind]
+        if reqs != reqs2:
+            raise AssertionError(f"the two runs asked different {kind} requests")
+        if kind == "loglikelihood":
+            for (_, cont), x, y in zip(reqs, a, b):
+                toks = max(1, len(tok.encode(cont)))
+                if abs(x[0] - y[0]) / toks > d_ll:
+                    d_ll, at = abs(x[0] - y[0]) / toks, toks
+                same, n = same + (x[1] == y[1]), n + 1
+        elif kind == "loglikelihood_rolling":
+            for doc, x, y in zip(reqs, a, b):
+                doc = doc if isinstance(doc, str) else doc[0]
+                d_roll = max(d_roll, abs(x - y) / len(tok.encode(doc)))
+    return d_ll, at, same, n, d_roll
+
+
+def metric_line(results):
+    """Each task's metrics (stderrs left out) on one line."""
+    return "; ".join(f"{task} " + ", ".join(f"{k} {v:.4g}" for k, v in row.items()
+                                            if not k.endswith("_stderr"))
+                     for task, row in results.items())
+
+
+def drive_harness(P, params, card, seed=0):
+    """Phase 11, the rest of the harness at full width (Llama-3-8B, 32
+    layers, the RTN W4 g128 params of the eval phase, `ByteTokenizer`):
+
+    1. `simple_evaluate(TorchLM(batch_size=4), HARNESS_TASKS,
+       task_data=synthetic_task_data(...))`: hellaswag (8 docs of 4
+       endings), winogrande (8, partial evaluation), hendrycksTest-
+       abstract_algebra (8), lambada_openai (8), wikitext (2 pages of ~5,000
+       bytes: rolling windows of 2048, B2 and B7) and gsm8k (2 docs:
+       `greedy_until` to "\\n" or HARNESS_GEN_TOKS tokens, a B2 or eager
+       prefill, then B1 and B6), with the n-gram pickle the port's `Janitor`
+       wrote from hellaswag's first 4 docs; on the kernel route and on B1's
+       and B2's plain versions with the eager attention: ln word_perplexity
+       within EVAL_LN_PPL_TOL, the per-token |d ll| within
+       HARNESS_LL_BF16_TOL. The eval check's 2.5e-2 a token does not hold
+       here: B7 and the eager attention round p to bf16 at other points,
+       which adds to the sums' order on lambada's 3-token continuations. So
+       the phase reads, on the loglikelihood tasks, a sound route (B1's and
+       B2's plain versions with every sum over K reversed and B7) and a
+       faulty one (`dropped_group_plain`, eager attention) against the same
+       reference, and requires the kernels within the bound and the control
+       past it. The attention routes are held with fp32 activations (2.).
+       gsm8k's tokens on the kernel route equal `greedy_generate` from the
+       same bucketed prefill (the first step where the plain route's differ
+       reported); `acc_decontaminate` exactly the accuracy of hellaswag's
+       other 4 docs; both routes' metrics and the MMLU rollup reported.
+    2. The same but gsm8k with fp32 activations (`fp32_activations`),
+       against the plain versions with the eager attention: EVAL_LL_TOL a
+       token, ln word_perplexity within EVAL_LN_PPL_TOL.
+    3. `UPRReranker` (fp32 activations) on 2 queries x 8 fixture passages
+       (bucketed lengths 256 and up: B2 and B7) against the plain versions
+       within UPR_TOL, the rankings reported beside BM25's.
+    4. `STSEncoder` (fp32 activations) on 16 synthetic sentence pairs
+       (bucketed to 128: B2 and B7): each embedding's cosine to the
+       plain versions' >= STS_MIN_COS; Spearman reported.
+    5. `HFCausalLM` over an `nn.Module` whose `.logits` are the port's
+       `forward_logits` (bf16 model, right-padded as `TorchLM` pads) on the
+       27 study requests against `TorchLM`: within HF_CAUSAL_TOL a token,
+       greedy flags equal.
+    6. `cli.main --tasks hellaswag,winogrande,hendrycksTest-* --limit 2` at
+       8B width, 2 layers, with `datasets` unimportable: the names pass the
+       checks and every task is skipped with JAX's offline message."""
+    import contextlib
+    import io
+    import math
+    import random
+    import shutil
+    import tempfile
+    import types
+
+    from llama3_quantization_tpu_torch import cli
+    from llama3_quantization_tpu_torch.decontamination import janitor
+    from llama3_quantization_tpu_torch.decontamination.decontaminate import get_train_overlap
+    from llama3_quantization_tpu_torch.eval import ByteTokenizer, bucket_pow2
+    from llama3_quantization_tpu_torch.eval.harness import (
+        HFCausalLM, TorchLM, get_task_dict, simple_evaluate)
+    from llama3_quantization_tpu_torch.eval.mmlu_categories import mmlu_rollup
+    from llama3_quantization_tpu_torch.eval.retrieval import BM25Index, UPRReranker
+    from llama3_quantization_tpu_torch.eval.sts import (
+        STSEncoder, cosine_sim, evaluate_sts, spearman)
+    from llama3_quantization_tpu_torch.models import configs as TCFG
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+    from llama3_quantization_tpu_torch.tools.benchmark_sts import synthetic_sts
+    from llama3_quantization_tpu_torch.tools.reproduce_study import (
+        CORPUS, Recorder, synthetic_task_data)
+
+    import numpy as np
+    import torch
+
+    cfg, counts, checks = P.LLAMA3_8B, {}, {}
+    tok = ByteTokenizer()
+    t_phase = time.time()
+    data = synthetic_task_data(seed=SEED + 20 + seed)
+    tmp = tempfile.mkdtemp(prefix="l3q_harness_")
+    try:
+        # the n-grams of hellaswag's first half, as a training corpus's
+        hs = get_task_dict(["hellaswag"], data)["hellaswag"]
+        hs_docs = list(hs.validation_docs())
+        queries = [hs.doc_to_decontamination_query(d) for d in hs_docs]
+        half = len(queries) // 2
+        jan = janitor.Janitor()
+        for q in queries[:half]:
+            jan.register_contaminant(q)
+        grams = os.path.join(tmp, "hellaswag_13grams.pkl")
+        jan.save_contamination_ngrams(grams)
+        overlap = get_train_overlap({"hellaswag": queries}, grams)["hellaswag"]
+        path = ("native (csrc/janitor_util.cpp, built with g++)" if janitor.native_used()
+                else "pure Python (no g++)")
+        log(f"  decontamination: the janitor's {path} path; {len(jan.dirt_ngrams)} 13-grams "
+            f"from hellaswag docs 0-{half - 1}; docs overlapping them {sorted(overlap)}")
+        if overlap != set(range(half)):
+            raise AssertionError(f"hellaswag docs overlapping the n-grams: {sorted(overlap)}")
+
+        def evaluate(p, tasks, label, plain=None, flash=False, must=(), **kw):
+            """`simple_evaluate` through a `Recorder` of `TorchLM(p)`, on the
+            kernel route or with B1 and B2 stood in by `plain` (a (gemv,
+            gemm) pair) and the eager attention (B7 if `flash`): (results,
+            calls, each greedy_until request's (context ids, generated ids),
+            host seconds)."""
+            lm = TorchLM(p, cfg, tok, batch_size=4)
+            lm.max_gen_toks = HARNESS_GEN_TOKS
+            seen, gens = [], []
+            decode, generate = lm.tok_decode, lm._model_generate
+
+            def tok_decode(ids):
+                seen.append(list(ids))
+                return decode(ids)
+
+            def model_generate(context, max_gen, stops):
+                text = generate(context, max_gen, stops)
+                gens.append((list(context), seen[-1]))
+                return text
+
+            lm.tok_decode, lm._model_generate = tok_decode, model_generate
+            rec = Recorder(lm)
+            run = lambda: timed(lambda: simple_evaluate(  # noqa: E731
+                rec, list(tasks), task_data={t: data[t] for t in tasks}, bootstrap_iters=100,
+                **kw))
+            if plain:
+                with plain_versions(P, flash, forms=plain):
+                    res, secs = run_counted(checks, label, run,
+                                            never=("B1", "B2") + (() if flash else ("B7",)))
+            else:
+                res, secs = run_counted(counts, label, run, must=must)
+            return res["results"], rec.calls, gens, secs
+
+        def routes(p, tasks, label, bound, must, **kw):
+            """Kernel and plain runs of `tasks` (B1's and B2's plain versions
+            with the eager attention): wikitext's ln word_perplexity checked,
+            and the per-token |d ll| against `bound` if given, else reported;
+            (kernel run, plain run, that |d ll|)."""
+            got = evaluate(p, tasks, f"simple_evaluate {len(tasks)} tasks ({label}, kernels)",
+                           must=must, **kw)
+            ref = evaluate(p, tasks, f"simple_evaluate {len(tasks)} tasks ({label}, B1/B2 "
+                           "plain, eager attention, check)", plain=PLAIN, **kw)
+            d_ll, at, same, n, d_roll = harness_deltas(tok, ref[1], got[1])
+            wp = got[0]["wikitext"]["word_perplexity"], ref[0]["wikitext"]["word_perplexity"]
+            d_wp = abs(math.log(wp[0]) - math.log(wp[1]))
+            limit = f"limit {bound:g}" if bound else "held below"
+            log(f"  harness, {label}: {n} log-likelihoods against B1's and B2's plain versions "
+                f"with the eager attention, max |d ll| per continuation token {d_ll:.3e} "
+                f"({limit}; a {at}-token continuation), greedy flags equal {same}/{n}; "
+                f"wikitext rolling max |d ll| a token {d_roll:.3e}, word_perplexity "
+                f"{wp[0]:.6g} against {wp[1]:.6g}, |d ln| {d_wp:.3e} (limit "
+                f"{EVAL_LN_PPL_TOL:g}); {got[3]:.1f} s kernels, {ref[3]:.1f} s plain, host "
+                f"clock  [{card}]")
+            log(f"    kernels: {metric_line(got[0])}")
+            log(f"    plain:   {metric_line(ref[0])}")
+            if not ((not bound or d_ll <= bound) and d_wp <= EVAL_LN_PPL_TOL):
+                raise AssertionError(f"harness ({label}): |d ll| {d_ll} a token (limit {bound}), "
+                                     f"|d ln word_perplexity| {d_wp}")
+            return got, ref, d_ll
+
+        # 1. every task, the model's bf16 activations, decontaminated; the
+        # per-token |d ll| against the plain versions with the eager
+        # attention is held below HARNESS_LL_BF16_TOL, which this run also
+        # places between a sound route's reading and a faulty route's
+        PLAIN = (fq.qmm_gemv_plain, fq.qmm_gemm_plain)
+        (res, calls, gens, _), (_, calls_p, gens_p, _), d_ll = routes(
+            params, HARNESS_TASKS, "bf16 activations", None,
+            ("B1", "B2", "B6", "B7"), decontamination_ngrams_path=grams)
+        ll_tasks = HARNESS_TASKS[:4]  # the tasks that ask for loglikelihoods
+        readings = {}
+        for key, forms, flash, what in (
+                ("witness", reversed_plain(fq), True, "every sum over K reversed, B7"),
+                ("control", dropped_group_plain(fq), False,
+                 f"the last group of {GS} input channels of K = {DOWN_K} left out, eager "
+                 "attention")):
+            _, calls_x, _, secs = evaluate(params, ll_tasks, f"simple_evaluate {len(ll_tasks)} "
+                                           f"tasks (bf16, B1/B2 plain, {key}, check)",
+                                           plain=forms, flash=flash)
+            readings[key], at, same, n, _ = harness_deltas(tok, calls_p, calls_x)
+            log(f"  harness, bf16 activations, {key}: B1's and B2's plain versions with {what}, "
+                f"against them with the eager attention: max |d ll| per continuation token "
+                f"{readings[key]:.3e} (a {at}-token continuation), greedy flags equal "
+                f"{same}/{n}; {secs:.1f} s  [{card}]")
+        log(f"  harness, bf16 activations: kernels {d_ll:.3e}, witness {readings['witness']:.3e},"
+            f" control {readings['control']:.3e} a token; limit {HARNESS_LL_BF16_TOL:g} (the "
+            f"kernels within it, the control past it)  [{card}]")
+        if not d_ll <= HARNESS_LL_BF16_TOL < readings["control"]:
+            raise AssertionError(f"harness (bf16 activations): kernels against B1/B2 plain "
+                                 f"|d ll| {d_ll} a token, control {readings['control']} (limit "
+                                 f"{HARNESS_LL_BF16_TOL} between them)")
+        log(f"    MMLU rollup (kernels): {json.dumps(mmlu_rollup(res))}")
+        lls = {tuple(r): v[0] for kind, reqs, vals in calls if kind == "loglikelihood"
+               for r, v in zip(reqs, vals)}
+        accs = []
+        for doc in hs_docs:
+            reqs = hs.construct_requests(doc, hs.fewshot_context(doc, 0, random.Random(42)))
+            accs.append(hs.process_results(doc, [lls[tuple(r.args)] for r in reqs])["acc"])
+        row, clean = res["hellaswag"], accs[half:]
+        log(f"  hellaswag acc {row['acc']} over all {len(accs)} docs, acc_decontaminate "
+            f"{row['acc_decontaminate']} (docs {half}-{len(accs) - 1}: {clean})")
+        if not (row["acc"] == sum(accs) / len(accs)
+                and row["acc_decontaminate"] == sum(clean) / len(clean)):
+            raise AssertionError(f"hellaswag acc {row['acc']}, acc_decontaminate "
+                                 f"{row['acc_decontaminate']}; per doc {accs}")
+        for (ctx, toks), (_, toks_p) in zip(gens, gens_p):
+            n, nb = len(ctx), bucket_pow2(len(ctx))
+            cache = P.init_kv_cache(cfg, 1, bucket_pow2(nb + HARNESS_GEN_TOKS))
+            padded = torch.zeros((1, nb), dtype=torch.long, device="cuda")
+            padded[0, :n] = torch.tensor(ctx, device="cuda")
+            with torch.inference_mode():
+                lg, cache = P.decode_step(params, cache, padded, 0, cfg)
+                first = lg[0, n - 1].argmax().reshape(1, 1)
+                ref = [int(first)]
+                if len(toks) > 1:
+                    rest, _ = P.greedy_generate(params, cache, first, n, len(toks) - 1, cfg)
+                    ref += rest[0].tolist()
+            differ = next((i for i, (a, b) in enumerate(zip(toks, toks_p)) if a != b), None)
+            log(f"  gsm8k greedy_until ({n}-token context): {len(toks)} tokens, equal to "
+                f"greedy_generate {toks == ref}; the plain route's "
+                + (f"first differ at step {differ}" if differ is not None else
+                   f"equal through {min(len(toks), len(toks_p))} steps")
+                + f" ({len(toks_p)} tokens)")
+            if toks != ref:
+                raise AssertionError(f"gsm8k greedy_until {toks} != greedy_generate {ref}")
+
+        # 2. fp32 activations, the log-likelihood tasks
+        wide = fp32_activations(params)
+        routes(wide, HARNESS_TASKS[:-1], "fp32 activations", EVAL_LL_TOL, ("B2", "B7"))
+
+        # 3. UPR on 2 queries x 8 passages
+        docs = [d.strip() for d in CORPUS.read_text().split("\n \n") if 300 < len(d) < 900]
+        rng = np.random.default_rng(SEED + 21 + seed)
+        passages = {f"p{i}": docs[int(j)]
+                    for i, j in enumerate(rng.choice(len(docs), 8, replace=False))}
+        upr_q = {f"q{k}": " ".join(passages[f"p{3 * k}"].split()[4:12]) for k in range(2)}
+        bm25 = BM25Index(passages)
+        first = {q: {p: bm25.search(t, top_k=8).get(p, 0.0) for p in passages}
+                 for q, t in upr_q.items()}
+        upr = UPRReranker(wide, cfg, tok)
+        upr_run = lambda: upr.rerank(passages, upr_q, first, top_k=8, batch_size=8)  # noqa: E731
+        got = run_counted(counts, "UPRReranker.rerank 2 x 8 (fp32 activations, kernels)",
+                          upr_run, must=("B2", "B7"))
+        with plain_versions(P):
+            ref = run_counted(checks, "UPRReranker.rerank (plain versions, check)", upr_run,
+                              never=("B1", "B2", "B7"))
+        d_upr = max(abs(got[q][p] - ref[q][p]) for q in got for p in got[q])
+        lens = sorted({bucket_pow2(len(tok.encode(f"Passage: {t} x"))) for t in passages.values()})
+        log(f"  UPR (2 queries x 8 passages, buckets {lens}): max |d score| (-mean CE a query "
+            f"token) {d_upr:.3e} (limit {UPR_TOL:g})  [{card}]")
+        for q in upr_q:
+            rank = lambda sc: [p for p, _ in sorted(sc.items(), key=lambda kv: -kv[1])]  # noqa: E731
+            log(f"    {q}: kernels {rank(got[q])}, plain {rank(ref[q])}, BM25 {rank(first[q])}")
+        if not d_upr <= UPR_TOL:
+            raise AssertionError(f"UPR kernels against plain: {d_upr}")
+
+        # 4. STS on 16 pairs
+        sts_pairs, gold = synthetic_sts(16, seed=SEED + seed)
+        sents = [a for a, _ in sts_pairs] + [b for _, b in sts_pairs]
+        enc = STSEncoder(wide, cfg, tok)
+        sts_run = lambda: (enc.encode(sents, 8), evaluate_sts(enc, sts_pairs, gold, 8))  # noqa
+        (emb, sts), _ = run_counted(counts, "STSEncoder 16 pairs (fp32 activations, kernels)",
+                                    lambda: timed(sts_run), must=("B2", "B7"))
+        with plain_versions(P):
+            emb_p, sts_p = run_counted(checks, "STSEncoder (plain versions, check)", sts_run,
+                                       never=("B1", "B2", "B7"))
+        cos = cosine_sim(emb, emb_p)
+        rho = spearman(cosine_sim(emb[:16], emb[16:]).tolist(), gold)
+        log(f"  STS (16 pairs): each embedding's cosine to the plain versions' >= {cos.min():.6f} "
+            f"(limit {STS_MIN_COS}); Spearman of cosine vs gold {sts['spearman_cosine']:.4f} "
+            f"(evaluate_sts), {rho:.4f} from the one batch; plain {sts_p['spearman_cosine']:.4f}"
+            f"  [{card}]")
+        if not cos.min() >= STS_MIN_COS:
+            raise AssertionError(f"STS embeddings: cosine {cos.min()}")
+        del wide, upr, enc
+        torch.cuda.empty_cache()
+
+        # 5. hf-causal over forward_logits
+        class Causal(torch.nn.Module):
+            """`forward_logits` as a causal LM: `.logits` of the batch
+            right-padded to `TorchLM`'s bucket, cut back. It has no
+            parameters of its own, so `HFCausalLM` runs it on its default
+            device, the card."""
+
+            def forward(self, ids):
+                b, s = ids.shape
+                padded = torch.zeros((b, min(bucket_pow2(s), 2049)), dtype=ids.dtype,
+                                     device=ids.device)
+                padded[:, :s] = ids
+                with torch.inference_mode():
+                    logits = P.forward_logits(params, padded, cfg)[:, :s]
+                return types.SimpleNamespace(logits=logits)
+
+        reqs = eval_requests(tok)
+        hf = HFCausalLM(model=Causal(), tokenizer=tok, batch_size=4)
+        ll_hf = run_counted(counts, f"HFCausalLM.loglikelihood x {len(reqs)} (forward_logits)",
+                            lambda: hf.loglikelihood(reqs), must=("B2",))
+        ll_t = run_counted(counts, f"TorchLM.loglikelihood x {len(reqs)} (beside hf-causal)",
+                           lambda: TorchLM(params, cfg, tok, batch_size=4).loglikelihood(reqs),
+                           must=("B2",))
+        d_hf = max(abs(a[0] - b[0]) / len(tok.encode(c)) for a, b, (_, c) in
+                   zip(ll_hf, ll_t, reqs))
+        flags = sum(a[1] == b[1] for a, b in zip(ll_hf, ll_t))
+        log(f"  hf-causal: HFCausalLM (device {hf.device}) against TorchLM on {len(reqs)} "
+            f"requests: max |d ll| a continuation token {d_hf:.3e} (limit {HF_CAUSAL_TOL:g}), "
+            f"greedy flags equal {flags}/{len(reqs)}  [{card}]")
+        if not (d_hf <= HF_CAUSAL_TOL and flags == len(reqs) and hf.device.type == "cuda"):
+            raise AssertionError(f"hf-causal against TorchLM: {d_hf} a token, flags {flags}, "
+                                 f"device {hf.device}")
+
+        # 6. the CLI's task names, offline
+        name = "llama3-8b-2layers"
+        TCFG.NAMED_CONFIGS[name] = quantize_cfg(P)
+        had = sys.modules.get("datasets", False)
+        sys.modules["datasets"] = None  # no download is tried; tasks skip as offline
+        out, err = io.StringIO(), io.StringIO()
+        pats = ["hellaswag", "winogrande", "hendrycksTest-*"]
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                cli_res = run_counted(checks, "cli.main --tasks (2 layers, offline, check)",
+                                      lambda: cli.main(["--net", name, "--quant_method", "none",
+                                                        "--tasks", ",".join(pats),
+                                                        "--limit", "2"]))
+        finally:
+            del TCFG.NAMED_CONFIGS[name]
+            if had is False:
+                del sys.modules["datasets"]
+            else:
+                sys.modules["datasets"] = had
+        skipped = re.findall(r"\[cli\] skipping task (\S+): (.*)", err.getvalue())
+        names = cli.check_tasks(pats)
+        log(f"  cli.main --tasks {','.join(pats)} --limit 2 (8B width, 2 layers): {len(names)} "
+            f"names pass the checks, {len(skipped)} skipped offline, e.g. "
+            f"'{skipped[0][0]}: {skipped[0][1][:90]}...'; results {cli_res}")
+        if sorted(n for n, _ in skipped) != sorted(names) or cli_res != {}:
+            raise AssertionError(f"cli --tasks offline: skipped {len(skipped)} of {len(names)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 11 (the rest of the harness) in {time.time() - t_phase:.1f} s  [{card}]")
+    return sum_counts(counts)
 
 
 def clock_line() -> str:
@@ -3423,6 +3881,13 @@ def main() -> int:
                          "them), then phase 10 (the CLI at full Llama-3-8B width and depth with "
                          "HQQ, a checkpoint round trip, HQQ on the decode paths, IR-QLoRA) and "
                          "the study's golden rows")
+    ap.add_argument("--harness", action="store_true",
+                    help="only build and check the kernels, then phase 11 (the rest of the "
+                         "harness, decontamination, UPR, STS and hf-causal at full Llama-3-8B "
+                         "width and depth)")
+    ap.add_argument("--harness-seed", type=int, default=0, metavar="N",
+                    help="with --harness: make phase 11's weights and documents from seed N "
+                         "(default 0, the full run's)")
     ap.add_argument("--microbench", action="store_true",
                     help="only check, drive and time the weight-stream probes B8-B10 through "
                          "the microbench entry points")
@@ -3528,6 +3993,14 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
         }}), flush=True)
         return 0
+    if args.harness:
+        s = args.harness_seed
+        total = drive_harness(P, build_rtn_params(P, s), card, s)
+        log(f"launches: {json.dumps(total)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        }}), flush=True)
+        return 0
     if args.eval:
         golden = drive_golden(P, card)
         params = build_rtn_params(P)
@@ -3554,6 +4027,7 @@ def main() -> int:
     paths.append(drive_rtn_fp(P, params, card))
     paths.append(drive_rtn_a8(P, params, card))
     paths.append(drive_eval(P, params, card))
+    paths.append(drive_harness(P, params, card))
     del params
     torch.cuda.empty_cache()
     paths.append(drive_microbench(P, card))

@@ -17,10 +17,12 @@ of stdout; the `[cli]` lines go to stderr, as JAX prints them.
 
 The matmul backend is the port's default, `pallas` (JAX's default is
 `xla`; `ops.matmul.backend("xla")` around `main` gives JAX's route).
-What the port cannot do yet exits with the ROADMAP item it waits for,
-before any model is loaded: `--tp`, `--dp`, `--sp` (A 5), `--moe_capacity`
-and non-llama models (A 4), `--decontamination_ngrams_path` and tasks
-outside the golden-row subset of the harness (A 2).
+`--tasks` takes any of JAX's registry names and patterns
+(`eval/harness/tasks`), rolls MMLU subjects up as JAX does, and passes
+`--decontamination_ngrams_path` to `simple_evaluate`. What the port cannot
+do yet exits with the ROADMAP item it waits for, before any model is
+loaded: `--tp`, `--dp`, `--sp` (A 5), `--moe_capacity` and non-llama
+models (A 4).
 """
 
 from __future__ import annotations
@@ -112,12 +114,12 @@ UNPORTED_FLAGS = {
     "dp": "A 5 (parallelism)",
     "sp": "A 5 (parallelism)",
     "moe_capacity": "A 4 (other architectures: Mixtral's MoE dispatch)",
-    "decontamination_ngrams_path": "A 2 (the rest of the harness: decontamination)",
 }
 
 
 def refuse_unported(args) -> None:
-    """Exit before any work on a flag or task the port cannot run yet."""
+    """Exit before any work on a flag the port cannot run yet, or on a task
+    name that matches nothing."""
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag} is not ported yet: it waits for ROADMAP {item}")
@@ -178,23 +180,17 @@ def get_calib(args, tokenizer, vocab_size: int) -> np.ndarray:
 
 
 def check_tasks(requested):
-    """JAX's task-name checks (`cli.py:481-498`) over JAX's names: unknown
-    names exit, and so do names the port's registry lacks, naming ROADMAP
-    A 2. Returns the matched names."""
+    """JAX's task-name checks (`cli.py:365-371`): names and patterns that
+    match nothing in the registry exit. Returns the matched names."""
     from .eval.harness.evaluator import pattern_match
     from .eval.harness.tasks import TASK_REGISTRY
-    from .eval.harness.tasks.names import JAX_TASK_NAMES
 
-    names = pattern_match(requested, list(JAX_TASK_NAMES))
+    names = pattern_match(requested, list(TASK_REGISTRY))
     unknown = set(requested) - set(names) - {
         t for t in requested if any(c in t for c in "*?[")
     }
     if unknown:
         raise SystemExit(f"unknown tasks: {sorted(unknown)}")
-    waiting = [n for n in names if n not in TASK_REGISTRY]
-    if waiting:
-        raise SystemExit(f"tasks {waiting} wait for the rest of the harness (ROADMAP A 2); "
-                         f"ported: {sorted(TASK_REGISTRY)}")
     return names
 
 
@@ -324,9 +320,17 @@ def main(argv=None):
         t_res = simple_evaluate(
             lm, tasks=task_dict, num_fewshot=args.num_fewshot,
             limit=None if args.limit == -1 else args.limit,
+            decontamination_ngrams_path=args.decontamination_ngrams_path,
         )
         results.update(t_res["results"])
         print(make_table(t_res), file=sys.stderr)
+        if any(t.startswith("hendrycksTest") for t in args.tasks.split(",")):
+            from .eval.mmlu_categories import mmlu_rollup
+
+            roll = mmlu_rollup(t_res["results"])
+            results.update(roll)
+            for k, v in roll.items():
+                print(f"[cli] {k} = {v:.4f}", file=sys.stderr)
 
     if args.save_dir:
         from .models.hf_loader import save_checkpoint

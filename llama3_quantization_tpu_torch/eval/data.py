@@ -9,9 +9,8 @@ window math, because PPL parity needs the *same* token windows.
 
 Loaders take caller-given text (`train_text`, `test_text`, `train_docs`,
 `val_docs`); without it they read a local HF `datasets` cache and raise
-when there is none. `get_pile(data_file=...)` needs the decontamination
-archiver's reader, which the port does not have yet: it raises
-`NotImplementedError`; `train_docs=` works.
+when there is none. `get_pile(data_file=...)` reads a jsonl(.zst) file
+through the decontamination archiver's `Reader`.
 """
 
 from __future__ import annotations
@@ -179,10 +178,9 @@ def get_pile(nsamples, seed, seqlen, tokenizer, train_docs=None, data_file=None)
                 "pile loader needs data_file=<val.jsonl(.zst)> or train_docs "
                 "(the reference's path is cluster-local, datautils.py:17)"
             )
-        raise NotImplementedError(
-            "get_pile(data_file=...) reads jsonl(.zst) through the decontamination "
-            "archiver, which is not ported yet; pass train_docs=[...]"
-        )
+        from ..decontamination.archiver import Reader
+
+        train_docs = list(Reader().read(data_file))
     trainenc = tokenizer.encode("\n\n".join(train_docs[:1000]))
     return _sample_windows(trainenc, nsamples, seed, seqlen), None
 

@@ -1,12 +1,13 @@
-"""Evaluation orchestrator (the reference harness's `lm_eval/evaluator.py`;
-a copy of `llama3_quantization_tpu/eval/harness/evaluator.py`, held equal
-to it by `tests/test_torch_harness.py`).
+"""Evaluation orchestrator (the reference's `lm_eval/evaluator.py`).
 
 Same flow as the fork's `simple_evaluate`: takes a LIVE LM object, expands
 fnmatch task patterns, builds all requests per (task, doc) with the seeded
 shuffle (`rnd.seed(42)`, evaluator.py:179-181), executes each request type
 as one vectorized LM call, routes responses back through `process_results`,
 aggregates with bootstrap stderr.
+
+A copy of `llama3_quantization_tpu/eval/harness/evaluator.py`, held equal to it by
+`tests/test_torch_tasks.py`.
 """
 
 from __future__ import annotations
@@ -91,11 +92,8 @@ def evaluate(
     requests = collections.defaultdict(list)
     requests_origin = collections.defaultdict(list)
     docs = {}
-    if decontamination_ngrams_path is not None:
-        raise NotImplementedError(
-            "decontamination_ngrams_path needs the decontamination package, "
-            "which is not ported yet"
-        )
+    decontaminate = decontamination_ngrams_path is not None
+    docs_for_decontamination = collections.defaultdict(list)
 
     for task_name, task in task_dict_items:
         versions[task_name] = task.VERSION
@@ -115,6 +113,10 @@ def evaluate(
         )
         for doc_id, doc in enumerate(task_docs[:limit] if limit else task_docs):
             docs[(task_name, doc_id)] = doc
+            if decontaminate and task.should_decontaminate():
+                docs_for_decontamination[task_name].append(
+                    task.doc_to_decontamination_query(doc)
+                )
             ctx = task.fewshot_context(
                 doc=doc, num_fewshot=num_fewshot, rnd=rnd, description=description
             )
@@ -134,6 +136,14 @@ def evaluate(
         for resp, (i, task_name, doc, doc_id) in zip(resps, requests_origin[reqtype]):
             process_res_queue[(task_name, doc_id)].append((i, resp))
 
+    overlaps: dict = {}
+    if decontaminate and docs_for_decontamination:
+        from ...decontamination.decontaminate import get_train_overlap
+
+        overlaps = get_train_overlap(
+            dict(docs_for_decontamination), decontamination_ngrams_path
+        )
+
     vals = collections.defaultdict(list)
     for (task_name, doc_id), per_doc_requests in process_res_queue.items():
         per_doc_requests.sort(key=lambda x: x[0])
@@ -143,13 +153,16 @@ def evaluate(
         output = task.process_results(doc, per_doc_results)
         for metric, value in output.items():
             vals[(task_name, metric)].append(value)
+            if decontaminate and doc_id not in overlaps.get(task_name, set()):
+                vals[(task_name, metric + "_decontaminate")].append(value)
 
     for (task_name, metric), items in vals.items():
         task = task_dict[task_name]
-        agg = task.aggregation()[metric]
+        base_metric = metric.replace("_decontaminate", "")
+        agg = task.aggregation()[base_metric]
         results[task_name][metric] = agg(items)
         stderr = metrics_mod.stderr_for_metric(agg, bootstrap_iters=bootstrap_iters)
-        if stderr is not None:
+        if stderr is not None and not metric.endswith("_decontaminate"):
             results[task_name][metric + "_stderr"] = stderr(items)
 
     return {"results": dict(results), "versions": dict(versions)}

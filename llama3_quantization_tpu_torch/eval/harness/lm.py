@@ -8,10 +8,13 @@ length-descending reordering, left truncation to `max_length + 1`, right
 padding, log-softmax + continuation gather + greedy match, rolling
 windows for perplexity requests.
 
-`TorchLM` is the port's counterpart of `JAXLM`: it scores each padded
-batch with one `forward_logits` at a power-of-two bucket of positions
-(capped at `max_length + 1`, as JAX buckets its compiled shapes), and
-generates greedily through `decode_step` on a fresh fp KV cache.
+`DummyLM` is a copy of the JAX package's. `TorchLM` is the port's
+counterpart of `JAXLM`: it scores each padded batch with one
+`forward_logits` at a power-of-two bucket of positions (capped at
+`max_length + 1`, as JAX buckets its compiled shapes), and generates
+greedily through `decode_step` on a fresh fp KV cache. JAX's
+`Seq2SeqJAXLM`, over its T5 encoder-decoder trunk, waits for that trunk
+(ROADMAP A 4).
 """
 
 from __future__ import annotations
@@ -278,3 +281,22 @@ class TorchLM(BaseLM):
                 nxt = int(logits[0, -1].argmax())
                 pos += 1
         return text
+
+
+class DummyLM(LM):
+    """Deterministic fake LM for harness plumbing tests
+    (`lm_eval/models/dummy.py:5-36`)."""
+
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+
+    def loglikelihood(self, requests):
+        rng = np.random.default_rng(self.seed)
+        return [(-float(rng.random()), False) for _ in requests]
+
+    def loglikelihood_rolling(self, requests):
+        rng = np.random.default_rng(self.seed)
+        return [-float(rng.random()) for _ in requests]
+
+    def greedy_until(self, requests):
+        return ["lol" for _ in requests]

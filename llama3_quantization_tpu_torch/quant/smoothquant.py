@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.configs import ModelConfig
 from ..models.params import linear_names
 from ..models.transformer import NO_QUANT
@@ -73,14 +74,16 @@ def save_act_stats(stats, path: str) -> None:
     np.savez(path, **payload)
 
 
-def load_act_stats(path: str, device="cpu"):
-    """Stats written by `save_act_stats` (either package's)."""
+def load_act_stats(path: str, device="cuda"):
+    """Stats written by `save_act_stats` (either package's), on `device`
+    (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     layers: dict = {}
     with np.load(path) as data:
         for key in data.files:
             l, name, kind = key.split("/")
             layers.setdefault(int(l), {}).setdefault(name, {})[kind] = \
-                torch.from_numpy(np.array(data[key])).to(device)
+                torch.from_numpy(np.array(data[key])).to(dev)
     return [layers[l] for l in sorted(layers)]
 
 

@@ -89,6 +89,73 @@ TASK_DATA = {
 }
 
 
+#: the harness tasks `synthetic_task_data` writes documents for
+SYNTHETIC_TASKS = ("hellaswag", "winogrande", "hendrycksTest-abstract_algebra", "lambada_openai",
+                   "wikitext", "gsm8k")
+
+
+def synthetic_task_data(seed: int = 0, n_docs: int = 8, n_pages: int = 2,
+                        page_bytes: int = 5000, n_gsm8k: int = 2) -> Dict[str, Dict[str, list]]:
+    """Seeded documents for `SYNTHETIC_TASKS`, each in its task's raw
+    (HF dataset) schema, for `simple_evaluate(..., task_data=...)` where no
+    dataset is at hand: words drawn with `np.random.default_rng(seed)` from
+    the fixture corpus, wikitext pages cut from it at seeded offsets
+    (`page_bytes` each, whole lines). `n_docs` documents a task (hellaswag
+    with 4 endings, MMLU with 4 choices), `n_gsm8k` for gsm8k."""
+    rng = np.random.default_rng(seed)
+    text = CORPUS.read_text()
+    vocab = sorted({w for w in text.split() if w.isalpha() and w.islower()})
+
+    def words(n: int) -> str:
+        return " ".join(vocab[i] for i in rng.integers(0, len(vocab), n))
+
+    hellaswag = [{"activity_label": words(2).capitalize(), "ctx_a": words(16) + ".",
+                  "ctx_b": words(6), "endings": [words(8) + "." for _ in range(4)],
+                  "label": str(i % 4)} for i in range(n_docs)]
+    winogrande = [{"sentence": f"{words(10).capitalize()} _ {words(8)}.", "option1": words(1),
+                   "option2": words(1), "answer": str(1 + i % 2)} for i in range(n_docs)]
+    mmlu = [{"question": words(12) + "?", "choices": [words(3) for _ in range(4)],
+             "answer": i % 4} for i in range(n_docs)]
+    lambada = [{"text": words(40)} for _ in range(n_docs)]
+    pages = []
+    for start in rng.integers(0, len(text) - 2 * page_bytes, n_pages):
+        start = text.index("\n", int(start)) + 1
+        pages.append({"page": text[start: text.index("\n", start + page_bytes) + 1]})
+    gsm8k = [{"question": words(20) + "?",
+              "answer": f"{words(10)}.\n#### {int(rng.integers(1, 1000))}"}
+             for _ in range(n_gsm8k)]
+    return {
+        "hellaswag": {"train": hellaswag, "validation": hellaswag},
+        "winogrande": {"train": winogrande, "validation": winogrande},
+        "hendrycksTest-abstract_algebra": {"test": mmlu, "validation": mmlu, "dev": mmlu},
+        "lambada_openai": {"test": lambada},
+        "wikitext": {"train": pages, "validation": pages, "test": pages},
+        "gsm8k": {"train": gsm8k, "test": gsm8k},
+    }
+
+
+class Recorder:
+    """An LM answering through `lm` that keeps each call's requests and
+    answers, in order (what `simple_evaluate` aggregates away)."""
+
+    def __init__(self, lm):
+        self.lm, self.calls = lm, []
+
+    def _call(self, kind, requests):
+        out = getattr(self.lm, kind)(requests)
+        self.calls.append((kind, list(requests), list(out)))
+        return out
+
+    def loglikelihood(self, requests):
+        return self._call("loglikelihood", requests)
+
+    def loglikelihood_rolling(self, requests):
+        return self._call("loglikelihood_rolling", requests)
+
+    def greedy_until(self, requests):
+        return self._call("greedy_until", requests)
+
+
 def load_tiny_params(device="cuda"):
     """JAX's `init_params(TINY_LLAMA, PRNGKey(0), float32)`, from the npz."""
     return load_params_npz(PARAMS_NPZ, device)

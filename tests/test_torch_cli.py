@@ -8,10 +8,13 @@ TINY_LLAMA, `cli.main` of both packages prints the same results within
 windows of 64; the port on the CPU under JAX's default backend, xla);
 `--save_dir` reloads in both packages; every flag the port has not yet
 exits naming its ROADMAP item; tasks run offline through the port's
-registry with `--use_cache`; JAX's task names and `caching.py` are held
-equal; the sweep's configs and parsing are JAX's. No test reaches a
-tokenizer or a dataset: both packages' `HFTokenizer` is stood in by one
-that finds no files, as on a directory without them.
+registry with `--use_cache`, any of JAX's names and patterns among them
+(`hellaswag`, `piqa,hendrycksTest-*` with JAX's MMLU rollup), and
+`--decontamination_ngrams_path` reaches `simple_evaluate`; JAX's task
+names and `caching.py` are held equal; the sweep's configs and parsing are
+JAX's, and it runs at its default tasks. No test reaches a tokenizer or a
+dataset: both packages' `HFTokenizer` is stood in by one that finds no
+files, as on a directory without them, and `datasets` cannot be imported.
 """
 
 import argparse
@@ -30,13 +33,13 @@ import jax.numpy as jnp
 
 import llama3_quantization_tpu.cli as jcli
 import llama3_quantization_tpu.eval.data as jdata
+from llama3_quantization_tpu.eval.harness import evaluator as jev
 from llama3_quantization_tpu.models import TINY_LLAMA, init_params
 from llama3_quantization_tpu.models import hf_loader as JL
 from llama3_quantization_tpu.tools import reproduce_study as jstudy
 from llama3_quantization_tpu_torch import api, cli
 from llama3_quantization_tpu_torch.eval import data as tdata
 from llama3_quantization_tpu_torch.eval.harness import tasks as ttasks
-from llama3_quantization_tpu_torch.eval.harness.tasks.names import JAX_TASK_NAMES
 from llama3_quantization_tpu_torch.models import configs as tcfg
 from llama3_quantization_tpu_torch.models import hf_loader as TL
 from llama3_quantization_tpu_torch.ops import matmul as mm
@@ -55,9 +58,11 @@ class _NoTokenizer:
 
 @pytest.fixture(autouse=True)
 def offline(monkeypatch):
-    """No tokenizer lookup in either package; the port's backend restored."""
+    """No tokenizer lookup in either package, no dataset download; the
+    port's backend restored."""
     monkeypatch.setattr(jdata, "HFTokenizer", _NoTokenizer)
     monkeypatch.setattr(tdata, "HFTokenizer", _NoTokenizer)
+    monkeypatch.setitem(sys.modules, "datasets", None)
     yield
     mm.set_backend("pallas")
 
@@ -80,8 +85,9 @@ def test_parser_mirrors_jax():
 def test_task_names_and_caching_are_jaxs():
     from llama3_quantization_tpu.eval.harness.tasks import TASK_REGISTRY as JREG
 
-    assert JAX_TASK_NAMES == tuple(JREG)
-    assert set(ttasks.TASK_REGISTRY) <= set(JAX_TASK_NAMES)
+    assert tuple(ttasks.TASK_REGISTRY) == tuple(JREG) and len(JREG) == 285
+    for pats in (["hendrycksTest-*"], ["piqa", "arc_*"], ["blimp_*", "wmt*"]):
+        assert cli.check_tasks(pats) == jev.pattern_match(pats, list(JREG))
     port = ROOT / "llama3_quantization_tpu_torch" / "eval" / "harness" / "caching.py"
     ref = ROOT / "llama3_quantization_tpu" / "eval" / "harness" / "caching.py"
     assert port.read_text() == ref.read_text()
@@ -151,9 +157,8 @@ def test_cli_save_dir_reloads(hf_dir, tmp_path, capsys):
 
 UNPORTED = [
     (["--tp", "2"], "A 5"), (["--dp", "2"], "A 5"), (["--sp", "2"], "A 5"),
-    (["--moe_capacity", "1.25"], "A 4"), (["--decontamination_ngrams_path", "ngrams"], "A 2"),
+    (["--moe_capacity", "1.25"], "A 4"),
     (["--net", "tiny-opt"], "A 4"), (["--net", "tiny-mixtral"], "A 4"),
-    (["--tasks", "hellaswag"], "A 2"), (["--tasks", "piqa,hendrycksTest-*"], "A 2"),
     (["--tasks", "no_such_task"], "unknown tasks"),
 ]
 
@@ -167,15 +172,16 @@ def test_unported_flags_exit_naming_their_item(extra, item):
 
 
 def test_unported_tasks_exit_before_loading(monkeypatch):
-    """A task the port cannot run yet stops the command before the model
-    is built, quantized or evaluated."""
+    """A task name that matches nothing in the registry stops the command
+    before the model is built, quantized or evaluated (every other name of
+    JAX's registry runs: `test_cli_runs_any_registry_task`)."""
     def fail(*a, **k):
         raise AssertionError("the model was loaded")
 
     monkeypatch.setattr(cli, "load_model", fail)
-    with pytest.raises(SystemExit, match="A 2"):
+    with pytest.raises(SystemExit, match="unknown tasks"):
         cli.main(["--net", "llama3-8b", "--quant_method", "hqq", "--eval_ppl", "--tasks",
-                  "hellaswag", "--device", "cpu"])
+                  "hellaswag,no_such_task*x,no_such_task", "--device", "cpu"])
 
 
 def test_t5_directory_waits_for_a4(tmp_path):
@@ -218,6 +224,53 @@ def test_cli_tasks_with_cache(offline_tasks, tmp_path, capsys):
     assert cli.main(argv) == first  # answered from the cache
 
 
+MMLU_DOCS = tstudy.synthetic_task_data(n_docs=3)["hendrycksTest-abstract_algebra"]
+REGISTRY_RUNS = [
+    (["--tasks", "hellaswag"], {"hellaswag"}),
+    (["--tasks", "piqa,hendrycksTest-*"],
+     {"piqa", "hendrycksTest-abstract_algebra", "hendrycksTest-anatomy", "mmlu_average",
+      "mmlu_STEM"}),
+    (["--tasks", "piqa", "--decontamination_ngrams_path", "GRAMS"], {"piqa"}),
+]
+
+
+@pytest.mark.parametrize("extra,keys", REGISTRY_RUNS, ids=["hellaswag", "piqa+mmlu", "decontam"])
+def test_cli_runs_any_registry_task(monkeypatch, tmp_path, capsys, extra, keys):
+    """Names and patterns of JAX's registry run (the documents injected;
+    the tasks without any are skipped with JAX's message), MMLU subjects
+    roll up as in JAX, and `--decontamination_ngrams_path` reaches
+    `simple_evaluate` (no piqa goal holds the stored 13-grams, so
+    `acc_decontaminate` is `acc`)."""
+    from llama3_quantization_tpu_torch.decontamination import Janitor
+    from llama3_quantization_tpu_torch.eval import harness
+
+    docs = {**tstudy.synthetic_task_data(n_docs=3), **tstudy.TASK_DATA,
+            "hendrycksTest-anatomy": MMLU_DOCS}
+    reg = dict(ttasks.TASK_REGISTRY)
+    for name, data in docs.items():
+        reg[name] = functools.partial(ttasks.TASK_REGISTRY[name], data=data)
+    monkeypatch.setattr(ttasks, "TASK_REGISTRY", reg)
+    grams = tmp_path / "grams.pkl"
+    j = Janitor()
+    j.register_contaminant(" ".join(f"word{i}" for i in range(20)))
+    j.save_contamination_ngrams(str(grams))
+    seen = {}
+    evaluate = harness.simple_evaluate
+    monkeypatch.setattr(harness, "simple_evaluate",
+                        lambda *a, **k: seen.update(k) or evaluate(*a, **k))
+    res = cli.main(["--net", "tiny-llama", "--quant_method", "rtn", "--group_size", "32",
+                    "--batch_size", "4", "--device", "cpu"]
+                   + [str(grams) if a == "GRAMS" else a for a in extra])
+    assert keys <= set(res), set(res)
+    assert seen["decontamination_ngrams_path"] == (str(grams) if "GRAMS" in extra else None)
+    if "GRAMS" in extra:
+        assert res["piqa"]["acc_decontaminate"] == res["piqa"]["acc"]
+    if "piqa,hendrycksTest-*" in extra:
+        assert "[cli] skipping task hendrycksTest-virology" in capsys.readouterr().err
+        accs = [res[f"hendrycksTest-{s}"]["acc"] for s in ("abstract_algebra", "anatomy")]
+        assert res["mmlu_average"] == pytest.approx(sum(accs) / 2)
+
+
 def test_cli_serving_recode_and_observe(capsys):
     res = cli.main(["--net", "tiny-llama", "--quant_method", "rtn", "--group_size", "32",
                     "--serving_recode", "--recode_head", "--fuse_decode", "--eval_ppl",
@@ -244,18 +297,18 @@ def test_study_sweep_runs_the_configs(capsys):
 
 def test_study_sweep_exits_on_what_it_cannot_run(monkeypatch):
     """As JAX's sweep, a config the command line refuses stops the sweep;
-    its default tasks, some still waiting for ROADMAP A 2, stop it before
-    the first config."""
+    at its default tasks (the study's five) every config runs them."""
     with pytest.raises(SystemExit):
         tstudy.sweep(["--device", "cpu", "--net", "tiny-llama", "--synthetic", "--configs",
                       "bogus:4:32", "--seqlen", "32", "--limit", "2"])
 
-    def fail(*a, **k):
-        raise AssertionError("a config ran")
-
-    monkeypatch.setattr(cli, "main", fail)
-    with pytest.raises(SystemExit, match="A 2"):
-        tstudy.sweep(["--device", "cpu", "--net", "tiny-llama"])
+    seen = []
+    monkeypatch.setattr(cli, "main", lambda argv: seen.append(argv) or {"wikitext2": 9.5})
+    rows = tstudy.sweep(["--device", "cpu", "--net", "tiny-llama", "--configs", "rtn:4:32",
+                         "hqq:4:64"])
+    assert [r[0] for r in rows] == ["rtn:4:32", "hqq:4:64"] and len(seen) == 2
+    for argv in seen:
+        assert argv[argv.index("--tasks") + 1] == tstudy.CSQA_TASKS == jstudy.CSQA_TASKS
 
 
 def test_cli_runs_as_a_module():

@@ -5,7 +5,7 @@ and the study's golden rows.
   `SyntheticTokenizer` and every `get_*` loader with caller-given text
   (`get_loaders` window sampling included, on which the golden numbers
   depend) give the JAX package's outputs exactly; `get_pile(data_file=)`
-  raises until the decontamination archiver is ported.
+  reads its file through the decontamination archiver into JAX's windows.
 - `windowed_nll_fn`, `compute_ppl` and `eval_ppl_suite` against JAX's on
   the same parameters (fp32, the "xla" backend on both sides, RTN W4 g32
   and fp), relative error <= 1e-5.
@@ -121,9 +121,25 @@ def test_get_loaders_cache_dir(tmp_path):
     _assert_loaders_equal(again, ref)
 
 
-def test_get_pile_data_file_waits_for_the_archiver():
-    with pytest.raises(NotImplementedError, match="archiver"):
-        tdata.get_pile(2, 0, 16, tdata.SyntheticTokenizer(), data_file="val.jsonl.zst")
+def test_get_pile_data_file_waits_for_the_archiver(tmp_path):
+    """`get_pile(data_file=...)` reads the file the archiver wrote (the
+    archiver is ported): JAX's windows, and the same windows as the
+    documents given as `train_docs`. The name is kept from when this call
+    raised for want of the archiver."""
+    from llama3_quantization_tpu_torch.decontamination.archiver import Archive
+
+    path = str(tmp_path / "val.jsonl")
+    a = Archive(path)
+    for doc in DOCS:
+        a.add_data(doc)
+    a.commit()
+    got = tdata.get_pile(2, 0, 16, tdata.SyntheticTokenizer(), data_file=path)
+    _assert_loaders_equal(got, jdata.get_pile(2, 0, 16, jdata.SyntheticTokenizer(),
+                                              data_file=path))
+    _assert_loaders_equal(got, tdata.get_pile(2, 0, 16, tdata.SyntheticTokenizer(),
+                                              train_docs=DOCS))
+    with pytest.raises(RuntimeError, match="data_file"):
+        tdata.get_pile(2, 0, 16, tdata.SyntheticTokenizer())
     with pytest.raises(ValueError):
         tdata.get_loaders("unknown", tokenizer=tdata.SyntheticTokenizer())
 

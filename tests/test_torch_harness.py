@@ -4,7 +4,8 @@
   the SQuAD scores, the bootstrap stderr), `Reorderer`,
   `get_rolling_token_windows`, `make_disjoint_window`, `pattern_match`,
   `make_table`, the piqa / arc_easy / arc_challenge documents, prompts and
-  requests, and `get_task_dict` give the JAX package's outputs.
+  requests, and `get_task_dict` give the JAX package's outputs; the
+  registry is JAX's.
 - `TorchLM` against `JAXLM` on the same parameters and requests (fp32, the
   "xla" backend on both sides; fp and RTN W4 g32): log-likelihoods within
   1e-4 and identical greedy flags, for `loglikelihood` and
@@ -12,8 +13,8 @@
   under `set_decode_kernel(False)` (JAX's own CPU route), with a stop
   string hit and not; `simple_evaluate` on the study's tasks gives JAX's
   results.
-- `decontamination_ngrams_path` raises until decontamination is ported;
-  unknown task names raise as in JAX.
+- `decontamination_ngrams_path` gives JAX's results, the
+  `*_decontaminate` metrics included; unknown task names raise as in JAX.
 """
 
 import random
@@ -122,7 +123,7 @@ def test_pattern_match_and_registry():
     names = ["piqa", "arc_easy", "arc_challenge", "hellaswag"]
     for pats in (["arc_*"], ["piqa", "arc_e*"], ["*"], ["nothing*"]):
         assert tev.pattern_match(pats, names) == jev.pattern_match(pats, names)
-    assert set(ttasks.TASK_REGISTRY) == {"piqa", "arc_easy", "arc_challenge"}
+    assert list(ttasks.TASK_REGISTRY) == list(jtasks.TASK_REGISTRY)
     for name, cls in ttasks.TASK_REGISTRY.items():
         jcls = jtasks.TASK_REGISTRY[name]
         assert (cls.VERSION, cls.DATASET_PATH, cls.DATASET_NAME) == (
@@ -250,10 +251,22 @@ def test_simple_evaluate_matches_jax(lms):
         assert got["results"][task] == pytest.approx(row, abs=1e-9)
 
 
-def test_harness_refusals(lms):
-    _, tl = lms["fp"]
-    with pytest.raises(NotImplementedError, match="decontamination"):
-        tev.simple_evaluate(tl, ["piqa"], task_data=TASK_DATA, decontamination_ngrams_path="x")
+def test_harness_refusals(lms, tmp_path):
+    jl, tl = lms["fp"]
+    import pickle
+
+    from llama3_quantization_tpu_torch.decontamination import word_ngrams
+
+    goal = " ".join(f"word{i}" for i in range(16))
+    docs = [dict(TASK_DATA["piqa"]["validation"][0], goal=goal)] + TASK_DATA["piqa"][
+        "validation"][1:]
+    (tmp_path / "grams.pkl").write_bytes(pickle.dumps(set(word_ngrams(goal, 13))))
+    kw = dict(task_data={"piqa": {"train": docs, "validation": docs}}, bootstrap_iters=10,
+              decontamination_ngrams_path=str(tmp_path / "grams.pkl"))
+    with jmm.backend("xla"), tmm.backend("xla"):
+        got = tev.simple_evaluate(tl, ["piqa"], **kw)["results"]["piqa"]
+        ref = jev.simple_evaluate(jl, ["piqa"], **kw)["results"]["piqa"]
+    assert "acc_decontaminate" in got and got == pytest.approx(ref, abs=1e-9)
     for mod, lm in ((tev, tl), (jev, lms["fp"][0])):
         with pytest.raises(KeyError):
             mod.simple_evaluate(lm, ["hellaswag_x"], task_data=TASK_DATA)

@@ -97,6 +97,7 @@ def test_port_runs_with_jax_blocked():
         finally:
             P.set_decode_attn("auto")
         from llama3_quantization_tpu_torch.microbench import w4_v4
+        from llama3_quantization_tpu_torch.quant import smoothquant
         res = w4_v4.main(["512", "256", "256", "128", "--device", "cpu", "--steps", "1"])
         assert res["max_rel_err"] < 1e-5
         assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
@@ -110,6 +111,7 @@ def test_port_runs_with_jax_blocked():
                      lambda: P.init_quantized_params(cfg, P.QuantSpec(n_bits=4, group_size=32)),
                      lambda: P.init_params(cfg, gen),
                      lambda: P.params_from_numpy({}),
+                     lambda: smoothquant.load_act_stats("stats.npz"),
                      lambda: w4_v4.main(["512", "256", "256", "128"])):
             try:
                 call()
@@ -164,7 +166,7 @@ def test_quantizers_run_with_jax_blocked(tmp_path):
                            tree["b"]["c"])
         generate_act_stats.main(["--device", "cpu", "--nsamples", "2", "--seqlen", "16",
                                  "--out", "{tmp_path}/s.npz"])
-        assert len(smoothquant.load_act_stats("{tmp_path}/s.npz")) == cfg.num_layers
+        assert len(smoothquant.load_act_stats("{tmp_path}/s.npz", device="cpu")) == cfg.num_layers
         assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -315,6 +317,84 @@ def test_cli_slice_runs_with_jax_and_hf_packages_blocked(tmp_path):
         assert not any(m in ("jax", "safetensors", "transformers")
                        or m.startswith(("jax.", "llama3_quantization_tpu.", "safetensors.",
                                         "transformers."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_harness_ir_sts_run_with_jax_and_hf_packages_blocked(tmp_path):
+    """The rest of the harness needs neither JAX, the JAX package,
+    `transformers` nor `datasets`: every task module and the registry, the
+    local loaders, the adapters (`hf-causal` over a plain module), DummyLM,
+    decontamination (the native janitor and the Python one, the archiver,
+    `get_pile(data_file=)`), `simple_evaluate` with an n-gram pickle,
+    retrieval, STS and both benchmark tools; an HF adapter left to find its
+    model raises for want of `transformers`."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "llama3_quantization_tpu", "transformers", "datasets"):
+            sys.modules[name] = None
+        import importlib, pkgutil
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch import decontamination, eval as E
+        from llama3_quantization_tpu_torch.decontamination import archiver, janitor
+        from llama3_quantization_tpu_torch.eval import harness as H, mmlu_categories, retrieval, sts
+        from llama3_quantization_tpu_torch.eval.harness import local_datasets, tasks, text_utils
+        from llama3_quantization_tpu_torch.tools import (benchmark_ir, benchmark_sts,
+                                                          reproduce_study as R)
+
+        for m in pkgutil.iter_modules(tasks.__path__):
+            importlib.import_module(f"{{tasks.__name__}}.{{m.name}}")
+        assert len(tasks.TASK_REGISTRY) == 285 and len(local_datasets.LOADERS) > 10
+        assert janitor.native_used()
+        j = janitor.Janitor()
+        j.register_contaminant(" ".join(f"w{{i}}" for i in range(14)))
+        j.save_contamination_ngrams("{tmp_path}/g.pkl")
+        a = archiver.Archive("{tmp_path}/p.jsonl")
+        a.add_data("some pile text " * 20)
+        a.commit()
+        from llama3_quantization_tpu_torch.eval.data import get_pile
+        assert get_pile(1, 0, 8, E.SyntheticTokenizer(), data_file="{tmp_path}/p.jsonl")[0]
+        docs = R.synthetic_task_data(n_docs=2, page_bytes=300)
+        res = H.simple_evaluate(H.DummyLM(), list(docs), task_data=docs, bootstrap_iters=2,
+                                decontamination_ngrams_path="{tmp_path}/g.pkl")
+        assert "acc_decontaminate" in res["results"]["hellaswag"]
+        assert mmlu_categories.mmlu_rollup(res["results"])["mmlu_average"] >= 0
+
+        cfg = P.TINY_LLAMA
+        params = P.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                               device="cpu")
+
+        class Causal(torch.nn.Module):
+            def forward(self, ids):
+                return type("Out", (), {{"logits": P.forward_logits(params, ids % 512, cfg)}})
+
+        hf = H.get_model("hf-causal")(model=Causal(), tokenizer=R.Tok(E.SyntheticTokenizer()),
+                                      device="cpu")
+        assert len(hf.loglikelihood([("a b", " c d")])) == 1
+        for name in ("hf-causal", "hf-seq2seq"):
+            try:
+                H.get_model(name)(pretrained="some/dir", device="cpu")
+            except ImportError:
+                pass
+            else:
+                raise AssertionError("an HF adapter ran without transformers")
+        up = retrieval.UPRReranker(params, cfg, R.Tok(E.SyntheticTokenizer()), max_length=64)
+        assert len(up.score_pairs([("q a", "a passage here"), ("b", "c")])) == 2
+        enc = sts.STSEncoder(params, cfg, R.Tok(E.SyntheticTokenizer()), max_length=64)
+        assert enc.encode(["one", "two words"]).shape == (2, cfg.hidden_size)
+        ir = benchmark_ir.main(["--device", "cpu", "--synthetic", "8", "--top_k", "2"])
+        st = benchmark_sts.main(["--device", "cpu", "--synthetic", "4"])
+        assert set(ir) == {{"bm25", "upr"}} and st["n_pairs"] == 4
+        assert not any(m in ("jax", "transformers", "datasets")
+                       or m.startswith(("jax.", "llama3_quantization_tpu.", "transformers.",
+                                        "datasets."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
     """)

@@ -135,7 +135,7 @@ def test_collect_act_stats_matches_jax(tiny, tmp_path):
                 np.testing.assert_allclose(tl[name][kind].numpy(), np.asarray(jl[name][kind]),
                                            rtol=0, atol=1e-5)
     JQ.save_act_stats(js, str(tmp_path / "jax.npz"))
-    back = TQ.load_act_stats(str(tmp_path / "jax.npz"))
+    back = TQ.load_act_stats(str(tmp_path / "jax.npz"), device="cpu")
     TQ.save_act_stats(back, str(tmp_path / "port.npz"))
     again = JQ.load_act_stats(str(tmp_path / "port.npz"))
     for name in js[1]:
