@@ -19,6 +19,8 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --harness       # only the kernel checks and phase 11 (the rest of the
                                           # harness, IR and STS at full width)
     python3 chip_smoke.py --harness --harness-seed 1  # the same on other weights and documents
+    python3 chip_smoke.py --archs         # only the kernel checks and phase 12 (OPT-125M,
+                                          # Falcon-7B and Mixtral-8x7B at full width and depth)
 
 Phases, in order; any failure exits non-zero:
   1. require CUDA and print the card's name and power limit;
@@ -59,7 +61,11 @@ Phases, in order; any failure exits non-zero:
      noscale, cast8, multi S = 1/2/4) and B10 dot2 / cat bit for bit, B10
      bf16 within 1e-2, every B9 and B10 form bit-equal between two calls,
      and B10 dot2 / cat bit-equal to B3's `a8_plain` at the unpack default
-     [4096, 14336] and on a ragged K = 384;
+     [4096, 14336] and on a ragged K = 384; and phase 12's shapes
+     (`check_arch_kernels`): B1 at M = 1 and 8 and B2 at M = 128 on
+     OPT-125M's W4 g128 and Falcon-7B's W4 g64 linears, the B5 forms and
+     B6 at rep 1, D = 64, T = 512, B7 at 71 query heads over one K/V head
+     and at 12 over 12, D = 64, S = 128 and 2048;
   4. drive the first main path at full Llama-3-8B width and depth (W4 g128
      packed synthetic weights, bf16, 32 layers, the pallas backend):
      `forward_logits` on [1, 128] tokens, a 128-token prefill into an int8
@@ -143,7 +149,20 @@ Phases, in order; any failure exits non-zero:
      over `forward_logits` within 1e-4 a token of `TorchLM` on the 27 study
      requests; `cli.main --tasks hellaswag,winogrande,hendrycksTest-*` at 2
      layers offline (every name passes the checks and is skipped with
-     JAX's message). Which janitor path ran (native or Python) is printed.
+     JAX's message). Which janitor path ran (native or Python) is printed;
+ 12. the other architectures (`drive_archs`, run after phase 11), each at
+     full width and depth and freed before the next: OPT-125M W4 g128
+     (forwards at [1, 128] and [1, 2048] against the plain versions with the
+     eager attention, int8 and fp greedy decodes, `decode_window`, the int8
+     engine, windowed), Falcon-7B W4 g64 (the same forwards; decodes on B1
+     with the eager attention, the only routes allowed `B5.eager` and
+     `B6.eager`; the default fp engine), Mixtral-8x7B W4 g128 built layer
+     by layer (the dense forward against the plain versions with a witness
+     and a faulty control in the same run, the experts' picks that differ
+     counted; capacity 8.0 against dense, capacity 1.25 with its drops
+     counted; 32 greedy int8 steps; the int8 engine, never windowed). Each
+     model's launches of B1, B2, B5, B6 and B7, its routes and its seconds
+     are printed.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel form that a path should run and did not, or one it
@@ -528,10 +547,11 @@ def compare_rows(name: str, got, ref, rtol: float) -> None:
 FORMS = ((False, False), (False, True), (True, False), (True, True))
 
 
-def check_decode_forms(P, gen, results):
+def check_decode_forms(P, gen, results, g=8, rep=4, d=128, ts=(512, 2048), tag=""):
     """B5 on the int8 and int4 caches, with and without m/l statistics, at
-    G=8, rep=4, D=128, B in {1, 8} (8 = the serving engine's slots), T in
-    {512, 2048} (T=2048 runs two T blocks). In the batch-8 cases row 0 is
+    G=8, rep=4, D=128 (or the `g`, `rep`, `d` given, their results keyed
+    under `tag`), B in {1, 8} (8 = the serving engine's slots), T in
+    {512, 2048} (T=2048 runs two T blocks; or `ts`). In the batch-8 cases row 0 is
     all masked: with stats, m must be -1e30 and l = T there. Tolerances: o
     2e-3 * max|o| in fp32 out (a 1-ulp exp difference can move one
     probability code by one), 1e-2 in bf16 out (the form without stats
@@ -539,11 +559,10 @@ def check_decode_forms(P, gen, results):
     import torch
     from llama3_quantization_tpu_torch.ops import decode_attention as da
 
-    g, rep, d = 8, 4, 128
     for int4, stats in FORMS:
         key = da.launch_key(int4, stats)
         for b in (1, 8):
-            for t in (512, 2048):
+            for t in ts:
                 block_t = 1024 if t % 1024 == 0 else 512
                 kq, ks, vq, vs = (x[0] for x in rand_cache(P, b, g, t, d, 1, gen, int4))
                 q = torch.randn((b, 1, g * rep, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -553,7 +572,7 @@ def check_decode_forms(P, gen, results):
                 args = (q, kq, ks, vq, vs, mask)
                 got = da.decode_s8(*args, torch.float32, block_t, stats)
                 ref = da.decode_s8_plain(*args, torch.float32, block_t, stats)
-                label = f"{key} B={b} T={t}"
+                label = f"{key} {tag}B={b} T={t}"
                 if stats:
                     compare_rel(f"{label} m", got[1], ref[1], 1e-6)
                     compare_rel(f"{label} l", got[2], ref[2], 1e-5)
@@ -565,7 +584,7 @@ def check_decode_forms(P, gen, results):
                 if not stats:
                     err = compare(f"{label} bf16-out", da.decode_s8(*args, torch.bfloat16, block_t),
                                   da.decode_s8_plain(*args, torch.bfloat16, block_t), 1e-2)
-                results.setdefault(key, {})[f"B={b} T={t}"] = err
+                results.setdefault(key, {})[f"{tag}B={b} T={t}"] = err
 
 
 def check_b5_split(P, gen):
@@ -922,9 +941,10 @@ FP_CASES = tuple((b, t, "bf16", b == 1) for t in (512, 1024, 2048, 4096) for b i
     (2, 512, "f32", True), (8, 2048, "f32", False))
 
 
-def check_fp_decode(P, gen, results):
+def check_fp_decode(P, gen, results, g=8, rep=4, d=128, cases=None, tag=""):
     """B6 (split along T) against its plain version at FP_CASES, G=8,
-    rep=4, D=128 (stacked: layer 1 of 2); the all-masked row's output is
+    rep=4, D=128 (or the `g`, `rep`, `d` and `cases` given, their results
+    keyed under `tag`) (stacked: layer 1 of 2); the all-masked row's output is
     the mean of v. Tolerances: bf16 1e-2 * max|ref| (bf16 out; p's bf16
     rounding after an exp one ulp apart), fp32 1e-5 * max|ref| (summation
     order). Also the split algorithm's plain twin on the card: its rounded
@@ -932,8 +952,7 @@ def check_fp_decode(P, gen, results):
     import torch
     from llama3_quantization_tpu_torch.ops import decode_attention as da
 
-    g, rep, d = 8, 4, 128
-    for b, t, dname, stacked in FP_CASES:
+    for b, t, dname, stacked in cases or FP_CASES:
         dtype = torch.bfloat16 if dname == "bf16" else torch.float32
         key = da.fp_launch_key(dtype)
         k = torch.randn((2, b, g, t, d), generator=gen, device="cuda").to(dtype)
@@ -947,7 +966,7 @@ def check_fp_decode(P, gen, results):
             got = da.flash_decode_gqa(q, k[1], v[1], mask, bt)
         ref, p_ref = da.decode_fp_plain(q, k[1], v[1], mask, bt, return_p=True)
         c = da.fp_split_chunk(b * g, t, bt)
-        label = (f"{key} {'stacked' if stacked else 'per-layer'} B={b} T={t} "
+        label = (f"{key} {tag}{'stacked' if stacked else 'per-layer'} B={b} T={t} "
                  f"({b * g * t // c} blocks of {c} tokens)")
         err = compare(label, got, ref, 1e-5 if dtype == torch.float32 else 1e-2)
         if b == 8:
@@ -956,7 +975,7 @@ def check_fp_decode(P, gen, results):
         _, p_twin = da.decode_fp_split_plain(q, k[1], v[1], mask, bt, return_p=True)
         if not torch.equal(p_twin, p_ref):
             raise AssertionError(f"{label}: the split twin's p differ from the plain version's")
-        results.setdefault(key, {})[f"B={b} T={t}"] = err
+        results.setdefault(key, {})[f"{tag}B={b} T={t}"] = err
 
 
 #: one-step flips of the requantized probability codes admitted per row
@@ -1030,10 +1049,12 @@ def check_xla_route(P, gen):
 
 
 #: (B, S, H, G, D) of the B7 checks: the main path's Llama-3-8B heads at
-#: S = 128 and 2048, a ragged S (a partly filled q tile and key tile), and
-#: D = 64 with B = 2
+#: S = 128 and 2048, a ragged S (a partly filled q tile and key tile),
+#: D = 64 with B = 2, and phase 12's heads at S = 128 and 2048: Falcon-7B's
+#: 71 query heads over one K/V head and OPT-125M's 12 over 12, D = 64
 FLASH_CASES = ((1, 128, 32, 8, 128), (1, 2048, 32, 8, 128), (1, 200, 32, 8, 128),
-               (2, 1000, 16, 4, 64))
+               (2, 1000, 16, 4, 64), (1, 128, 71, 1, 64), (1, 2048, 71, 1, 64),
+               (1, 128, 12, 12, 64), (1, 2048, 12, 12, 64))
 
 
 def check_flash(P, gen, results):
@@ -1181,12 +1202,13 @@ def build_params(P):
     return params
 
 
-def run_counted(counts, label, fn, must=(), never=(), routes_ok=False):
+def run_counted(counts, label, fn, must=(), never=(), routes_ok=False, allow=()):
     """`fn()` with every launch count set to 0 just before it and read just
     after; fails if a kernel form in `must` was not launched, or one in
     `never` was, or (unless `routes_ok`) a call took a route that a
     kernel's shape predicate chose instead of the kernel, or ran on a
-    padded weight (`launches.ROUTES`: `.eager`, `pad`)."""
+    padded weight (`launches.ROUTES`: `.eager`, `pad`), other than the
+    routes named in `allow`."""
     from llama3_quantization_tpu_torch.ops import launches
 
     import torch
@@ -1201,7 +1223,7 @@ def run_counted(counts, label, fn, must=(), never=(), routes_ok=False):
     stray = [k for k in never if counts[label][k] != 0]
     if stray:
         raise AssertionError(f"{label}: kernels launched off this path's route: {stray}")
-    routed = {k: counts[label][k] for k in launches.ROUTES if counts[label][k]}
+    routed = {k: counts[label][k] for k in launches.ROUTES if counts[label][k] and k not in allow}
     if routed and not routes_ok:
         raise AssertionError(f"{label}: calls turned away from their kernels: {routed}")
     return out
@@ -1839,13 +1861,14 @@ def drive_s4_decode(P, card, profile=False):
 
 
 def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min_distinct=0,
-                      quantized_cache=8, never=(), windowed=None):
+                      quantized_cache=8, never=(), windowed=None, allow=()):
     """`ServingEngine(8 slots, max_len 512, ljf, quantized_cache, fuse)`:
     `run_pipelined(16)` on the 16 requests of the serve mix (after a warm-up
     request) against the sequential `step_n(16)` loop, both counted runs
     that must launch the kernel forms `must` and none of `never`; with
     `windowed` True (False), the engine must (must not) have dispatched a
-    window. Returns the pipelined streams."""
+    window; `allow` names the routes (`launches.ROUTES`) its calls may take.
+    Returns the pipelined streams."""
     k, reqs = 16, serve_requests(16, cfg.vocab_size)
     eng = P.ServingEngine(params, cfg, max_slots=8, max_len=512, quantized_cache=quantized_cache,
                           schedule="ljf", fuse=fuse)
@@ -1853,7 +1876,7 @@ def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min
     warm_steps = eng.dispatches["steps"]
     pipe, dt = run_counted(counts, f"{label} run_pipelined",
                            lambda: timed(lambda: pipelined_streams(eng, reqs, k)), must=must,
-                           never=never)
+                           never=never, allow=allow)
     check_streams(f"{label} run_pipelined", pipe, reqs, cfg.vocab_size)
     produced, distinct = sum(map(len, pipe)), len({t for st in pipe for t in st})
     log(f"served ({label}): {produced / dt:.1f} tok/s ({produced} tokens of 16 requests in "
@@ -1864,7 +1887,7 @@ def serve_and_compare(P, params, cfg, card, label, counts, must, fuse=False, min
         raise AssertionError(f"{label}: streams hold only {distinct} distinct tokens")
     seq, dt_seq = run_counted(counts, f"{label} step_n loop",
                               lambda: timed(lambda: sequential_streams(eng, reqs, k)), must=must,
-                              never=never)
+                              never=never, allow=allow)
     log(f"{label} sequential step_n({k}) loop: {produced / dt_seq:.1f} tok/s ({dt_seq:.2f} s, "
         f"host clock)  [{card}]")
     if seq != pipe:
@@ -3178,6 +3201,438 @@ def drive_harness(P, params, card, seed=0):
     return sum_counts(counts)
 
 
+# ---------------------------------------------------------------- phase 12 ----
+#: (K, N, group size) of OPT-125M's and Falcon-7B's decoder linears; Falcon-7B
+#: at g64: JAX refuses g128 at its K = 4544 = 71 x 64 (ROADMAP A 4.2)
+ARCH_LINEARS = {
+    "opt-125m q/k/v/o": (768, 768, 128), "opt-125m fc1": (768, 3072, 128),
+    "opt-125m fc2": (3072, 768, 128), "falcon-7b q/o": (4544, 4544, 64),
+    "falcon-7b k/v": (4544, 64, 64), "falcon-7b fc1": (4544, 18176, 64),
+    "falcon-7b fc2": (18176, 4544, 64),
+}
+#: (kernel, M) of those checks: batch-1 decode, the 8-slot engine, a prefill
+ARCH_QMM_CASES = (("B1", 1), ("B1", 8), ("B2", 128))
+
+
+def check_arch_kernels(P, gen, results):
+    """Phase 12's shapes against the plain versions: B1 at M = 1 and 8 and
+    B2 at M = 128 on ARCH_LINEARS (fp32 out within 1e-4 * max|ref|, bf16
+    within 1e-2, as `check_qmatmul`); B5 (int8 and int4, with and without
+    statistics) and B6 at OPT-125M's rep 1, D = 64, T = 512 (their own
+    bounds). B7 at Falcon-7B's and OPT-125M's heads is in FLASH_CASES."""
+    import torch
+    from llama3_quantization_tpu_torch.models.synthetic import _rand_qtensor
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    for label, (k, n, gs) in ARCH_LINEARS.items():
+        qt = _rand_qtensor(gen, k, n, P.QuantSpec(n_bits=4, group_size=gs), 1, "cuda").layer(0)
+        for kid, m in ARCH_QMM_CASES:
+            kern, plain = ((fq.qmm_gemv, fq.qmm_gemv_plain) if kid == "B1"
+                           else (fq.qmm_gemm, fq.qmm_gemm_plain))
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            compare(f"{kid} {label} g{gs} M={m} fp32-out", kern(x, qt, torch.float32),
+                    plain(x, qt, torch.float32), 1e-4)
+            err = compare(f"{kid} {label} g{gs} M={m} bf16-out", kern(x, qt, torch.bfloat16),
+                          plain(x, qt, torch.bfloat16), 1e-2)
+            results.setdefault(kid, {})[f"{label} M={m}"] = err
+    check_decode_forms(P, gen, results, g=12, rep=1, d=64, ts=(512,), tag="rep=1 D=64 ")
+    check_fp_decode(P, gen, results, g=12, rep=1, d=64,
+                    cases=((1, 512, "bf16", True), (8, 512, "bf16", False)), tag="rep=1 D=64 ")
+
+
+#: phase 12's bound on a full-width forward's logits, kernels against B1's
+#: and B2's plain versions with the eager attention: every position's row
+#: within ARCH_ROW_TOL * that row's max|logit|. Set between what sound
+#: routes read (Mixtral-8x7B on the plain route's expert picks: the kernels
+#: 2.202e-2, reversed sums + B7 2.131e-2; OPT-125M 1.399e-2, Falcon-7B
+#: 2.210e-2) and what a faulty one reads (every down projection's last
+#: group of 128 left out: 1.336e-1), NVIDIA H100 80GB HBM3
+ARCH_ROW_TOL = 5e-2
+
+
+def logit_rows(got, ref) -> float:
+    """max over positions of max|got - ref| / max|ref| (a row is one
+    position's logits); fails on a non-finite logit."""
+    g = got.float().reshape(-1, got.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    if not (bool(g.isfinite().all()) and bool(r.isfinite().all())):
+        raise AssertionError("non-finite logits")
+    return float(((g - r).abs().amax(dim=-1) / r.abs().amax(dim=-1).clamp(min=1e-30)).max())
+
+
+def arch_forwards(P, params, cfg, name, counts, checks, seqs, gen):
+    """`forward_logits` at [1, S] for S in `seqs` on the kernels (B2 and B7
+    must run, no route off them) against B1's and B2's plain versions with
+    the eager attention: each row within ARCH_ROW_TOL. Returns the prompt
+    of the first S and the readings."""
+    import torch
+
+    readings = {}
+    prompt = None
+    for s in seqs:
+        toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device="cuda")
+        prompt = toks if prompt is None else prompt
+        got = run_counted(counts, f"{name} forward_logits [1,{s}]",
+                          lambda: P.forward_logits(params, toks, cfg), must=("B2", "B7"))
+        with plain_versions(P):
+            ref = run_counted(checks, f"{name} forward [1,{s}], plain + eager (check)",
+                              lambda: P.forward_logits(params, toks, cfg),
+                              never=("B1", "B2", "B7"))
+        readings[s] = logit_rows(got, ref)
+        log(f"  {name} forward [1, {s}], kernels vs plain + eager: max over rows of "
+            f"max|d logit| / max|logit| {readings[s]:.3e} (bound {ARCH_ROW_TOL:g})")
+        if not readings[s] <= ARCH_ROW_TOL:
+            raise AssertionError(f"{name} forward [1, {s}]: {readings[s]} above {ARCH_ROW_TOL}")
+        del got, ref
+    return prompt, readings
+
+
+def arch_decodes(P, params, cfg, name, counts, prompt, caches, moe_limit=0.15):
+    """A prefill of `prompt` and 32 greedy steps on each cache of `caches`
+    ((bits, must, allow, never) for bits 8 or False), then the
+    teacher-forced decode against the forward over 8 steps (< 0.15). On an
+    MoE the free comparison is reported (a pick flipped by the cache's
+    rounding moves a token's expert mix; under `moe_limit` otherwise) and
+    the decode on the forward's expert picks is held to 0.15."""
+    import torch
+
+    n = 32
+    s = prompt.shape[1]
+    for bits, must, allow, never in caches:
+        kind = "int8" if bits else "fp"
+        cache = P.init_kv_cache(cfg, 1, 512, quantized=bits)
+        lg, cache = P.decode_step(params, cache, prompt, 0, cfg)
+        tok = lg[:, -1].argmax(dim=-1)[:, None]
+        (toks, _), t = run_counted(
+            counts, f"{name} {kind} greedy_generate {n} steps",
+            lambda: timed(lambda: P.greedy_generate(params, cache, tok, s, n, cfg)),
+            must=must, allow=allow, never=never)
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{name} {kind} greedy_generate: tokens out of range")
+        cont = torch.cat([tok, toks[:, :8]], 1)
+        rel = decode_vs_forward(P, params, cfg, prompt, cont, bits)
+        log(f"  {name} {kind} decode: {n / t:.2f} tok/s (batch 1, KV of 512, first call, host "
+            f"clock); decode-vs-forward max rel logit error {rel:.3e} over 8 steps (limit "
+            f"{'0.15' if moe_limit else 'none: reported'})")
+        if moe_limit is not None and not rel < moe_limit:
+            raise AssertionError(f"{name} {kind} decode/forward divergence: rel err {rel:.4f}")
+        if cfg.is_moe:
+            with routing_log() as fwd:
+                full = P.forward_logits(params, torch.cat([prompt, cont], 1), cfg)[0].float()
+            spans = [(0, s)] + [(s + i, 1) for i in range(cont.shape[1] - 1)]
+            with routing_log(replay=fwd, spans=spans, layers=cfg.num_layers):
+                dec = teacher_forced(P, params, cfg, prompt, cont[:, :-1], bits)
+            rel = float((dec - full[s : s + dec.shape[0]]).abs().max() / full.abs().max())
+            log(f"  {name} {kind} decode-vs-forward on the forward's expert picks: max rel "
+                f"logit error {rel:.3e} (limit 0.15)")
+            if not rel < 0.15:
+                raise AssertionError(f"{name} {kind} decode/forward divergence on the forward's "
+                                     f"picks: rel err {rel:.4f}")
+        del cache
+
+
+def build_layerwise(P, cfg, spec, seed0):
+    """`cfg` at full depth, one layer at a time: a one-layer `init_params`
+    (bf16, seed `seed0 + i`) RTN-quantized, copied into stacks allocated
+    after the first layer; the embedding, final norm and head are layer 0's
+    draw. Never holds more than one layer in bf16."""
+    import dataclasses
+
+    import torch
+
+    one = dataclasses.replace(cfg, num_layers=1)
+    L = cfg.num_layers
+
+    def alloc(x):
+        if isinstance(x, dict):
+            return {k: alloc(v) for k, v in x.items()}
+        if isinstance(x, P.QuantizedTensor):
+            return dataclasses.replace(x, data=alloc(x.data), scale=alloc(x.scale),
+                                       zero=None if x.zero is None else alloc(x.zero))
+        return torch.empty((L, *x.shape[1:]), dtype=x.dtype, device=x.device)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        elif isinstance(dst, P.QuantizedTensor):
+            for f in ("data", "scale", "zero"):
+                if getattr(dst, f) is not None:
+                    getattr(dst, f)[i].copy_(getattr(src, f)[0])
+        else:
+            dst[i].copy_(src[0])
+
+    params = None
+    for i in range(L):
+        gen = torch.Generator(device="cuda").manual_seed(seed0 + i)
+        layer = P.quantize_model_rtn(P.init_params(one, gen, dtype=torch.bfloat16), one, spec,
+                                     pack=True)
+        if params is None:
+            params = dict(layer, layers=alloc(layer["layers"]))
+        put(params["layers"], layer["layers"], i)
+        del layer
+    torch.cuda.synchronize()
+    return params
+
+
+class routing_log:
+    """Records the router's top-k picks of each MoE layer (`_moe_topk`:
+    weights and expert ids, dense and capacity paths alike) while active;
+    with `replay` (a record of an earlier run), returns those picks layer by
+    layer instead of computing them, so that the run takes the recorded
+    run's experts with its weights. With `spans` ((start, length) of each
+    call of `layers` MoE layers, for a decode fed token by token) the record
+    is one forward over the whole sequence, and each call takes its
+    positions' picks from it."""
+
+    def __init__(self, replay=None, spans=None, layers=None):
+        from llama3_quantization_tpu_torch.models import transformer as TT
+
+        self.tt, self.topk = TT, []
+        self.replay = None if replay is None else list(replay.topk)
+        self.spans, self.layers = spans, layers
+
+    @property
+    def picks(self):
+        """Each call's picked expert ids, sorted, `[tokens, k]`."""
+        return [i.reshape(-1, i.shape[-1]).sort(dim=-1).values for _, i in self.topk]
+
+    def _replayed(self, x):
+        if self.spans is None:
+            v, i = self.replay.pop(0)
+        else:
+            call, layer = divmod(len(self.topk), self.layers)
+            start, n = self.spans[call]
+            v, i = (t[:, start : start + n] for t in self.replay[layer])
+        lead = x.shape[:-1]
+        return v.reshape(*lead, -1), i.reshape(*lead, -1)
+
+    def __enter__(self):
+        self.orig = self.tt._moe_topk
+
+        def rec(p, x, cfg):
+            out = self.orig(p, x, cfg) if self.replay is None else self._replayed(x)
+            self.topk.append(out)
+            return out
+
+        self.tt._moe_topk = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.tt._moe_topk = self.orig
+
+
+def capacity_drops(log, cfg, factor):
+    """(picks, dropped) over the capacity-dispatch MoE calls a
+    `routing_log` recorded: an expert takes at most C = ceil(factor * k *
+    T / E) of a call's T tokens (at most T), rounded up to a multiple of 8,
+    so an expert picked n times drops max(0, n - C), whatever the queue's
+    order."""
+    import torch
+
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    picks = dropped = 0
+    for ids in log.picks:
+        t = ids.shape[0]
+        c = -(-min(t, -(-int(factor * k * t) // e)) // 8) * 8
+        n = torch.bincount(ids.reshape(-1), minlength=e)
+        picks += int(n.sum())
+        dropped += int((n - c).clamp(min=0).sum())
+    return picks, dropped
+
+
+def flipped(a, b) -> int:
+    """(layer, token) pairs whose picked experts differ between two logs."""
+    return sum(int((x != y).any(dim=-1).sum()) for x, y in zip(a.picks, b.picks))
+
+
+def arch_summary(name, counts, t0, card):
+    """Phase 12's line for one model: its launches of B1, B2, B5, B6 and
+    B7, the routes its calls took, its seconds."""
+    from llama3_quantization_tpu_torch.ops import launches
+
+    total = {k: sum(c[k] for c in counts.values()) for k in launches.COUNTS}
+    b5 = sum(total[k] for k in B5_KEYS)
+    routes = {k: total[k] for k in launches.ROUTES if total[k]}
+    log(f"  {name}: launches B1 {total['B1']}, B2 {total['B2']}, B5 {b5} (forms "
+        f"{ {k: total[k] for k in B5_KEYS if total[k]} }), B6 {total['B6']}, B7 {total['B7']}; "
+        f"routes off the kernels {json.dumps(routes)}; {time.time() - t0:.1f} s  [{card}]")
+
+
+def drive_archs(P, card):
+    """Phase 12, the other architectures, each at full width and depth,
+    RTN-quantized and freed before the next is built:
+
+    1. OPT-125M (`OPT_125M`, `init_params` seed 3, bf16, W4 g128 packed):
+       `forward_logits` at [1, 128] and [1, 2048] (B2, B7) against the plain
+       versions with the eager attention (ARCH_ROW_TOL a row); a 128-token
+       prefill and 32 greedy steps on the int8 cache (B1, B5) and on the fp
+       cache (B1, B6), decode against the teacher-forced forward < 0.15;
+       `decode_window` for 32 steps (B1, B5 with statistics: OPT windows,
+       JAX's gate); the default `ServingEngine(8, 512)` on the int8 cache,
+       the 16 requests, pipelined = sequential, windowed.
+    2. Falcon-7B (`FALCON_7B`, seed 4, W4 g64): the same forwards (B7 at 71
+       query heads over one K/V head); 32 greedy steps on the int8 and the
+       fp cache on B1 with the eager attention, the only routes allowed
+       `B5.eager` and `B6.eager` (rep 71 > 8; JAX's gate also sends D = 64
+       eager); the default engine (fp cache) on the 16 requests.
+    3. Mixtral-8x7B (`MIXTRAL_8X7B`, W4 g128 packed, built layer by layer,
+       seeds 100 + i): `forward_logits` [1, 128] dense on the kernels and
+       on the plain versions, the experts' picks that differ between them
+       counted (a near tie flips with any rounding, and a flip moves that
+       token's output: the free runs' distance is reported); then on the
+       plain route's picks (`routing_log(replay=...)`) the kernels, a sound
+       witness (the plain versions' sums reversed, B7) and a faulty control
+       (every down projection's last group of 128 left out,
+       `dropped_group_plain`) against the plain versions, within
+       ARCH_ROW_TOL but the control, which must read past it; under
+       `set_moe_capacity(8.0)` (nothing can drop) on the dense run's picks
+       within ARCH_ROW_TOL of the dense forward (the free run's distance
+       and its flipped picks reported), under 1.25 finite with the dropped
+       picks counted; 32 greedy int8 steps (B1 per expert, B5), decode
+       against the forward on the forward's picks; the int8 engine on the
+       16 requests (MoE never windows)."""
+    import gc
+
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    t_phase = time.time()
+    paths = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+
+    # 1. OPT-125M
+    t0, counts, checks = time.time(), {}, {}
+    cfg = P.OPT_125M
+    params = P.quantize_model_rtn(
+        P.init_params(cfg, torch.Generator(device="cuda").manual_seed(3), dtype=torch.bfloat16),
+        cfg, P.QuantSpec(n_bits=4, group_size=GS), pack=True)
+    log(f"phase 12: OPT-125M W4 g{GS} packed, {cfg.num_layers} layers, built in "
+        f"{time.time() - t0:.2f} s")
+    prompt, _ = arch_forwards(P, params, cfg, "OPT-125M", counts, checks, (128, 2048), gen)
+    arch_decodes(P, params, cfg, "OPT-125M", counts, prompt,
+                 ((8, ("B1", "B5"), (), ()), (False, ("B1", "B6"), (), B5_KEYS)))
+    cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
+    lg, cache = P.decode_step(params, cache, prompt, 0, cfg)
+    toks, _ = run_counted(counts, "OPT-125M decode_window 32 steps (int8)",
+                          lambda: P.decode_window(params, cache, lg[:, -1].argmax(-1)[:, None],
+                                                  128, 32, cfg), must=("B1", "B5.stats"))
+    if not (P.windowed_ok(cfg, cache) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+        raise AssertionError("OPT-125M: windowed decode refused or tokens out of range")
+    del cache
+    serve_and_compare(P, params, cfg, card, "OPT-125M serve int8", counts, PALLAS_MUST,
+                      windowed=True)
+    arch_summary("OPT-125M", counts, t0, card)
+    paths.update(counts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. Falcon-7B
+    t0, counts, checks = time.time(), {}, {}
+    cfg = P.FALCON_7B
+    params = P.quantize_model_rtn(
+        P.init_params(cfg, torch.Generator(device="cuda").manual_seed(4), dtype=torch.bfloat16),
+        cfg, P.QuantSpec(n_bits=4, group_size=64), pack=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12: Falcon-7B W4 g64 packed, {cfg.num_layers} layers, built in "
+        f"{time.time() - t0:.2f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    prompt, _ = arch_forwards(P, params, cfg, "Falcon-7B", counts, checks, (128, 2048), gen)
+    arch_decodes(P, params, cfg, "Falcon-7B", counts, prompt,
+                 ((8, ("B1",), ("B5.eager",), B5_KEYS + ("B6",)),
+                  (False, ("B1",), ("B6.eager",), B5_KEYS + ("B6",))))
+    serve_and_compare(P, params, cfg, card, "Falcon-7B serve fp", counts, ("B1", "B2"),
+                      quantized_cache=False, never=B5_KEYS + ("B6",), allow=("B6.eager",))
+    arch_summary("Falcon-7B", counts, t0, card)
+    paths.update(counts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. Mixtral-8x7B
+    t0, counts, checks = time.time(), {}, {}
+    cfg = P.MIXTRAL_8X7B
+    params = build_layerwise(P, cfg, P.QuantSpec(n_bits=4, group_size=GS), 100)
+    log(f"phase 12: Mixtral-8x7B W4 g{GS} packed, {cfg.num_layers} layers x "
+        f"{cfg.num_experts} experts, built layer by layer in {time.time() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+
+    def forward():
+        return P.forward_logits(params, toks, cfg)
+
+    with routing_log() as route_k:
+        dense = run_counted(counts, "Mixtral-8x7B forward_logits [1,128] dense", forward,
+                            must=("B2", "B7"))
+    with plain_versions(P), routing_log() as route_p:
+        ref = run_counted(checks, "Mixtral-8x7B forward, plain + eager (check)", forward,
+                          never=("B1", "B2", "B7"))
+    flips = flipped(route_k, route_p)
+    r_free = logit_rows(dense, ref)
+    # the same forwards on the plain route's expert picks: what is left is
+    # the kernels' arithmetic, not which experts a near tie picked
+    with routing_log(replay=route_p):
+        replayed = run_counted(checks, "Mixtral-8x7B forward, kernels on plain's picks (check)",
+                               forward, must=("B2", "B7"))
+    with plain_versions(P, flash=True, forms=reversed_plain(fq)), routing_log(replay=route_p):
+        witness = run_counted(checks, "Mixtral-8x7B forward, sums reversed + B7 (witness)",
+                              forward, never=("B1", "B2"))
+    with plain_versions(P, forms=dropped_group_plain(fq)), routing_log(replay=route_p):
+        control = run_counted(checks, "Mixtral-8x7B forward, down's last group out (control)",
+                              forward, never=("B1", "B2", "B7"))
+    r_k, r_w, r_c = (logit_rows(x, ref) for x in (replayed, witness, control))
+    log(f"  Mixtral-8x7B forward [1, 128]: expert picks that differ between the kernels and the "
+        f"plain versions {flips} of {len(route_k.picks) * toks.shape[1]} (layer, token); free "
+        f"run, kernels vs plain + eager, max over rows of max|d logit| / max|logit| "
+        f"{r_free:.3e} (reported: a flipped pick moves a token's expert mix); on the plain "
+        f"route's picks: kernels {r_k:.3e}, witness (reversed sums + B7) {r_w:.3e}, control "
+        f"(every down's last group out) {r_c:.3e} (bound {ARCH_ROW_TOL:g}; the control must "
+        f"read past it)")
+    if not (r_k <= ARCH_ROW_TOL and r_w <= ARCH_ROW_TOL and r_c > ARCH_ROW_TOL):
+        raise AssertionError(f"Mixtral-8x7B: kernels {r_k}, witness {r_w}, control {r_c} "
+                             f"against the bound {ARCH_ROW_TOL}")
+    del ref, replayed, witness, control
+    try:
+        P.set_moe_capacity(8.0)
+        with routing_log() as route_c:
+            roomy = run_counted(counts, "Mixtral-8x7B forward [1,128] capacity 8.0", forward,
+                                must=("B2", "B7"))
+        dropped8 = capacity_drops(route_c, cfg, 8.0)[1]
+        # the same capacity forward on the dense kernel run's picks
+        with routing_log(replay=route_k):
+            roomy_r = run_counted(checks, "Mixtral-8x7B capacity 8.0 on dense's picks (check)",
+                                  forward, must=("B2", "B7"))
+        P.set_moe_capacity(1.25)
+        with routing_log() as route_t:
+            tight = run_counted(counts, "Mixtral-8x7B forward [1,128] capacity 1.25", forward,
+                                must=("B2", "B7"))
+        picks, dropped = capacity_drops(route_t, cfg, 1.25)
+    finally:
+        P.set_moe_capacity(None)
+    r_cap, r_cap_free = logit_rows(roomy_r, dense), logit_rows(roomy, dense)
+    log(f"  Mixtral-8x7B capacity 8.0: {dropped8} picks dropped; {flipped(route_c, route_k)} "
+        f"picks differ from the dense run's (the combine sums the same products in another "
+        f"order); on the dense run's picks vs dense: max over rows {r_cap:.3e} (bound "
+        f"{ARCH_ROW_TOL:g}), free run {r_cap_free:.3e} (reported); capacity 1.25: finite "
+        f"{bool(tight.isfinite().all())}, {dropped} of {picks} picks dropped, max over rows vs "
+        f"dense {logit_rows(tight, dense):.3e} (reported)")
+    if not (r_cap <= ARCH_ROW_TOL and dropped8 == 0 and bool(tight.isfinite().all())):
+        raise AssertionError(f"Mixtral-8x7B capacity: 8.0 reads {r_cap}, {dropped8} dropped")
+    del dense, roomy, roomy_r, tight
+    arch_decodes(P, params, cfg, "Mixtral-8x7B", counts, toks,
+                 ((8, ("B1", "B5"), (), ("B5.stats", "B6")),), moe_limit=None)
+    serve_and_compare(P, params, cfg, card, "Mixtral-8x7B serve int8", counts,
+                      ("B1", "B2", "B5"), never=("B5.stats",), windowed=False)
+    arch_summary("Mixtral-8x7B", counts, t0, card)
+    paths.update(counts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12 (other architectures) in {time.time() - t_phase:.1f} s  [{card}]")
+    return sum_counts(paths)
+
+
 def clock_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
@@ -3888,6 +4343,10 @@ def main() -> int:
     ap.add_argument("--harness-seed", type=int, default=0, metavar="N",
                     help="with --harness: make phase 11's weights and documents from seed N "
                          "(default 0, the full run's)")
+    ap.add_argument("--archs", action="store_true",
+                    help="only build and check the kernels (phase 12's shapes among them), then "
+                         "phase 12 (OPT-125M, Falcon-7B and Mixtral-8x7B at full width and "
+                         "depth)")
     ap.add_argument("--microbench", action="store_true",
                     help="only check, drive and time the weight-stream probes B8-B10 through "
                          "the microbench entry points")
@@ -3970,6 +4429,7 @@ def main() -> int:
     check_xla_route(P, gen)
     check_probes(P, gen, errs)
     check_c2(P)
+    check_arch_kernels(P, gen, errs)
     torch.cuda.synchronize()
     if args.kernels_only:
         log("kernel checks passed")
@@ -3988,6 +4448,13 @@ def main() -> int:
     if args.cli:
         paths = [drive_cli(P, card), drive_golden(P, card)]
         total = {key: sum(p[key] for p in paths) for key in paths[0]}
+        log(f"launches: {json.dumps(total)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        }}), flush=True)
+        return 0
+    if args.archs:
+        total = drive_archs(P, card)
         log(f"launches: {json.dumps(total)}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
@@ -4030,6 +4497,7 @@ def main() -> int:
     paths.append(drive_harness(P, params, card))
     del params
     torch.cuda.empty_cache()
+    paths.append(drive_archs(P, card))
     paths.append(drive_microbench(P, card))
     total = {key: sum(p[key] for p in paths) for key in paths[0]}
     log(f"launches over all paths: {json.dumps(total)}")

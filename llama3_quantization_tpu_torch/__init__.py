@@ -9,7 +9,18 @@ its hand-written kernel (`csrc/`, built with nvcc at first use).
 
 from .convert import params_from_numpy
 from .device import resolve_device
-from .models.configs import LLAMA3_8B, TINY_LLAMA, ModelConfig
+from .models.configs import (
+    FALCON_7B,
+    LLAMA3_8B,
+    MIXTRAL_8X7B,
+    NAMED_CONFIGS,
+    OPT_125M,
+    TINY_FALCON,
+    TINY_LLAMA,
+    TINY_MIXTRAL,
+    TINY_OPT,
+    ModelConfig,
+)
 from .models.params import init_params, linear_names, quantize_model_rtn
 from .models.synthetic import init_quantized_params
 from .models.transformer import (
@@ -27,6 +38,7 @@ from .models.transformer import (
     set_decode_attn,
     set_decode_kernel,
     set_flash,
+    set_moe_capacity,
     set_stacked_decode,
     speculative_generate,
 )
@@ -60,20 +72,21 @@ from .quant.serving import (
 from .serving import ServingEngine
 
 __all__ = [
-    "LLAMA3_8B", "NO_QUANT", "TINY_LLAMA", "ModelConfig", "QuantSpec", "QuantizedTensor",
-    "RuntimeQuantConfig", "S4Weight", "ServingEngine", "a8_matmul", "backend", "decode_step",
-    "decode_step_multi", "decode_window", "dequantize", "fake_quant", "fake_quant_dynamic",
-    "flash_attention", "flash_decode_gqa", "flash_decode_gqa_s8", "flash_decode_gqa_s8_stacked",
-    "flash_decode_gqa_stacked", "flatten_speculative", "forward_hidden", "forward_logits",
-    "from_codes",
-    "fuse_for_decode", "fused_dequant_matmul", "get_backend", "greedy_generate",
-    "init_kv_cache", "init_params", "init_quantized_params", "kv4_codes", "kv4_pack",
-    "kv4_quantize", "kv4_unpack_codes", "kv_quantize", "launches", "linear_names",
-    "merge_window_into_cache", "minmax_scale_zp", "pack_factor", "pack_subbyte",
-    "PaddedWeight", "pad_for_kernels", "params_from_numpy", "prepare_decode_params", "prepare_s4", "qlinear", "qmatmul",
-    "quantize_activations_s8", "quantize_model_rtn", "quantize_rtn", "recode_head_s4",
-    "recode_head_s8", "recode_model_s8", "recode_s8_percol", "resolve_device", "s4_matmul",
-    "s4w_matmul", "sample_generate", "sample_logits", "set_backend", "set_decode_attn",
-    "set_decode_kernel", "set_flash", "set_stacked_decode", "set_windowed_decode", "speculative_generate", "unpack_subbyte",
-    "windowed_ok", "xla_decode_gqa_s8", "xla_decode_gqa_s8_stacked",
+    "FALCON_7B", "LLAMA3_8B", "MIXTRAL_8X7B", "NAMED_CONFIGS", "NO_QUANT", "OPT_125M",
+    "TINY_FALCON", "TINY_LLAMA", "TINY_MIXTRAL", "TINY_OPT", "ModelConfig", "QuantSpec",
+    "QuantizedTensor", "RuntimeQuantConfig", "S4Weight", "ServingEngine", "a8_matmul", "backend",
+    "decode_step", "decode_step_multi", "decode_window", "dequantize", "fake_quant",
+    "fake_quant_dynamic", "flash_attention", "flash_decode_gqa", "flash_decode_gqa_s8",
+    "flash_decode_gqa_s8_stacked", "flash_decode_gqa_stacked", "flatten_speculative",
+    "forward_hidden", "forward_logits", "from_codes", "fuse_for_decode", "fused_dequant_matmul",
+    "get_backend", "greedy_generate", "init_kv_cache", "init_params", "init_quantized_params",
+    "kv4_codes", "kv4_pack", "kv4_quantize", "kv4_unpack_codes", "kv_quantize", "launches",
+    "linear_names", "merge_window_into_cache", "minmax_scale_zp", "pack_factor", "pack_subbyte",
+    "PaddedWeight", "pad_for_kernels", "params_from_numpy", "prepare_decode_params", "prepare_s4",
+    "qlinear", "qmatmul", "quantize_activations_s8", "quantize_model_rtn", "quantize_rtn",
+    "recode_head_s4", "recode_head_s8", "recode_model_s8", "recode_s8_percol", "resolve_device",
+    "s4_matmul", "s4w_matmul", "sample_generate", "sample_logits", "set_backend",
+    "set_decode_attn", "set_decode_kernel", "set_flash", "set_moe_capacity", "set_stacked_decode",
+    "set_windowed_decode", "speculative_generate", "unpack_subbyte", "windowed_ok",
+    "xla_decode_gqa_s8", "xla_decode_gqa_s8_stacked",
 ]

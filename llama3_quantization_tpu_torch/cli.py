@@ -9,11 +9,14 @@ save it.
 
 `build_parser` has JAX's options, types, defaults and actions, and one
 more: `--device` (default `cuda`; the CPU only when asked). `--model` reads
-a local HF directory in bf16; `--net` builds the named config's random
-parameters in fp32 from a `torch.Generator` seeded with `--seed` (the
-port's values, not `jax.random`'s). Without a tokenizer the PPL streams are
-JAX's `np.random.default_rng(0)` ids. The results JSON is the last line
-of stdout; the `[cli]` lines go to stderr, as JAX prints them.
+a local HF directory in bf16 (Llama, OPT, Falcon or RefinedWeb, Mixtral);
+`--net` builds the named config's random parameters in fp32 from a
+`torch.Generator` seeded with `--seed` (the port's values, not
+`jax.random`'s). `--moe_capacity f` switches Mixtral's MoE to capacity
+dispatch for the rest of the process (`set_moe_capacity`), as JAX does.
+Without a tokenizer the PPL streams are JAX's `np.random.default_rng(0)`
+ids. The results JSON is the last line of stdout; the `[cli]` lines go to
+stderr, as JAX prints them.
 
 The matmul backend is the port's default, `pallas` (JAX's default is
 `xla`; `ops.matmul.backend("xla")` around `main` gives JAX's route).
@@ -21,8 +24,7 @@ The matmul backend is the port's default, `pallas` (JAX's default is
 (`eval/harness/tasks`), rolls MMLU subjects up as JAX does, and passes
 `--decontamination_ngrams_path` to `simple_evaluate`. What the port cannot
 do yet exits with the ROADMAP item it waits for, before any model is
-loaded: `--tp`, `--dp`, `--sp` (A 5), `--moe_capacity` and non-llama
-models (A 4).
+loaded: `--tp`, `--dp`, `--sp` (A 5) and a T5 directory (A 4.4).
 """
 
 from __future__ import annotations
@@ -113,7 +115,6 @@ UNPORTED_FLAGS = {
     "tp": "A 5 (parallelism)",
     "dp": "A 5 (parallelism)",
     "sp": "A 5 (parallelism)",
-    "moe_capacity": "A 4 (other architectures: Mixtral's MoE dispatch)",
 }
 
 
@@ -134,7 +135,7 @@ def load_model(args):
 
     from .device import resolve_device
     from .models.configs import NAMED_CONFIGS
-    from .models.hf_loader import config_from_hf, from_hf_checkpoint
+    from .models.hf_loader import from_hf_checkpoint
     from .models.params import init_params
 
     dev = resolve_device(args.device)
@@ -147,17 +148,10 @@ def load_model(args):
         except OSError:
             mt = None
         if mt in ("t5", "mt5", "longt5"):
-            raise SystemExit(f"model_type {mt!r} (the T5 trunk) waits for ROADMAP A 4")
-        cfg = config_from_hf(args.model)
-        if cfg.arch != "llama":
-            raise SystemExit(f"model_type {mt!r} ({cfg.arch}) waits for ROADMAP A 4 "
-                             "(other architectures)")
-        return from_hf_checkpoint(args.model, cfg, device=dev)
+            raise SystemExit(f"model_type {mt!r} (the T5 trunk) waits for ROADMAP A 4.4")
+        return from_hf_checkpoint(args.model, device=dev)
     if args.net:
         cfg = NAMED_CONFIGS[args.net]
-        if cfg.arch != "llama":
-            raise SystemExit(f"--net {args.net} ({cfg.arch}) waits for ROADMAP A 4 "
-                             "(other architectures)")
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         return init_params(cfg, gen, dtype=torch.float32, device=dev), cfg
     raise SystemExit("pass --model <dir> or --net <named-config>")
@@ -272,6 +266,12 @@ def main(argv=None):
             from .quant.gptq import format_snr_table
 
             print(format_snr_table(snr_rows), file=sys.stderr)
+
+    if args.moe_capacity is not None:
+        from .models.transformer import set_moe_capacity
+
+        set_moe_capacity(args.moe_capacity)
+        print(f"[cli] MoE capacity dispatch, factor {args.moe_capacity}", file=sys.stderr)
 
     if args.serving_recode:
         from .ops import matmul as mm

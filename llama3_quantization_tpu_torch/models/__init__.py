@@ -1,1 +1,2 @@
-"""Model configs, parameter trees and the llama forward/decode."""
+"""Model configs, parameter trees and the decoder forward/decode (Llama,
+OPT, Falcon, Mixtral)."""

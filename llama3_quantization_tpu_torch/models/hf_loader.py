@@ -1,5 +1,6 @@
 """HF checkpoint directories and the port's own checkpoints (port of
-`llama3_quantization_tpu/models/hf_loader.py`, for llama).
+`llama3_quantization_tpu/models/hf_loader.py`: Llama, OPT, Falcon and
+RefinedWeb, Mixtral).
 
 `from_hf_checkpoint` reads a local HF directory (config.json and its
 safetensors shards, or the torch `.bin` fallback) into the stacked-layer
@@ -16,8 +17,8 @@ equal by `tests/test_torch_checkpoint.py`.
 QuantizedTensors included) and `manifest.json` with the config, so a
 directory either package writes loads in the other. JAX's orbax
 checkpoints (`save_checkpoint_orbax`, sharded pod saves) wait for
-`torch.distributed.checkpoint` (ROADMAP A 5). The OPT, Falcon and Mixtral
-branches wait for the other architectures (ROADMAP A 4).
+`torch.distributed.checkpoint` (ROADMAP A 5). As in JAX,
+`save_hf_checkpoint` writes the llama and OPT families only.
 """
 
 from __future__ import annotations
@@ -212,62 +213,188 @@ _LLAMA_LAYER = {
 }
 
 
-def _llama_only(cfg: ModelConfig, what: str) -> None:
-    if cfg.arch != "llama":
-        raise NotImplementedError(
-            f"{what}: arch {cfg.arch!r} waits for the other architectures (ROADMAP A 4)")
+_OPT_LAYER = {
+    "q": ("model.decoder.layers.{i}.self_attn.q_proj.weight", True),
+    "k": ("model.decoder.layers.{i}.self_attn.k_proj.weight", True),
+    "v": ("model.decoder.layers.{i}.self_attn.v_proj.weight", True),
+    "o": ("model.decoder.layers.{i}.self_attn.out_proj.weight", True),
+    "fc1": ("model.decoder.layers.{i}.fc1.weight", True),
+    "fc2": ("model.decoder.layers.{i}.fc2.weight", True),
+    "q.b": ("model.decoder.layers.{i}.self_attn.q_proj.bias", False),
+    "k.b": ("model.decoder.layers.{i}.self_attn.k_proj.bias", False),
+    "v.b": ("model.decoder.layers.{i}.self_attn.v_proj.bias", False),
+    "o.b": ("model.decoder.layers.{i}.self_attn.out_proj.bias", False),
+    "fc1.b": ("model.decoder.layers.{i}.fc1.bias", False),
+    "fc2.b": ("model.decoder.layers.{i}.fc2.bias", False),
+    "ln1.w": ("model.decoder.layers.{i}.self_attn_layer_norm.weight", False),
+    "ln1.b": ("model.decoder.layers.{i}.self_attn_layer_norm.bias", False),
+    "ln2.w": ("model.decoder.layers.{i}.final_layer_norm.weight", False),
+    "ln2.b": ("model.decoder.layers.{i}.final_layer_norm.bias", False),
+}
+
+
+def _split_falcon_qkv(qkv: torch.Tensor, cfg: ModelConfig, grouped: bool):
+    """Split a fused query_key_value weight `[rows, D]` into q/k/v row
+    blocks as HF Falcon's `_split_heads` does (`hf_loader.py:174-201`):
+    new-decoder-architecture rows grouped per K/V group as
+    `[q_1..q_{H/Hkv}, k, v] x Hkv`; multi-query `[all H q heads, k, v]`;
+    classic MHA (Hkv == H) interleaved per head `[q, k, v] x H`."""
+    hd = cfg.head_dim_
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    d = qkv.shape[1]
+    if grouped:
+        blocks = qkv.reshape(hkv, h // hkv + 2, hd, d)
+        return (blocks[:, :-2].reshape(h * hd, d), blocks[:, -2].reshape(hkv * hd, d),
+                blocks[:, -1].reshape(hkv * hd, d))
+    if hkv == 1:
+        return qkv[: h * hd], qkv[h * hd : (h + 1) * hd], qkv[(h + 1) * hd :]
+    blocks = qkv.reshape(h, 3, hd, d)
+    return tuple(blocks[:, j].reshape(h * hd, d) for j in range(3))
+
+
+def _falcon_layers(raw, cfg: ModelConfig, get) -> Dict[str, Any]:
+    """Falcon's layer stacks (`hf_loader.py:204-245`): the fused
+    query_key_value projection split into q/k/v; the 40B new-decoder
+    layout (separate `ln_attn` / `ln_mlp` norms, per-group QKV rows) is
+    detected by key and gives `ln2`."""
+    new_arch = "transformer.h.0.ln_attn.weight" in raw
+    cols: Dict[str, list] = {}
+    for i in range(cfg.num_layers):
+        pre = f"transformer.h.{i}"
+        qkv = raw[f"{pre}.self_attention.query_key_value.weight"].float()
+        parts = dict(zip("qkv", _split_falcon_qkv(qkv, cfg, grouped=new_arch)))
+        parts["o"] = raw[f"{pre}.self_attention.dense.weight"].float()
+        parts["fc1"] = raw[f"{pre}.mlp.dense_h_to_4h.weight"].float()
+        parts["fc2"] = raw[f"{pre}.mlp.dense_4h_to_h.weight"].float()
+        for name, w in parts.items():
+            cols.setdefault(name, []).append(w.T)
+        ln1 = "ln_attn" if new_arch else "input_layernorm"
+        norms = {"ln1.w": f"{ln1}.weight", "ln1.b": f"{ln1}.bias"}
+        if new_arch:
+            norms.update({"ln2.w": "ln_mlp.weight", "ln2.b": "ln_mlp.bias"})
+        for ours, hf in norms.items():
+            cols.setdefault(ours, []).append(raw[f"{pre}.{hf}"].float())
+    out: Dict[str, Any] = {}
+    for ours, ts in cols.items():
+        top, sub = ours.split(".") if "." in ours else (ours, "w")
+        out.setdefault(top, {})[sub] = get(torch.stack(ts))
+    return out
+
+
+def _stack_table(table, cfg: ModelConfig, get, skip=()) -> Dict[str, Any]:
+    """Layer stacks `[L, ...]` of the `table` entries (`ours.sub` names a
+    non-"w" leaf, as `ln1.b`)."""
+    layers: Dict[str, Any] = {}
+    for ours, (tmpl, tr) in table.items():
+        if ours in skip:
+            continue
+        stacked = torch.stack([get(tmpl.format(i=i), tr) for i in range(cfg.num_layers)])
+        top, sub = ours.split(".") if "." in ours else (ours, "w")
+        layers.setdefault(top, {})[sub] = stacked
+    return layers
 
 
 def from_hf_checkpoint(path: str, cfg: Optional[ModelConfig] = None, dtype=torch.bfloat16,
                        device="cuda") -> tuple:
     """Load (params, cfg) from a local HF checkpoint directory, each weight
     through float32 into `dtype` on `device` (JAX's `astype(np.float32)`
-    then `jnp.asarray(..., dtype)`)."""
+    then `jnp.asarray(..., dtype)`; `hf_loader.py:248-338`)."""
     cfg = cfg or config_from_hf(path)
-    _llama_only(cfg, "from_hf_checkpoint")
     dev = resolve_device(device)
     raw = _load_tensors(path)
 
     def get(name, transpose=False):
-        t = raw[name].float()
+        t = raw[name].float() if isinstance(name, str) else name
         return (t.T if transpose else t).contiguous().to(device=dev, dtype=dtype)
 
-    layers: Dict[str, Any] = {}
-    for ours, (tmpl, tr) in _LLAMA_LAYER.items():
-        stacked = torch.stack([get(tmpl.format(i=i), tr) for i in range(cfg.num_layers)])
-        if "." in ours:
-            top, sub = ours.split(".")
-            layers.setdefault(top, {})[sub] = stacked
-        else:
-            layers.setdefault(ours, {})["w"] = stacked
-    params: Dict[str, Any] = {"layers": layers, "embed": get("model.embed_tokens.weight"),
-                              "norm": {"w": get("model.norm.weight")}}
-    if not cfg.tie_word_embeddings:
-        params["lm_head"] = get("lm_head.weight", transpose=True)
+    if cfg.arch == "falcon":
+        params = {
+            "layers": _falcon_layers(raw, cfg, get),
+            "embed": get("transformer.word_embeddings.weight"),
+            "norm": {"w": get("transformer.ln_f.weight"), "b": get("transformer.ln_f.bias")},
+        }
+        if "lm_head.weight" in raw and not cfg.tie_word_embeddings:
+            params["lm_head"] = get("lm_head.weight", transpose=True)
+        return params, cfg
+    if cfg.arch == "mixtral":
+        # the llama trunk and `block_sparse_moe`: the router (HF `gate`, [E, D])
+        # stays fp at [L, D, E]; experts w1/w3/w2 stack to [L, E, K, N]
+        layers = _stack_table(_LLAMA_LAYER, cfg, get, skip=("gate", "up", "down"))
+        moe = "model.layers.{i}.block_sparse_moe"
+        layers["router"] = {"w": torch.stack(
+            [get(f"{moe}.gate.weight".format(i=i), True) for i in range(cfg.num_layers)])}
+        layers["experts"] = {
+            ours: {"w": torch.stack([
+                torch.stack([get(f"{moe}.experts.{{e}}.{hf}.weight".format(i=i, e=e), True)
+                             for e in range(cfg.num_experts)])
+                for i in range(cfg.num_layers)])}
+            for ours, hf in (("gate", "w1"), ("up", "w3"), ("down", "w2"))
+        }
+        params = {"layers": layers, "embed": get("model.embed_tokens.weight"),
+                  "norm": {"w": get("model.norm.weight")}}
+        if not cfg.tie_word_embeddings:
+            params["lm_head"] = get("lm_head.weight", transpose=True)
+        return params, cfg
+    params: Dict[str, Any] = {
+        "layers": _stack_table(_LLAMA_LAYER if cfg.arch == "llama" else _OPT_LAYER, cfg, get)}
+    if cfg.arch == "llama":
+        params["embed"] = get("model.embed_tokens.weight")
+        params["norm"] = {"w": get("model.norm.weight")}
+        if not cfg.tie_word_embeddings:
+            params["lm_head"] = get("lm_head.weight", transpose=True)
+    else:
+        params["embed"] = get("model.decoder.embed_tokens.weight")
+        params["pos_embed"] = get("model.decoder.embed_positions.weight")
+        ln = "model.decoder.final_layer_norm"
+        params["norm"] = {"w": get(f"{ln}.weight"), "b": get(f"{ln}.bias")}
+        if not cfg.tie_word_embeddings and "lm_head.weight" in raw:
+            params["lm_head"] = get("lm_head.weight", transpose=True)
     return params, cfg
 
 
 def save_hf_checkpoint(params, cfg: ModelConfig, path: str) -> None:
     """Write an fp parameter tree as a HF-format directory (config.json and
     model.safetensors in float32 with transformers' names), the inverse of
-    `from_hf_checkpoint` (`hf_loader.py:341-422`)."""
-    _llama_only(cfg, "save_hf_checkpoint")
+    `from_hf_checkpoint` for the llama and OPT families (`hf_loader.py:
+    341-422`); other archs raise, as in JAX."""
+    if cfg.arch not in ("llama", "opt"):
+        raise NotImplementedError(f"save_hf_checkpoint: arch {cfg.arch}")
     os.makedirs(path, exist_ok=True)
-    hf_cfg = {
-        "model_type": "llama",
-        "architectures": ["LlamaForCausalLM"],
-        "vocab_size": cfg.vocab_size,
-        "hidden_size": cfg.hidden_size,
-        "intermediate_size": cfg.intermediate_size,
-        "num_hidden_layers": cfg.num_layers,
-        "num_attention_heads": cfg.num_heads,
-        "num_key_value_heads": cfg.num_kv_heads,
-        "max_position_embeddings": cfg.max_position_embeddings,
-        "rope_theta": cfg.rope_theta,
-        "rms_norm_eps": cfg.rms_norm_eps,
-        "tie_word_embeddings": cfg.tie_word_embeddings,
-        "torch_dtype": "float32",
-    }
+    if cfg.arch == "llama":
+        hf_cfg = {
+            "model_type": "llama",
+            "architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rope_theta": cfg.rope_theta,
+            "rms_norm_eps": cfg.rms_norm_eps,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "torch_dtype": "float32",
+        }
+        table = _LLAMA_LAYER
+        embed_key, norm_key = "model.embed_tokens.weight", "model.norm.weight"
+    else:
+        hf_cfg = {
+            "model_type": "opt",
+            "architectures": ["OPTForCausalLM"],
+            "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size,
+            "ffn_dim": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "do_layer_norm_before": cfg.do_layer_norm_before,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "torch_dtype": "float32",
+        }
+        table = _OPT_LAYER
+        embed_key = "model.decoder.embed_tokens.weight"
+        norm_key = "model.decoder.final_layer_norm.weight"
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
 
@@ -283,15 +410,18 @@ def save_hf_checkpoint(params, cfg: ModelConfig, path: str) -> None:
         return t.detach().to("cpu", torch.float32)
 
     tensors: Dict[str, torch.Tensor] = {}
-    for ours, (tmpl, tr) in _LLAMA_LAYER.items():
+    for ours, (tmpl, tr) in table.items():
         stacked = leaf(params["layers"], ours)
-        if stacked is None:
+        if stacked is None:  # optional biases absent in this model
             continue
         arr = fp32(stacked)
         for i in range(cfg.num_layers):
             tensors[tmpl.format(i=i)] = (arr[i].T if tr else arr[i]).contiguous()
-    tensors["model.embed_tokens.weight"] = fp32(params["embed"])
-    tensors["model.norm.weight"] = fp32(params["norm"]["w"])
+    tensors[embed_key] = fp32(params["embed"])
+    tensors[norm_key] = fp32(params["norm"]["w"])
+    if cfg.arch == "opt":
+        tensors["model.decoder.embed_positions.weight"] = fp32(params["pos_embed"])
+        tensors["model.decoder.final_layer_norm.bias"] = fp32(params["norm"]["b"])
     if "lm_head" in params and not cfg.tie_word_embeddings:
         tensors["lm_head.weight"] = fp32(params["lm_head"]).T.contiguous()
     write_safetensors(tensors, os.path.join(path, "model.safetensors"))

@@ -19,34 +19,58 @@ from .configs import ModelConfig
 
 Params = Dict[str, Any]
 
+#: linear names per arch, in the canonical traversal order (`params.py:22-33`)
 LLAMA_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
+OPT_LINEARS = ("q", "k", "v", "o", "fc1", "fc2")
+MOE_ATTN_LINEARS = ("q", "k", "v", "o")  # the experts are handled apart
+MOE_EXPERT_LINEARS = ("gate", "up", "down")
 
 
 def linear_names(cfg: ModelConfig):
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"arch {cfg.arch!r} is not ported yet")
-    return LLAMA_LINEARS
+    """The decoder linears of a layer: llama's seven, OPT's and Falcon's
+    six, a Mixtral layer's four attention linears (its experts are
+    `layers["experts"]`, `MOE_EXPERT_LINEARS`)."""
+    if cfg.is_moe:
+        return MOE_ATTN_LINEARS
+    return LLAMA_LINEARS if cfg.arch == "llama" else OPT_LINEARS
 
 
 def linear_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """`(in, out)` of each name of `linear_names(cfg)`, and of the MoE
+    expert linears under `gate`, `up` and `down` where `cfg.is_moe`."""
     d, i, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
-    return {
+    shapes = {
         "q": (d, cfg.num_heads * hd),
         "k": (d, cfg.num_kv_heads * hd),
         "v": (d, cfg.num_kv_heads * hd),
         "o": (cfg.num_heads * hd, d),
-        "gate": (d, i),
-        "up": (d, i),
-        "down": (i, d),
     }
+    if cfg.arch == "llama" or cfg.is_moe:
+        shapes.update({"gate": (d, i), "up": (d, i), "down": (i, d)})
+    else:
+        shapes.update({"fc1": (d, i), "fc2": (i, d)})
+    return shapes
+
+
+def norm_params(cfg: ModelConfig, lead: tuple, dtype, dev) -> Params:
+    """A norm's parameters: unit weight, and a zero bias for LayerNorm."""
+    d = cfg.hidden_size
+    out = {"w": torch.ones((*lead, d), dtype=dtype, device=dev)}
+    if not cfg.rms_norms:
+        out["b"] = torch.zeros((*lead, d), dtype=dtype, device=dev)
+    return out
 
 
 def init_params(
     cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat16, device="cuda"
 ) -> Params:
-    """Random-init llama parameters: scaled-normal linears `[L, in, out]`,
-    unit norms, 0.02-scaled embedding and lm_head. `generator` must live on
-    `device`."""
+    """Random-init parameters in JAX's tree (`params.py:36-128`):
+    scaled-normal linears `[L, in, out]` (zero biases on OPT's), unit norms
+    (zero-bias LayerNorms on OPT and Falcon; no `ln2` under a parallel
+    block), 0.02-scaled embedding, lm_head and OPT's learned positions
+    `[max_position_embeddings + 2, d]`; Mixtral's fp router `[L, d, E]` and
+    expert stacks `[L, E, in, out]`. `generator` must live on `device`;
+    its draws are not JAX's."""
     dev = resolve_device(device)
     d, L = cfg.hidden_size, cfg.num_layers
 
@@ -54,18 +78,30 @@ def init_params(
         x = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
         return (x * std).to(dtype)
 
-    layers: Params = {
-        name: {"w": normal((L, k, n), 1.0 / math.sqrt(k))}
-        for name, (k, n) in linear_shapes(cfg).items()
-        if name in linear_names(cfg)
-    }
-    layers["ln1"] = {"w": torch.ones((L, d), dtype=dtype, device=dev)}
-    layers["ln2"] = {"w": torch.ones((L, d), dtype=dtype, device=dev)}
+    shapes = linear_shapes(cfg)
+    layers: Params = {}
+    for name in linear_names(cfg):
+        k, n = shapes[name]
+        layers[name] = {"w": normal((L, k, n), 1.0 / math.sqrt(k))}
+        if cfg.arch == "opt":  # OPT's linears carry biases
+            layers[name]["b"] = torch.zeros((L, n), dtype=dtype, device=dev)
+    if cfg.is_moe:
+        e = cfg.num_experts
+        layers["router"] = {"w": normal((L, d, e), 1.0 / math.sqrt(d))}
+        layers["experts"] = {
+            name: {"w": normal((L, e, *shapes[name]), 1.0 / math.sqrt(shapes[name][0]))}
+            for name in MOE_EXPERT_LINEARS
+        }
+    layers["ln1"] = norm_params(cfg, (L,), dtype, dev)
+    if not cfg.parallel_block:  # Falcon's parallel block has one shared norm
+        layers["ln2"] = norm_params(cfg, (L,), dtype, dev)
     params: Params = {
         "embed": normal((cfg.vocab_size, d), 0.02),
         "layers": layers,
-        "norm": {"w": torch.ones((d,), dtype=dtype, device=dev)},
+        "norm": norm_params(cfg, (), dtype, dev),
     }
+    if cfg.arch == "opt":
+        params["pos_embed"] = normal((cfg.max_position_embeddings + 2, d), 0.02)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), 0.02)
     return params
@@ -92,15 +128,22 @@ def stack_qtensors(qts) -> QuantizedTensor:
 def quantize_model_rtn(
     params: Params, cfg: ModelConfig, weight_spec: QuantSpec, pack: bool = False
 ) -> Params:
-    """RTN-quantize every decoder-layer linear, each layer independently.
+    """RTN-quantize every decoder-layer linear, each layer independently,
+    and on Mixtral each expert of each layer (the router stays fp).
     Embeddings, norms and lm_head stay full precision."""
     if not weight_spec.enabled:
         return params
     out = dict(params)
     layers = dict(params["layers"])
     for name in linear_names(cfg):
-        stacked = layers[name]["w"]
-        qts = [quantize_rtn(w, weight_spec, pack=pack) for w in stacked]
+        qts = [quantize_rtn(w, weight_spec, pack=pack) for w in layers[name]["w"]]
         layers[name] = {**layers[name], "w": stack_qtensors(qts)}
+    if cfg.is_moe:
+        experts = dict(layers["experts"])
+        for name in MOE_EXPERT_LINEARS:
+            per_layer = [stack_qtensors([quantize_rtn(w, weight_spec, pack=pack) for w in ws])
+                         for ws in experts[name]["w"]]
+            experts[name] = {**experts[name], "w": stack_qtensors(per_layer)}
+        layers["experts"] = experts
     out["layers"] = layers
     return out

@@ -7,6 +7,14 @@ codes (`pack=True`), centered signed int8 containers (`pack=False`, or bits
 without a nibble packing), per-column symmetric int8 (`percol_s8`, the a8
 serving format), and an lm_head recoded to per-column s8 or s4 (`head_s8`,
 `head_s4`). Draws come from a `torch.Generator` and do not reproduce JAX's.
+
+Every arch gets JAX's tree (`synthetic.py:93-136`): llama's SwiGLU
+linears, and for every other arch OPT's `fc1`/`fc2` with LayerNorms
+(weights and biases; no `ln2` under a parallel block), biases on OPT's
+linears and its learned positions. So a Mixtral config gets `fc1`/`fc2`
+and no router or experts, a tree that `forward_logits` cannot run, in
+JAX as here (a quirk mirrored, not fixed: build a real Mixtral with
+`init_params` and `quantize_model_rtn`).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from ..quant.qtensor import QuantizedTensor
 from ..quant.quantizer import QuantSpec
 from ..quant.serving import recode_head_s4, recode_head_s8
 from .configs import ModelConfig
-from .params import Params, linear_shapes
+from .params import Params
 
 
 def _uniform(gen, shape, lo: float, hi: float, dev) -> torch.Tensor:
@@ -77,16 +85,33 @@ def init_quantized_params(
     """Random params with every decoder linear already real-quantized, built
     on `device` from `generator` (or a fresh one seeded with `seed`)."""
     dev = resolve_device(device)
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"arch {cfg.arch!r} is not ported yet")
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(seed)
-    d, L = cfg.hidden_size, cfg.num_layers
-    layers: Params = {
-        name: {"w": _rand_qtensor(gen, k, n, spec, L, dev, pack, percol_s8)}
-        for name, (k, n) in linear_shapes(cfg).items()
+    d, i, hd, L = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_, cfg.num_layers
+    shapes = {
+        "q": (d, cfg.num_heads * hd),
+        "k": (d, cfg.num_kv_heads * hd),
+        "v": (d, cfg.num_kv_heads * hd),
+        "o": (cfg.num_heads * hd, d),
     }
-    layers["ln1"] = {"w": torch.ones((L, d), dtype=dtype, device=dev)}
-    layers["ln2"] = {"w": torch.ones((L, d), dtype=dtype, device=dev)}
+    if cfg.arch == "llama":
+        shapes.update({"gate": (d, i), "up": (d, i), "down": (i, d)})
+    else:
+        shapes.update({"fc1": (d, i), "fc2": (i, d)})
+    layers: Params = {}
+    for name, (k, n) in shapes.items():
+        layers[name] = {"w": _rand_qtensor(gen, k, n, spec, L, dev, pack, percol_s8)}
+        if cfg.arch == "opt":
+            layers[name]["b"] = torch.zeros((L, n), dtype=dtype, device=dev)
+
+    def norm(lead):
+        out = {"w": torch.ones((*lead, d), dtype=dtype, device=dev)}
+        if cfg.arch != "llama":
+            out["b"] = torch.zeros((*lead, d), dtype=dtype, device=dev)
+        return out
+
+    layers["ln1"] = norm((L,))
+    if not cfg.parallel_block:
+        layers["ln2"] = norm((L,))
 
     def normal(shape):
         x = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
@@ -95,8 +120,10 @@ def init_quantized_params(
     params: Params = {
         "embed": normal((cfg.vocab_size, d)),
         "layers": layers,
-        "norm": {"w": torch.ones((d,), dtype=dtype, device=dev)},
+        "norm": norm(()),
     }
+    if cfg.arch == "opt":
+        params["pos_embed"] = normal((cfg.max_position_embeddings + 2, d))
     if not cfg.tie_word_embeddings:
         if head_s8 or head_s4:
             recode = recode_head_s4 if head_s4 else recode_head_s8

@@ -1,14 +1,18 @@
-"""Llama decoder forward and quantized-KV decode (port of the llama parts
-of `llama3_quantization_tpu/models/transformer.py`).
+"""Decoder forward and quantized-KV decode (port of
+`llama3_quantization_tpu/models/transformer.py`): Llama-3, OPT (learned
+positions, LayerNorm, biases, relu, tied head), Falcon (attention and MLP
+in parallel off one shared norm, gelu, multi-query attention) and Mixtral
+(sparse MoE MLP, dense or capacity dispatch, `set_moe_capacity`).
 
 Plain functions over the parameter tree of `models/params.py`. The layer
 stack is a Python loop over the stacked `[L, ...]` tensors (views, no
-copies). Routing depends on shapes and on four switches that mirror the
-JAX package's (`transformer.py:150-165,280-431`), `set_flash`,
-`set_decode_kernel`, `set_decode_attn` (default from `L3Q_DECODE_ATTN`, as
-JAX reads it) and `set_stacked_decode` (which has nothing to choose
-here, see below); at their defaults it follows the JAX package as it runs
-with `set_decode_kernel("interpret")`:
+copies); Mixtral's experts are stacked `[L, E, ...]` and run one expert
+at a time, each on B1 or B2. Routing depends on shapes and on four
+switches that mirror the JAX package's (`transformer.py:150-165,280-431`),
+`set_flash`, `set_decode_kernel`, `set_decode_attn` (default from
+`L3Q_DECODE_ATTN`, as JAX reads it) and `set_stacked_decode` (which has
+nothing to choose here, see below); at their defaults it follows the JAX
+package as it runs with `set_decode_kernel("interpret")`:
 
 - full-sequence attention takes kernel B7 (`ops/flash_attention.py`) when
   S >= 128, no q/k/v/p hook is set and B7 takes the heads' shape
@@ -30,7 +34,9 @@ with `set_decode_kernel("interpret")`:
   `ops/launches.py`). JAX's decode kernels take any rep (they pad the
   query rows to 8, `decode_attention.py:123,243,325`); B4/B5 and B6 take
   any rep up to 8 (their wrappers pad it to a form of 1, 2, 4 or 8), and
-  a rep above 8 decodes eagerly (no port configuration has one);
+  a rep above 8 decodes eagerly (Falcon-7B's 71 query heads over one K/V
+  head, which JAX's gate also sends eager: its D = 64 is not a multiple
+  of 128, `:388`);
 - `set_decode_kernel(False)` sends every cached step, on all three caches,
   to the eager attention over the read-back cache and turns the windowed
   decode off (JAX `:374`, `windowed.py:112-123`): the route JAX takes
@@ -235,6 +241,23 @@ def rms_norm(
     return y.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
+               ) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (OPT and Falcon, `transformer.py:87-92`)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def _norm(p_norm: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's norm: RMSNorm (llama, mixtral) or LayerNorm (opt, falcon)."""
+    if cfg.rms_norms:
+        return rms_norm(h, p_norm["w"], cfg.rms_norm_eps, p_norm.get("b"))
+    return layer_norm(h, p_norm["w"], p_norm["b"], 1e-5)
+
+
 def rope_cos_sin(
     positions: torch.Tensor, head_dim: int, theta: float, dtype, scaling=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -315,15 +338,17 @@ def _kernel_mask(mask: torch.Tensor, b: int, t: int) -> torch.Tensor:
 
 
 def _layer_params(layers: Params, i: int) -> Params:
-    """Layer `i` of the stacked layer tree (views, no copies)."""
-    out = {}
-    for name, entry in layers.items():
-        out[name] = {
-            key: (val.layer(i) if isinstance(val, (QuantizedTensor, S4Weight, PaddedWeight))
-                  else val[i])
-            for key, val in entry.items()
-        }
-    return out
+    """Layer `i` of the stacked layer tree (views, no copies); nested
+    entries (Mixtral's `experts`) are walked too, so the same call takes
+    expert `e` of one layer's `[E, ...]` stacks."""
+    def take(val):
+        if isinstance(val, dict):
+            return {key: take(v) for key, v in val.items()}
+        if isinstance(val, (QuantizedTensor, S4Weight, PaddedWeight)):
+            return val.layer(i)
+        return val[i]
+
+    return {name: take(entry) for name, entry in layers.items()}
 
 
 def qkv_proj(p: Params, h: torch.Tensor, cfg: ModelConfig, act: Optional[QuantSpec] = None):
@@ -430,8 +455,95 @@ def _take_decode_kernel(rq: RuntimeQuantConfig, cache, s: int, hq: int,
     return False
 
 
-def _mlp_block(p: Params, h: torch.Tensor, rq: RuntimeQuantConfig = NO_QUANT) -> torch.Tensor:
+def _moe_topk(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The router's top-k picks of each token of `x [..., D]`: (weights
+    renormalised over the k, expert ids), each `[..., k]`; fp32 softmax over
+    the router's logits (`transformer.py:615-618,666-669`)."""
+    probs = torch.softmax(qlinear(x, p["router"]["w"]).float(), dim=-1)
+    topv, topi = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    return topv / topv.sum(dim=-1, keepdim=True), topi
+
+
+def _moe_routing_weights(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dense `[B, S, E]` top-k renormalised routing weights, zero for the
+    experts not picked (`transformer.py:612-620`)."""
+    topv, topi = _moe_topk(p, h, cfg)
+    return torch.zeros((*h.shape[:-1], cfg.num_experts), dtype=topv.dtype,
+                       device=h.device).scatter(-1, topi, topv)
+
+
+#: MoE compute mode (`transformer.py:623-635`): None = dense exact top-k
+#: (every expert runs on every token, the routing weights mask it in); a
+#: float = capacity dispatch with that capacity factor
+_MOE_CAPACITY: Optional[float] = None
+
+
+def set_moe_capacity(factor) -> None:
+    """Enable (a factor, e.g. 1.25) or disable (None) capacity-dispatch MoE."""
+    global _MOE_CAPACITY
+    if factor is not None and factor <= 0:
+        raise ValueError(f"capacity factor must be positive, got {factor}")
+    _MOE_CAPACITY = factor
+
+
+def _expert_ffn(e_params: Params, x: torch.Tensor, rq: RuntimeQuantConfig) -> torch.Tensor:
+    gate = qlinear(x, e_params["gate"]["w"], None, rq.act)
+    up = qlinear(x, e_params["up"]["w"], None, rq.act)
+    return qlinear(F.silu(gate) * up, e_params["down"]["w"], None, rq.act)
+
+
+def _moe_capacity_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig,
+                        factor: float) -> torch.Tensor:
+    """Capacity-scheduled MoE (`transformer.py:644-687`): each expert takes
+    at most C = ceil(factor * k * T / E) tokens, rounded up to a multiple of
+    8; picks are queued slot-major (every token's first pick before any
+    second pick), and a pick past C drops that expert's share. Dispatch
+    and combine are one-hot products, as in JAX."""
+    b, s, d = h.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    c = min(t, -(-int(factor * k * t) // e))
+    c = -(-c // 8) * 8
+    x = h.reshape(t, d)
+    topv, topi = _moe_topk(p, x, cfg)  # [T, k]
+    onehot = F.one_hot(topi, e).float()  # [T, k, E]
+    oh = onehot.transpose(0, 1).reshape(k * t, e)
+    pos = torch.cumsum(oh, dim=0) * oh - oh  # 0-based queue place where picked
+    keep = (pos < c).float() * oh
+    slot = F.one_hot(pos.long().clamp(max=c - 1), c).float()  # [kT, E, C]
+    dispatch = (slot * keep[..., None]).reshape(k, t, e, c).permute(1, 0, 2, 3)
+    disp = dispatch.sum(dim=1)  # [T, E, C]
+    combine = torch.einsum("tkec,tk->tec", dispatch, topv)
+    xe = torch.einsum("tec,td->ecd", disp.to(x.dtype), x)  # [E, C, D]
+    ye = torch.stack([_expert_ffn(_layer_params(p["experts"], i), xe[i], rq) for i in range(e)])
+    y = torch.einsum("tec,ecd->td", combine, ye.float())
+    return y.reshape(b, s, d).to(h.dtype)
+
+
+def _moe_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig
+               ) -> torch.Tensor:
+    """Mixtral's sparse-MoE MLP (`transformer.py:690-705`): by default
+    dense, every expert on every token with the top-k routing weights
+    masked in; under `set_moe_capacity(f)` the capacity dispatch."""
+    if _MOE_CAPACITY is not None:
+        return _moe_capacity_block(p, h, cfg, rq, _MOE_CAPACITY)
+    weights = _moe_routing_weights(p, h, cfg)
+    outs = torch.stack([_expert_ffn(_layer_params(p["experts"], i), h, rq)
+                        for i in range(cfg.num_experts)])  # [E, B, S, D]
+    return torch.einsum("ebsd,bse->bsd", outs.float(), weights).to(h.dtype)
+
+
+def _mlp_block(p: Params, h: torch.Tensor, cfg: ModelConfig,
+               rq: RuntimeQuantConfig = NO_QUANT) -> torch.Tensor:
+    """SwiGLU (llama), the MoE (mixtral) or fc1 -> relu/gelu -> fc2 with
+    biases (opt, falcon; JAX's gelu is the tanh form) (`transformer.py:708-721`)."""
     act = rq.act
+    if cfg.is_moe:
+        return _moe_block(p, h, cfg, rq)
+    if cfg.arch != "llama":
+        fc1 = qlinear(h, p["fc1"]["w"], p["fc1"].get("b"), act)
+        a = F.relu(fc1) if cfg.activation == "relu" else F.gelu(fc1, approximate="tanh")
+        return qlinear(a, p["fc2"]["w"], p["fc2"].get("b"), act)
     if "gateup" in p:  # fused gate|up (`transformer.py:712-714`)
         gu = qlinear(h, p["gateup"]["w"], p["gateup"].get("b"), act)
         half = gu.shape[-1] // 2
@@ -446,35 +558,63 @@ def decoder_layer(
     p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig, cos_sin, mask,
     cache=None, cache_pos=None, layer=None,
 ) -> torch.Tensor:
-    """Pre-norm residual llama layer. With `cache`, `layer` indexes the
-    layer-stacked cache (fp or quantized), which is written in place at
+    """Pre-norm residual layer, or Falcon's attention and MLP in parallel
+    off one shared norm (the MLP reads its own `ln2` where the tree has one,
+    Falcon-40B's) (`transformer.py:730-766`). With `cache`, `layer` indexes
+    the layer-stacked cache (fp or quantized), which is written in place at
     `cache_pos` (an int, or per-row slots `[B]`)."""
-    attn_in = rms_norm(h, p["ln1"]["w"], cfg.rms_norm_eps, p["ln1"].get("b"))
+    if cfg.parallel_block:
+        x = _norm(p["ln1"], h, cfg)
+        attn_out = _attn_block(p, x, cfg, rq, cos_sin, mask, cache, cache_pos, layer)
+        mlp_x = _norm(p["ln2"], h, cfg) if "ln2" in p else x
+        return h + attn_out + _mlp_block(p, mlp_x, cfg, rq)
+    attn_in = _norm(p["ln1"], h, cfg)
     h = h + _attn_block(p, attn_in, cfg, rq, cos_sin, mask, cache, cache_pos, layer)
-    mlp_in = rms_norm(h, p["ln2"]["w"], cfg.rms_norm_eps, p["ln2"].get("b"))
-    return h + _mlp_block(p, mlp_in, rq)
+    mlp_in = _norm(p["ln2"], h, cfg)
+    return h + _mlp_block(p, mlp_in, cfg, rq)
 
 
-def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding; out-of-range ids clip to the table (JAX mode="clip")."""
+#: OPT's learned positions are offset by 2 (the HF convention)
+OPT_POS_OFFSET = 2
+
+
+def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+          positions: torch.Tensor) -> torch.Tensor:
+    """Token embedding, plus OPT's learned position embedding at
+    `positions + OPT_POS_OFFSET`; out-of-range ids and positions clip to
+    the tables (JAX mode="clip"), and an OPT sequence longer than
+    `max_position_embeddings` raises (`transformer.py:776-790`)."""
     table = params["embed"]
-    return table[tokens.clamp(0, table.shape[0] - 1)]
+    h = table[tokens.clamp(0, table.shape[0] - 1)]
+    if cfg.arch == "opt":
+        if positions.shape[-1] > cfg.max_position_embeddings:
+            raise ValueError(f"sequence length {positions.shape[-1]} exceeds "
+                             f"max_position_embeddings={cfg.max_position_embeddings}")
+        pos_table = params["pos_embed"]
+        h = h + pos_table[(positions + OPT_POS_OFFSET).clamp(0, pos_table.shape[0] - 1)]
+    return h
+
+
+def model_rope(positions: torch.Tensor, cfg: ModelConfig, dtype):
+    """RoPE's (cos, sin) at `positions`, or None where the arch has learned
+    positions (OPT)."""
+    if not cfg.uses_rope:
+        return None
+    return rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, dtype, cfg.rope_scaling_)
 
 
 def final_norm(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return rms_norm(h, params["norm"]["w"], cfg.rms_norm_eps, params["norm"].get("b"))
+    """The final norm, by `cfg.rms_norms` (llama and mixtral RMSNorm, opt
+    and falcon LayerNorm; `transformer.py:793-799`)."""
+    return _norm(params["norm"], h, cfg)
 
 
 def lm_head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The head's logits; a quantized head on the card that a kernel does
-    not take is padded first (nothing to do on a prepared tree)."""
+    """The head's logits (the embedding's transpose on a tied head); a
+    quantized head on the card that a kernel does not take is padded first
+    (nothing to do on a prepared tree)."""
     w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
     return qlinear(h, pad_weight(w) if isinstance(w, QuantizedTensor) else w)
-
-
-def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"arch {cfg.arch!r} is not ported yet")
 
 
 def forward_hidden(
@@ -483,12 +623,11 @@ def forward_hidden(
     """Full-sequence causal forward to final hidden states `[B, S, d]`.
     Weights on the card that a kernel does not take are padded first
     (`ops/padding.pad_for_kernels`; nothing to do on a prepared tree)."""
-    _check_arch(cfg)
     params = pad_for_kernels(params)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
-    h = embed(params, tokens)
-    cos_sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
+    h = embed(params, tokens, cfg, positions)
+    cos_sin = model_rope(positions, cfg, h.dtype)
     mask = causal_mask(s, device=tokens.device)
     for i in range(cfg.num_layers):
         h = decoder_layer(_layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask)
@@ -565,8 +704,8 @@ def _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq) 
     """The layer stack against the cache (written in place): final hidden.
     Weights on the card that a kernel does not take are padded first."""
     params = pad_for_kernels(params)
-    h = embed(params, tokens)
-    cos_sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
+    h = embed(params, tokens, cfg, positions)
+    cos_sin = model_rope(positions, cfg, h.dtype)
     for i in range(cfg.num_layers):
         h = decoder_layer(
             _layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask, cache, write_slot, i
@@ -585,7 +724,6 @@ def decode_hidden(
 ) -> torch.Tensor:
     """`decode_step` up to the final norm: hidden states `[B, S, d]`. The
     serving engine takes the lm_head of the rows it needs only."""
-    _check_arch(cfg)
     b, s = tokens.shape
     pos = int(pos)
     positions = pos + torch.arange(s, device=tokens.device)[None, :]
@@ -622,7 +760,6 @@ def decode_step_multi(
     each row writes its own sink+ring slot, then B4 (quantized cache) or B6
     (fp cache) reads each layer view under its own `[B, T]` mask. Returns
     (logits [B, 1, V], cache)."""
-    _check_arch(cfg)
     b, s = tokens.shape
     if s != 1 or tuple(pos.shape) != (b,):
         raise ValueError(f"multi-slot decode takes tokens [B, 1] and pos [B]; got {tuple(tokens.shape)}, {tuple(pos.shape)}")

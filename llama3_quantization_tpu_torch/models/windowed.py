@@ -21,8 +21,9 @@ gather merge (`windowed.py:263-439`), which are two forms of that mapping,
 so JAX's `L3Q_WINDOW_MERGE=gather`, which picks between them for the
 TPU's scratch memory, has nothing to choose here and is not read.
 
-Scope as in JAX: quantized stacked caches (int8 / int4), single-token
-steps, sink tokens, no enabled q/k/v/p hook (the `act` hook runs in the
+Scope as in JAX (`windowed.py:107`): any stack but an MoE or a parallel
+block (so llama and OPT), quantized stacked caches (int8 / int4),
+single-token steps, sink tokens, no enabled q/k/v/p hook (the `act` hook runs in the
 window's linears), not under `set_decode_kernel(False)`, and a cache
 whose shape B5 takes (`b5_takes`) unless the main segment takes the
 codes-direct route. Callers fall back to per-step decode otherwise
@@ -48,12 +49,12 @@ from .configs import ModelConfig
 from .transformer import (
     NO_QUANT,
     RuntimeQuantConfig,
-    _check_arch,
     _decode_route_ok,
     _decode_shape_ok,
     _kernel_mask,
     _layer_params,
     _mlp_block,
+    _norm,
     _use_xla_attn,
     _ring_write_and_mask,
     apply_rope,
@@ -61,9 +62,8 @@ from .transformer import (
     embed,
     final_norm,
     lm_head,
+    model_rope,
     qkv_proj,
-    rms_norm,
-    rope_cos_sin,
     sample_logits,
 )
 
@@ -84,12 +84,12 @@ def windowed_ok(
     sink_tokens: int = 0,
 ) -> bool:
     """Is the window write-combined decode applicable? (`windowed.py:85-123`
-    as it runs with the decode kernel: a llama stack over a quantized
-    cache whose shape B5 takes, unless the main segment takes the
-    codes-direct route, no enabled q/k/v/p hook, and not under
-    `set_decode_kernel(False)`.) The ring-crossing gate lives in the
-    callers, as in JAX."""
-    if not _WINDOWED or cfg.arch != "llama" or cfg.is_moe or cfg.parallel_block:
+    as it runs with the decode kernel: a stack that is neither MoE nor a
+    parallel block (llama, OPT) over a quantized cache whose shape B5
+    takes, unless the main segment takes the codes-direct route, no enabled
+    q/k/v/p hook, and not under `set_decode_kernel(False)`.) The
+    ring-crossing gate lives in the callers, as in JAX."""
+    if not _WINDOWED or cfg.is_moe or cfg.parallel_block:
         return False
     if sorted(cache) != sorted(CACHE_KEYS) or not _decode_route_ok(rq):
         return False
@@ -133,9 +133,10 @@ def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx,
     b, s, _ = x.shape
     hd = cfg.head_dim_
     q, k, v = qkv_proj(p, x, cfg, rq.act)  # fused qkv as `windowed.py:172-177`
-    cos, sin = cos_sin
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos_sin is not None:
+        cos, sin = cos_sin
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
     quantize = kv4_codes if cache["k_q"].dtype == torch.uint8 else kv_quantize
     wk, wks, wv, wvs = (buf[layer] for buf in w_bufs)  # [B, H, KW, *] views
@@ -164,15 +165,15 @@ def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx,
 def _decode_step_windowed(params, cache, w_bufs, tokens, pos, widx, main_mask, cfg, rq, block_t):
     """One windowed decode step at per-row positions `pos` [B]: h through
     the layer stack; the main cache is only read."""
-    h = embed(params, tokens)
-    cos_sin = rope_cos_sin(pos[:, None], cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
+    h = embed(params, tokens, cfg, pos[:, None])
+    cos_sin = model_rope(pos[:, None], cfg, h.dtype)
     for i in range(cfg.num_layers):
         lp = _layer_params(params["layers"], i)
-        x = rms_norm(h, lp["ln1"]["w"], cfg.rms_norm_eps, lp["ln1"].get("b"))
+        x = _norm(lp["ln1"], h, cfg)
         h = h + _attn_block_windowed(lp, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx, i,
                                      block_t)
-        mlp_in = rms_norm(h, lp["ln2"]["w"], cfg.rms_norm_eps, lp["ln2"].get("b"))
-        h = h + _mlp_block(lp, mlp_in, rq)
+        mlp_in = _norm(lp["ln2"], h, cfg)
+        h = h + _mlp_block(lp, mlp_in, cfg, rq)
     return lm_head(params, final_norm(params, h, cfg), cfg)
 
 
@@ -257,7 +258,6 @@ def decode_window(
     [B, n_steps], the cache, merged in place). Under the "s4" backend the
     weights are prepared once per window (`windowed.py:458`); already
     prepared params pass through unchanged."""
-    _check_arch(cfg)
     params = prepare_decode_params(params)
     dev = cache["k_s"].device
     if tok0.device != dev:

@@ -13,20 +13,19 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig
-from ..models.params import linear_names
+from ..models.params import MOE_EXPERT_LINEARS, linear_names, stack_qtensors
 from ..models.transformer import NO_QUANT
 from .calibration import (
     _layer_slice,
     _stack_layers,
     calib_tensor,
-    check_llama,
     embed_calibration,
     layer_linear_inputs,
     run_layer_xla,
 )
 from .qtensor import quantize_rtn
 from .quantizer import QuantSpec, fake_quant_dynamic
-from .smoothing import fold_norm_linears, smoothquant_scale
+from .smoothing import fold_norm_linears, fold_norm_moe, smoothquant_scale
 
 
 def awq_search_alpha(x: torch.Tensor, w_cat: torch.Tensor, spec: QuantSpec,
@@ -61,16 +60,18 @@ def awq_quantize_model(
     pack: bool = False,
 ):
     """Per-layer AWQ: search and fold scales at (ln1 -> q/k/v) and (ln2 ->
-    gate/up), then RTN-quantize every decoder linear; quantized-input
-    propagation between layers (`awq.py:61-157`). The token sample of each
-    search comes from numpy's `default_rng(0)`, as in JAX."""
-    check_llama(cfg, "awq_quantize_model")
+    the MLP's inputs: llama's gate/up, OPT's fc1, or Mixtral's router and
+    every expert's gate/up), then RTN-quantize every decoder linear and
+    expert; quantized-input propagation between layers (`awq.py:61-157`).
+    The token sample of each search comes from numpy's `default_rng(0)`,
+    as in JAX. Falcon's parallel block has no `ln2`, so it raises
+    `KeyError` here as in JAX."""
     tokens = calib_tensor(params, calib_tokens)
     n = tokens.shape[0]
     h0, cos_sin, mask = embed_calibration(params, cfg, tokens)
     h = [h0[b0 : b0 + batch_size] for b0 in range(0, n, batch_size)]
     del h0
-    mlp_in = ["gate", "up"]
+    mlp_in = ["gate", "up"] if cfg.arch == "llama" else ["fc1"]
     rng = np.random.default_rng(0)
     new_layers: List[Dict[str, Any]] = []
     for l in range(cfg.num_layers):
@@ -87,15 +88,32 @@ def awq_quantize_model(
                               spec, n_grid)
         p["ln1"], qkv = fold_norm_linears(p["ln1"], [p["q"], p["k"], p["v"]], s1)
         p["q"], p["k"], p["v"] = qkv
-        s2 = awq_search_alpha(sample(mlp_in[0]), torch.cat([p[m]["w"] for m in mlp_in], dim=1),
-                              spec, n_grid)
-        p["ln2"], outs = fold_norm_linears(p["ln2"], [p[m] for m in mlp_in], s2)
-        for m, e in zip(mlp_in, outs):
-            p[m] = e
+        if cfg.is_moe:
+            # ln2 -> the router and every expert's gate/up; the search scores
+            # at most 16384 of the experts' [K, E * N] columns, as in JAX
+            ew = torch.cat([p["experts"][m]["w"].transpose(0, 1).reshape(
+                p["experts"][m]["w"].shape[1], -1) for m in ("gate", "up")], dim=1)
+            if ew.shape[1] > 16384:
+                cols = rng.choice(ew.shape[1], size=16384, replace=False)
+                ew = ew[:, torch.as_tensor(cols, device=ew.device)]
+            s2 = awq_search_alpha(sample("experts_in"), ew, spec, n_grid)
+            p["ln2"], p["router"], p["experts"] = fold_norm_moe(p["ln2"], p["router"],
+                                                                p["experts"], s2)
+        else:
+            s2 = awq_search_alpha(sample(mlp_in[0]),
+                                  torch.cat([p[m]["w"] for m in mlp_in], dim=1), spec, n_grid)
+            p["ln2"], outs = fold_norm_linears(p["ln2"], [p[m] for m in mlp_in], s2)
+            for m, e in zip(mlp_in, outs):
+                p[m] = e
         for name in linear_names(cfg):
             entry = dict(p[name])
             entry["w"] = quantize_rtn(entry["w"], spec, pack=pack)
             p[name] = entry
+        if cfg.is_moe:
+            p["experts"] = {
+                name: {**p["experts"][name], "w": stack_qtensors(
+                    [quantize_rtn(w, spec, pack=pack) for w in p["experts"][name]["w"]])}
+                for name in MOE_EXPERT_LINEARS}
         for bi in range(len(h)):
             h[bi] = run_layer_xla(p, h[bi], cfg, NO_QUANT, cos_sin, mask)
         new_layers.append(p)

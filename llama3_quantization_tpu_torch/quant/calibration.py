@@ -9,8 +9,10 @@ dequant route), whatever the process-wide backend, as JAX pins them; the
 capture's full-sequence attention takes B7 at S >= 128 where it takes the
 shape.
 
-Only the llama branches are ported; MoE, OPT and Falcon raise
-`NotImplementedError` (ROADMAP A 4).
+Every arch of `models/transformer.py`: OPT's and Falcon's `fc1`/`fc2`
+(Falcon's MLP reads the shared norm's output, the same capture as q),
+and Mixtral's experts, which `gptq_quantize_model` solves one expert at a
+time on Hessians weighted by each token's routing weight.
 """
 
 from __future__ import annotations
@@ -23,17 +25,18 @@ import torch
 import torch.nn.functional as F
 
 from ..models.configs import ModelConfig
-from ..models.params import linear_names, stack_qtensors
+from ..models.params import MOE_EXPERT_LINEARS, linear_names, stack_qtensors
 from ..models.transformer import (
     NO_QUANT,
     RuntimeQuantConfig,
+    _moe_routing_weights,
+    _norm,
     apply_rope,
     decoder_layer,
     embed,
     full_attention,
+    model_rope,
     qkv_proj,
-    rms_norm,
-    rope_cos_sin,
 )
 from ..ops.flash_attention import causal_mask
 from ..ops.matmul import backend, qlinear
@@ -47,13 +50,6 @@ from .gptq import (
 )
 from .qtensor import QuantizedTensor
 from .quantizer import QuantSpec
-
-
-def check_llama(cfg: ModelConfig, what: str) -> None:
-    """The calibration quantizers port the llama branches only."""
-    if cfg.arch != "llama" or cfg.is_moe or cfg.parallel_block:
-        raise NotImplementedError(
-            f"{what} for arch {cfg.arch!r} (MoE, OPT, Falcon) is not ported yet (ROADMAP A 4)")
 
 
 def _snr_row(name, layer_idx, w_fp, w_q, x, weight_error, elapsed):
@@ -78,11 +74,12 @@ def _snr_row(name, layer_idx, w_fp, w_q, x, weight_error, elapsed):
 def layer_linear_inputs(p: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig,
                         rq: RuntimeQuantConfig, cos_sin, mask) -> Dict[str, torch.Tensor]:
     """One instrumented decoder-layer forward returning the input
-    activation of every linear (`calibration.py:64-121`)."""
-    check_llama(cfg, "layer_linear_inputs")
+    activation of every linear (`calibration.py:64-121`); on Mixtral the
+    experts' shared input as `experts_in` (their down inputs are derived
+    per expert by the MoE GPTQ path)."""
     b, s, _ = h.shape
     out: Dict[str, torch.Tensor] = {}
-    attn_in = rms_norm(h, p["ln1"]["w"], cfg.rms_norm_eps, p["ln1"].get("b"))
+    attn_in = _norm(p["ln1"], h, cfg)
     out["q"] = out["k"] = out["v"] = attn_in
     q, k, v = qkv_proj(p, attn_in, cfg, rq.act)
     if cos_sin is not None:
@@ -91,21 +88,35 @@ def layer_linear_inputs(p: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig,
         k = apply_rope(k, cos, sin)
     attn = full_attention(q, k, v, mask, cfg, rq).reshape(b, s, cfg.num_heads * cfg.head_dim_)
     out["o"] = attn
-    h = h + qlinear(attn, p["o"]["w"], p["o"].get("b"), rq.act)
-    mlp_in = rms_norm(h, p["ln2"]["w"], cfg.rms_norm_eps, p["ln2"].get("b"))
-    out["gate"] = out["up"] = mlp_in
-    gate = qlinear(mlp_in, p["gate"]["w"], p["gate"].get("b"), rq.act)
-    up = qlinear(mlp_in, p["up"]["w"], p["up"].get("b"), rq.act)
-    out["down"] = F.silu(gate) * up
+    attn_out = qlinear(attn, p["o"]["w"], p["o"].get("b"), rq.act)
+    if cfg.parallel_block:
+        mlp_in = attn_in  # Falcon: the MLP reads the shared norm's output
+    else:
+        mlp_in = _norm(p["ln2"], h + attn_out, cfg)
+    if cfg.is_moe:
+        out["experts_in"] = mlp_in
+    elif cfg.arch == "llama":
+        out["gate"] = out["up"] = mlp_in
+        gate = qlinear(mlp_in, p["gate"]["w"], p["gate"].get("b"), rq.act)
+        up = qlinear(mlp_in, p["up"]["w"], p["up"].get("b"), rq.act)
+        out["down"] = F.silu(gate) * up
+    else:
+        out["fc1"] = mlp_in
+        fc1 = qlinear(mlp_in, p["fc1"]["w"], p["fc1"].get("b"), rq.act)
+        out["fc2"] = F.relu(fc1) if cfg.activation == "relu" else F.gelu(fc1, approximate="tanh")
     return out
 
 
 def capture_aliases(cfg: ModelConfig) -> Dict[str, str]:
     """Capture keys that read the same activation in `layer_linear_inputs`
-    (q/k/v off attn_in, llama's gate/up off mlp_in): one Hessian or
-    statistic per canonical key."""
-    check_llama(cfg, "capture_aliases")
-    return {"k": "q", "v": "q", "up": "gate"}
+    (q/k/v off attn_in; llama's gate/up off mlp_in; Falcon's fc1 off the
+    shared norm): one Hessian or statistic per canonical key."""
+    al = {"k": "q", "v": "q"}
+    if cfg.arch == "llama" and not cfg.is_moe:
+        al["up"] = "gate"
+    if cfg.parallel_block:
+        al["fc1"] = "q"
+    return al
 
 
 def _layer_slice(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
@@ -131,13 +142,11 @@ def _stack_layers(layer_list: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 def embed_calibration(params, cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens [n, S] -> (h [n, S, D], cos_sin, mask)."""
-    check_llama(cfg, "embed_calibration")
+    """tokens [n, S] -> (h [n, S, D], cos_sin (None without RoPE), mask)."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
-    h = embed(params, tokens)
-    cos_sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, h.dtype, cfg.rope_scaling_)
-    return h, cos_sin, causal_mask(s, device=tokens.device)
+    h = embed(params, tokens, cfg, positions)
+    return h, model_rope(positions, cfg, h.dtype), causal_mask(s, device=tokens.device)
 
 
 def calib_tensor(params, calib_tokens) -> torch.Tensor:
@@ -153,9 +162,14 @@ def run_layer_xla(p, h, cfg: ModelConfig, rq: RuntimeQuantConfig, cos_sin, mask)
         return decoder_layer(p, h, cfg, rq, cos_sin, mask)
 
 
-#: true_sequential sub-block order: earlier groups are quantized before the
-#: inputs of later ones are captured
-_TRUE_SEQ_GROUPS = [("k", "v", "q"), ("o",), ("up", "gate"), ("down",)]
+#: true_sequential sub-block order per arch: earlier groups are quantized
+#: before the inputs of later ones are captured (Mixtral has none: all of
+#: its attention linears form one group)
+_TRUE_SEQ_GROUPS = {
+    "llama": [("k", "v", "q"), ("o",), ("up", "gate"), ("down",)],
+    "opt": [("k", "v", "q"), ("o",), ("fc1",), ("fc2",)],
+    "falcon": [("k", "v", "q"), ("o",), ("fc1",), ("fc2",)],
+}
 
 
 @torch.no_grad()
@@ -180,8 +194,9 @@ def gptq_quantize_model(
     `true_sequential` quantizes sub-blocks in dataflow order, recapturing
     inputs through the groups already quantized; `progress(l, L, errors)`
     after each layer; `snr_log` collects per-linear SNR rows
-    (`gptq.format_snr_table`)."""
-    check_llama(cfg, "gptq_quantize_model")
+    (`gptq.format_snr_table`). Mixtral's experts are solved after the
+    attention linears, each on Hessians weighted by the routing weights
+    (`quantize_experts`)."""
     tokens = calib_tensor(params, calib_tokens)
     n = tokens.shape[0]
     h, cos_sin, mask = embed_calibration(params, cfg, tokens)
@@ -195,9 +210,9 @@ def gptq_quantize_model(
         return {k: v for k, v in caps.items() if k not in aliases}
 
     names = linear_names(cfg)
-    if true_sequential:
-        groups = [g for g in (tuple(m for m in grp if m in names) for grp in _TRUE_SEQ_GROUPS)
-                  if g]
+    if true_sequential and cfg.arch in _TRUE_SEQ_GROUPS:
+        groups = [g for g in (tuple(m for m in grp if m in names)
+                              for grp in _TRUE_SEQ_GROUPS[cfg.arch]) if g]
     else:
         groups = [tuple(names)]
 
@@ -234,12 +249,49 @@ def gptq_quantize_model(
             q_l[name] = entry
         return q_l
 
+    def quantize_experts(q_l, errs):
+        """Mixtral's experts (`calibration.py:281-343`): each token's share
+        of expert e's Hessian is scaled by its routing weight w_e (x times
+        sqrt(w_e)); gate and up share the weighted input Hessian, down takes
+        the weighted Hessian of each expert's activation through its
+        already-quantized gate and up."""
+        from ..ops.matmul import qmatmul
+
+        xs, wts = [], []
+        for hb in h_list:
+            x = capture(q_l, hb)["experts_in"]
+            xs.append(x)
+            wts.append(_moe_routing_weights(q_l, x, cfg))
+        experts = q_l["experts"]
+        solve = dict(spec=spec, blocksize=blocksize, actorder=actorder, percdamp=percdamp,
+                     pack=pack)
+        new_e: Dict[str, list] = {m: [] for m in MOE_EXPERT_LINEARS}
+        for e in range(experts["gate"]["w"].shape[0]):
+            h_in = hessian_init(xs[0].shape[-1], device=xs[0].device)
+            for x, w in zip(xs, wts):
+                h_in = hessian_update(h_in, x * w[..., e].sqrt()[..., None].to(x.dtype))
+            qt_gate, err_g = gptq_quantize_weight(experts["gate"]["w"][e], h_in.H, **solve)
+            qt_up, err_u = gptq_quantize_weight(experts["up"]["w"][e], h_in.H, **solve)
+            down_w = experts["down"]["w"][e]
+            h_down = hessian_init(down_w.shape[0], device=xs[0].device)
+            for x, w in zip(xs, wts):
+                act = F.silu(qmatmul(x, qt_gate)) * qmatmul(x, qt_up)
+                h_down = hessian_update(h_down, act * w[..., e].sqrt()[..., None].to(act.dtype))
+            qt_down, err_d = gptq_quantize_weight(down_w, h_down.H, **solve)
+            errs[f"expert{e}"] = float(err_g + err_u + err_d)
+            for m, qt in zip(MOE_EXPERT_LINEARS, (qt_gate, qt_up, qt_down)):
+                new_e[m].append(qt)
+        q_l["experts"] = {m: {"w": stack_qtensors(qts)} for m, qts in new_e.items()}
+        return q_l
+
     new_layers = []
     for l in range(cfg.num_layers):
         q_l = dict(_layer_slice(params["layers"], l))
         errs: Dict[str, float] = {}
         for group in groups:
             q_l = quantize_group(q_l, group, errs, l)
+        if cfg.is_moe:
+            q_l = quantize_experts(q_l, errs)
         for bi in range(len(h_list)):
             h_list[bi] = run_layer_xla(q_l, h_list[bi], cfg, rq, cos_sin, mask)
         new_layers.append(q_l)

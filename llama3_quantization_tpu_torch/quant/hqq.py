@@ -134,12 +134,9 @@ def hqq_quantize_weight(w: torch.Tensor, spec: QuantSpec, iters: int = 20, p: fl
 
 def hqq_quantize_model(params, cfg: ModelConfig, spec: QuantSpec, iters: int = 20,
                        p: float = 0.7, pack: bool = False):
-    """Calibration-free HQQ over every decoder linear (`hqq.py:106-130`),
-    one linear of one layer at a time. The MoE expert stacks wait for
-    ROADMAP A 4."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "HQQ on MoE expert stacks waits for the other architectures (ROADMAP A 4)")
+    """Calibration-free HQQ over every decoder linear and, on Mixtral, every
+    expert of the `[L, E, K, N]` stacks (`hqq.py:106-135`), one linear of
+    one layer at a time."""
     out = dict(params)
     layers = dict(params["layers"])
     names = linear_names(cfg)
@@ -151,5 +148,11 @@ def hqq_quantize_model(params, cfg: ModelConfig, spec: QuantSpec, iters: int = 2
     for name in names:
         layers[name] = {**layers[name], "w": stack_qtensors(per_layer[name])}
         per_layer[name] = None
+    if cfg.is_moe:
+        layers["experts"] = {
+            name: {**entry, "w": stack_qtensors([
+                stack_qtensors([hqq_quantize_weight(w, spec, iters=iters, p=p, pack=pack)
+                                for w in ws]) for ws in entry["w"]])}
+            for name, entry in layers["experts"].items()}
     out["layers"] = layers
     return out

@@ -173,35 +173,38 @@ def irqlora_quantize_model(params, cfg, tau_range: float = 0.1, tau_n: int = 100
     dequantized values, as the reference dequantizes inside every
     forward). A weight whose size is not a whole number of `blocksize2`
     blocks of 64 stays as it is (the reference skips it). One linear of one
-    layer at a time; `progress(layer, n_layers)` after each layer. The
-    MoE expert stacks wait for ROADMAP A 4."""
+    layer at a time; `progress(layer, n_layers)` after each layer. On
+    Mixtral every expert of the `[L, E, K, N]` stacks too, after the layers'
+    linears (`irqlora.py:152-172`)."""
     from ..models.params import linear_names
 
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "IR-QLoRA on MoE expert stacks waits for the other architectures (ROADMAP A 4)")
     out = dict(params)
     layers = dict(params["layers"])
     names = linear_names(cfg)
     stacks = {name: layers[name]["w"] for name in names}
     new = {name: [] for name in names}
     n_layers = cfg.num_layers
+
+    def q_one(w_l):
+        if w_l.numel() % (blocksize2 * 64):
+            return w_l  # not whole blocks: kept fp (the reference skips it)
+        q = icq_search(w_l.reshape(-1), tau_range=tau_range, tau_n=tau_n,
+                       blocksize2=blocksize2)
+        return icq_dequantize(dataclasses.replace(q, shape=tuple(w_l.shape))).to(w_l.dtype)
+
     for l in range(n_layers):
         for name in names:
-            w_l = stacks[name][l]
-            if w_l.numel() % (blocksize2 * 64):
-                new[name].append(w_l)
-                continue
-            q = icq_search(w_l.reshape(-1), tau_range=tau_range, tau_n=tau_n,
-                           blocksize2=blocksize2)
-            q = dataclasses.replace(q, shape=tuple(w_l.shape))
-            new[name].append(icq_dequantize(q).to(w_l.dtype))
-            del q
+            new[name].append(q_one(stacks[name][l]))
         if progress is not None:
             progress(l + 1, n_layers)
     for name in names:
         layers[name] = {**layers[name], "w": torch.stack(new[name])}
         new[name] = None
+    if cfg.is_moe:
+        layers["experts"] = {
+            name: {**entry, "w": torch.stack([torch.stack([q_one(w) for w in ws])
+                                              for ws in entry["w"]])}
+            for name, entry in layers["experts"].items()}
     out["layers"] = layers
     return out
 

@@ -14,8 +14,14 @@ TPU runs the library kernels' `custom_vjp`.
 optax's two AdamW groups become one `torch.optim.AdamW` with two parameter
 groups (`lwc_lr`, `let_lr`; `weight_decay`, betas (0.9, 0.999), eps 1e-8):
 optax's update up to fp32 rounding. JAX's `L3Q_OMNI_PROFILE` phase timer
-is not ported: time a layer from `progress` instead. Only the llama
-branches are ported (ROADMAP A 4 for MoE, OPT and Falcon).
+is not ported: time a layer from `progress` instead.
+
+Every arch of `models/transformer.py`: LET folds ln1 into q/k/v and ln2
+into the MLP's inputs (llama's gate/up, OPT's fc1, with channel shifts for
+OPT and Falcon under activation quantization); Falcon's shared norm folds
+once into q/k/v and fc1; Mixtral's ln2 folds, scale only, into the router
+and every expert, whose `[E, K, N]` stacks get per-expert clipping logits
+(`_fake_quant_experts`).
 """
 
 from __future__ import annotations
@@ -28,19 +34,24 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig
-from ..models.params import linear_names
+from ..models.params import MOE_EXPERT_LINEARS, linear_names, stack_qtensors
 from ..models.transformer import NO_QUANT, RuntimeQuantConfig, decoder_layer
 from .calibration import (
     _layer_slice,
     _stack_layers,
     calib_tensor,
-    check_llama,
     embed_calibration,
     run_layer_xla,
 )
 from .qtensor import quantize_rtn
 from .quantizer import QuantSpec, fake_quant_dynamic, lwc_init
-from .smoothing import fold_fc_fc, fold_norm_linears, sanitize_scale, smoothquant_scale
+from .smoothing import (
+    fold_fc_fc,
+    fold_norm_linears,
+    fold_norm_moe,
+    sanitize_scale,
+    smoothquant_scale,
+)
 from .smoothquant import _fold_v_o_gqa
 
 
@@ -69,17 +80,24 @@ def _w_absmax(p_l, names) -> torch.Tensor:
 
 def init_layer_let(p_l: Dict[str, Any], cfg: ModelConfig, act_stats=None, alpha: float = 0.5,
                    use_shift: bool = False):
-    """Trainable smoothing parameters for one layer (`omniquant.py:74-141`):
-    scales from the SmoothQuant formula where activation stats are given,
-    else ones; shifts only with `use_shift` (never for llama)."""
-    check_llama(cfg, "init_layer_let")
+    """Trainable smoothing parameters for one layer (`omniquant.py:67-141`):
+    scales from the SmoothQuant formula where activation stats are given
+    (the MLP's by `gate`, `fc1` or, on Mixtral, `experts_in` against the
+    experts' |max| over E and N), else ones; shifts only with `use_shift`
+    (never for llama or Mixtral, and no `fc1_shift` on an MoE)."""
     d = p_l["q"]["w"].shape[0]
     dev = p_l["q"]["w"].device
+    if cfg.is_moe:
+        mlp_key = "experts_in"
+        mlp_wmax = torch.stack([p_l["experts"][n]["w"].float().abs().amax(dim=(0, 2))
+                                for n in ("gate", "up")]).amax(dim=0)
+    else:
+        mlp_key = "gate" if cfg.arch == "llama" else "fc1"
+        mlp_wmax = _w_absmax(p_l, [mlp_key])
     if act_stats is not None:
         qkv_scale = smoothquant_scale(act_stats["q"]["absmax"], _w_absmax(p_l, ["q", "k", "v"]),
                                       alpha)
-        fc1_scale = smoothquant_scale(act_stats["gate"]["absmax"], _w_absmax(p_l, ["gate"]),
-                                      alpha)
+        fc1_scale = smoothquant_scale(act_stats[mlp_key]["absmax"], mlp_wmax, alpha)
     else:
         qkv_scale = torch.ones((d,), dtype=torch.float32, device=dev)
         fc1_scale = torch.ones((d,), dtype=torch.float32, device=dev)
@@ -88,7 +106,7 @@ def init_layer_let(p_l: Dict[str, Any], cfg: ModelConfig, act_stats=None, alpha:
     if use_shift:
         let["qkv_shift"] = zeros()
     let["fc1_scale"] = fc1_scale.float()
-    if use_shift:
+    if use_shift and not cfg.is_moe:
         let["fc1_shift"] = zeros()
     let["out_scale"] = torch.ones((p_l["v"]["w"].shape[1],), dtype=torch.float32, device=dev)
     # q <-> k: one scale per RoPE rotation pair (dims i and i + hd/2 mix under
@@ -99,16 +117,25 @@ def init_layer_let(p_l: Dict[str, Any], cfg: ModelConfig, act_stats=None, alpha:
 
 def apply_let(p_l: Dict[str, Any], let, cfg: ModelConfig):
     """Differentiable fold of the LET parameters (`omniquant.py:144-225`):
-    ln1 -> q/k/v, ln2 -> gate/up, v -> o, and q <-> k with the pair scales
-    mirrored onto both RoPE halves and tiled over the heads."""
-    check_llama(cfg, "apply_let")
+    ln1 -> q/k/v (and the MLP's input under a parallel block), ln2 -> the
+    MLP's inputs (Mixtral: the router and the experts, scale only), v -> o,
+    and q <-> k with the pair scales mirrored onto both RoPE halves and
+    tiled over the heads."""
     p = dict(p_l)
-    p["ln1"], qkv = fold_norm_linears(p["ln1"], [p["q"], p["k"], p["v"]], let["qkv_scale"],
-                                      let.get("qkv_shift"))
-    p["q"], p["k"], p["v"] = qkv
-    p["ln2"], outs = fold_norm_linears(p["ln2"], [p["gate"], p["up"]], let["fc1_scale"],
-                                       let.get("fc1_shift"))
-    p["gate"], p["up"] = outs
+    mlp_in = ["gate", "up"] if cfg.arch == "llama" else ["fc1"]
+    group1 = ["q", "k", "v"] + (mlp_in if cfg.parallel_block else [])
+    p["ln1"], outs = fold_norm_linears(p["ln1"], [p[m] for m in group1], let["qkv_scale"],
+                                       let.get("qkv_shift"))
+    for m, e in zip(group1, outs):
+        p[m] = e
+    if cfg.is_moe:
+        p["ln2"], p["router"], p["experts"] = fold_norm_moe(p["ln2"], p["router"], p["experts"],
+                                                            let["fc1_scale"])
+    elif not cfg.parallel_block:  # a parallel block's MLP input folded with q/k/v above
+        p["ln2"], outs = fold_norm_linears(p["ln2"], [p[m] for m in mlp_in], let["fc1_scale"],
+                                           let.get("fc1_shift"))
+        for m, e in zip(mlp_in, outs):
+            p[m] = e
     nv = p["v"]["w"].shape[1]
     if p["o"]["w"].shape[0] == nv:
         p["v"], p["o"] = fold_fc_fc(p["v"], p["o"], let["out_scale"])
@@ -151,21 +178,43 @@ def _load_aux(resume_dir: Optional[str], layer: int, aux_like):
 
 def init_layer_lwc(p_l: Dict[str, Any], cfg: ModelConfig, spec: QuantSpec):
     """Clipping logits (4.0: sigmoid ~ 0.98, almost no clipping) for every
-    linear of one layer, in the `[N, G, 1]` layout of its `[N, K]` view."""
-    check_llama(cfg, "init_layer_lwc")
-    return {name: lwc_init(tuple(p_l[name]["w"].T.shape), spec, device=p_l[name]["w"].device)
-            for name in linear_names(cfg)}
+    linear of one layer, in the `[N, G, 1]` layout of its `[N, K]` view;
+    Mixtral's expert stacks `[E, K, N]` get one set per expert under
+    `experts` (`omniquant.py:248-262`; the router is not quantized)."""
+    lwc = {name: lwc_init(tuple(p_l[name]["w"].T.shape), spec, device=p_l[name]["w"].device)
+           for name in linear_names(cfg)}
+    if cfg.is_moe:
+        experts = p_l["experts"]
+        lwc["experts"] = {}
+        for name in MOE_EXPERT_LINEARS:
+            w = experts[name]["w"]
+            one = lwc_init((w.shape[2], w.shape[1]), spec, device=w.device)
+            lwc["experts"][name] = {k: torch.stack([v] * w.shape[0]) for k, v in one.items()}
+    return lwc
+
+
+def _fake_quant_experts(w: torch.Tensor, spec: QuantSpec, up, low) -> torch.Tensor:
+    """Fake-quant stacked expert weights `[E, K, N]`, each expert under its
+    own clipping logits (`omniquant.py:265-269`)."""
+    return torch.stack([fake_quant_dynamic(w[e].T, spec, up[e], low[e]).T
+                        for e in range(w.shape[0])]).to(w.dtype)
 
 
 def apply_lwc(p_l, lwc, cfg: ModelConfig, spec: QuantSpec):
-    """The layer with every linear fake-quantized under its clipping
-    logits (differentiable in the logits)."""
+    """The layer with every linear (and expert) fake-quantized under its
+    clipping logits (differentiable in the logits)."""
     eff = dict(p_l)
     for name in linear_names(cfg):
         entry = dict(eff[name])
         w = entry["w"]
         entry["w"] = fake_quant_dynamic(w.T, spec, lwc[name]["up"], lwc[name]["low"]).T.to(w.dtype)
         eff[name] = entry
+    if cfg.is_moe and "experts" in lwc:
+        eff["experts"] = {
+            name: {**eff["experts"][name], "w": _fake_quant_experts(
+                eff["experts"][name]["w"], spec, lwc["experts"][name]["up"],
+                lwc["experts"][name]["low"])}
+            for name in MOE_EXPERT_LINEARS}
     return eff
 
 
@@ -228,7 +277,6 @@ def omniquant_model(
     to the last finite epoch and stops its training. With `resume_dir`,
     each layer's trained aux is written there and read back instead of
     training. `epoch_log`, where given, collects (layer, epoch, last loss)."""
-    check_llama(cfg, "omniquant_model")
     tokens = calib_tensor(params, calib_tokens)
     n = tokens.shape[0]
     bs = min(ocfg.batch_size, n)
@@ -300,6 +348,14 @@ def omniquant_model(
                 entry["w"] = quantize_rtn(entry["w"], ocfg.wspec, pack=ocfg.pack,
                                           lwc_up=lwc[name]["up"], lwc_low=lwc[name]["low"])
                 q_l[name] = entry
+            if cfg.is_moe and "experts" in lwc:
+                q_l["experts"] = {
+                    name: {**q_l["experts"][name], "w": stack_qtensors([
+                        quantize_rtn(w, ocfg.wspec, pack=ocfg.pack, lwc_up=up, lwc_low=low)
+                        for w, up, low in zip(q_l["experts"][name]["w"],
+                                              lwc["experts"][name]["up"],
+                                              lwc["experts"][name]["low"])])}
+                    for name in MOE_EXPERT_LINEARS}
             for bi in range(len(h_q)):
                 h_q[bi] = run_layer_xla(q_l, h_q[bi], cfg, rq, cos_sin, mask)
         new_layers.append(q_l)

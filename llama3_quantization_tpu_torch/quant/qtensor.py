@@ -42,6 +42,11 @@ class QuantizedTensor:
     g_idx: Optional[torch.Tensor] = None
 
     @property
+    def shape(self):
+        """One layer's logical `(K, N)`, as JAX's `QuantizedTensor.shape`."""
+        return (self.k, self.n)
+
+    @property
     def num_groups(self) -> int:
         return self.scale.shape[-2]
 

@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from ..models.params import linear_names
+from ..models.params import MOE_EXPERT_LINEARS, linear_names
 from ..ops.kvcache import true_div
 from .qtensor import QuantizedTensor, dequantize
 
@@ -141,19 +141,30 @@ def _stack(qts) -> QuantizedTensor:
 
 
 def recode_model_s8(params, cfg, include_head: bool = False):
-    """Recode every quantized decoder linear for s8 serving, one layer at a
-    time. `include_head` also recodes a non-tied lm_head."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE expert stacks are not ported yet")
+    """Recode every quantized decoder linear for s8 serving, one layer (and
+    on Mixtral one expert of the `[L, E, K, N]` stacks) at a time
+    (`serving.py:163-210`). `include_head` also recodes a non-tied lm_head."""
+    def recode_stacked(w: QuantizedTensor, lead_dims: int) -> QuantizedTensor:
+        if lead_dims == 0:
+            return recode_s8_percol(w, jitted=True)
+        return _stack([recode_stacked(w.layer(i), lead_dims - 1)
+                       for i in range(w.data.shape[0])])
+
     out = dict(params)
     layers = dict(params["layers"])
     for name in linear_names(cfg):
         entry = dict(layers[name])
-        w = entry["w"]
-        if isinstance(w, QuantizedTensor):
-            entry["w"] = _stack([recode_s8_percol(w.layer(i), jitted=True)
-                                 for i in range(w.data.shape[0])])
+        if isinstance(entry["w"], QuantizedTensor):
+            entry["w"] = recode_stacked(entry["w"], 1)
             layers[name] = entry
+    if cfg.is_moe:
+        experts = dict(layers["experts"])
+        for name in MOE_EXPERT_LINEARS:
+            entry = dict(experts[name])
+            if isinstance(entry["w"], QuantizedTensor):
+                entry["w"] = recode_stacked(entry["w"], 2)
+                experts[name] = entry
+        layers["experts"] = experts
     out["layers"] = layers
     if include_head and "lm_head" in out:
         out["lm_head"] = recode_head_s8(out["lm_head"], jitted=True)

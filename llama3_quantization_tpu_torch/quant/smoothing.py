@@ -132,6 +132,23 @@ def smoothquant_scale(act_absmax: torch.Tensor, w_absmax: torch.Tensor,
 
 
 def fold_norm_moe(norm, router, experts, scale, shift=None):
-    """The pre-MoE norm fold into the router and every expert: MoE is not
-    ported yet (ROADMAP A 4)."""
-    raise NotImplementedError("fold_norm_moe: MoE is not ported yet (ROADMAP A 4)")
+    """Migrate a per-channel scale from the pre-MoE norm into the router and
+    every expert's gate/up (`fold_norm_linears` on the stacked `[E, K, N]`
+    experts, `smoothing.py:150-175`). Scale-only: Mixtral's router and
+    experts have no bias for a shift to fold into."""
+    if shift is not None:
+        raise ValueError("MoE norm fold is scale-only (experts have no bias)")
+    s = sanitize_scale(scale)
+    new_norm = dict(norm)
+    new_norm["w"] = (norm["w"] / s).to(norm["w"].dtype)
+    if "b" in norm:
+        new_norm["b"] = (norm["b"] / s).to(norm["b"].dtype)
+    new_router = dict(router)
+    new_router["w"] = (router["w"] * s[:, None].to(router["w"].dtype)).to(router["w"].dtype)
+    new_experts = dict(experts)
+    for name in ("gate", "up"):
+        entry = dict(new_experts[name])
+        w = entry["w"]  # [E, K, N]
+        entry["w"] = (w * s[None, :, None].to(w.dtype)).to(w.dtype)
+        new_experts[name] = entry
+    return new_norm, new_router, new_experts

@@ -23,12 +23,17 @@ from .calibration import (
     _layer_slice,
     _stack_layers,
     calib_tensor,
-    check_llama,
     embed_calibration,
     layer_linear_inputs,
     run_layer_xla,
 )
-from .smoothing import fold_fc_fc, fold_norm_linears, sanitize_scale, smoothquant_scale
+from .smoothing import (
+    fold_fc_fc,
+    fold_norm_linears,
+    fold_norm_moe,
+    sanitize_scale,
+    smoothquant_scale,
+)
 
 
 @torch.no_grad()
@@ -36,14 +41,16 @@ def collect_act_stats(params, cfg: ModelConfig, calib_tokens: np.ndarray, batch_
     """Per layer and per linear, the input activation's |max| and mean over
     the calibration stream, propagated through the fp layers
     (`smoothquant.py:27-70`): a list of {name: {"absmax", "mean"}}, fp32
-    [K] each."""
-    check_llama(cfg, "collect_act_stats")
+    [K] each; on Mixtral also `experts_in`, the router's and the experts'
+    shared input."""
     tokens = calib_tensor(params, calib_tokens)
     n = tokens.shape[0]
     h0, cos_sin, mask = embed_calibration(params, cfg, tokens)
     h = [h0[b0 : b0 + batch_size] for b0 in range(0, n, batch_size)]
     del h0
     names = list(linear_names(cfg))
+    if cfg.is_moe:
+        names.append("experts_in")
     stats = []
     for l in range(cfg.num_layers):
         p_l = _layer_slice(params["layers"], l)
@@ -94,22 +101,33 @@ def _w_absmax_in(entries) -> torch.Tensor:
 
 def smooth_layer(p_l: Dict[str, Any], layer_stats, cfg: ModelConfig, alpha: float = 0.5,
                  use_shift: bool = False) -> Dict[str, Any]:
-    """Fold SmoothQuant scales at every migration point of one layer:
-    (norm1 -> q/k/v), (norm2 -> gate/up), (v -> o)."""
-    check_llama(cfg, "smooth_layer")
+    """Fold SmoothQuant scales at every migration point of one layer
+    (`smoothquant.py:95-168`): (norm1 -> q/k/v), (norm2 -> the MLP's
+    inputs: llama's gate/up, OPT's fc1), (v -> o). Falcon's shared norm
+    folds once into q/k/v and fc1 together; Mixtral's norm2 folds into the
+    router and every expert's gate/up, scale only."""
     p = dict(p_l)
-    mlp_in = ["gate", "up"]
-    s1 = smoothquant_scale(layer_stats["q"]["absmax"], _w_absmax_in([p[m] for m in ("q", "k", "v")]),
+    mlp_in = ["gate", "up"] if cfg.arch == "llama" else ["fc1"]
+    group1 = ["q", "k", "v"] + (mlp_in if cfg.parallel_block and not cfg.is_moe else [])
+    s1 = smoothquant_scale(layer_stats["q"]["absmax"], _w_absmax_in([p[m] for m in group1]),
                            alpha)
     shift1 = layer_stats["q"]["mean"] if use_shift else None
-    p["ln1"], qkv = fold_norm_linears(p["ln1"], [p["q"], p["k"], p["v"]], s1, shift1)
-    p["q"], p["k"], p["v"] = qkv
-    s2 = smoothquant_scale(layer_stats["gate"]["absmax"], _w_absmax_in([p[m] for m in mlp_in]),
-                           alpha)
-    shift2 = layer_stats["gate"]["mean"] if use_shift else None
-    p["ln2"], outs = fold_norm_linears(p["ln2"], [p[m] for m in mlp_in], s2, shift2)
-    for m, e in zip(mlp_in, outs):
+    p["ln1"], outs = fold_norm_linears(p["ln1"], [p[m] for m in group1], s1, shift1)
+    for m, e in zip(group1, outs):
         p[m] = e
+    if cfg.is_moe:
+        expert_wmax = torch.stack([p["experts"][m]["w"].float().abs().amax(dim=(0, 2))
+                                   for m in ("gate", "up")]).amax(dim=0)
+        s2 = smoothquant_scale(layer_stats["experts_in"]["absmax"], expert_wmax, alpha)
+        p["ln2"], p["router"], p["experts"] = fold_norm_moe(p["ln2"], p["router"], p["experts"],
+                                                            s2)
+    elif not cfg.parallel_block:
+        s2 = smoothquant_scale(layer_stats[mlp_in[0]]["absmax"],
+                               _w_absmax_in([p[m] for m in mlp_in]), alpha)
+        shift2 = layer_stats[mlp_in[0]]["mean"] if use_shift else None
+        p["ln2"], outs = fold_norm_linears(p["ln2"], [p[m] for m in mlp_in], s2, shift2)
+        for m, e in zip(mlp_in, outs):
+            p[m] = e
     return _smooth_v_o(p, layer_stats, cfg, alpha)
 
 
@@ -157,8 +175,8 @@ def _fold_v_o_gqa(v_entry, o_entry, scale, cfg: ModelConfig):
 def smoothquant_model(params, cfg: ModelConfig, calib_tokens: np.ndarray, alpha: float = 0.5,
                       use_shift: Optional[bool] = None, act_stats=None, batch_size: int = 8):
     """SmoothQuant migration on every decoder layer; the result is still fp
-    (`smoothquant.py:213-240`)."""
-    check_llama(cfg, "smoothquant_model")
+    (`smoothquant.py:213-240`). Shifts fold by default on OPT only, as the
+    reference applies them."""
     if use_shift is None:
         use_shift = cfg.arch == "opt"
     if act_stats is None:

@@ -6,7 +6,8 @@ Mixtral, the three Falcon layouts and OPT; JAX's `save_hf_checkpoint`
 read by the port's `from_hf_checkpoint` (and the reverse) into equal
 parameters; the port's safetensors codec writes the bytes of
 `safetensors.numpy.save_file` for F32 and reads and writes BF16 and F16
-as `safetensors.torch` does; the `.bin` fallback; JAX's `save_checkpoint`
+as `safetensors.torch` does; the `.bin` fallback; TINY_OPT's HF directory
+both ways; JAX's `save_checkpoint`
 of an HQQ-packed TINY_LLAMA loaded by the port's `load_checkpoint` gives
 logits within 1e-5 of JAX's, and the reverse; bf16 leaves both ways; and
 the study's `fp` and `rtn` golden rows through the port's HF save and
@@ -172,13 +173,30 @@ def test_bin_fallback(tmp_path, tiny):
         TL.from_hf_checkpoint(str(tmp_path / "st" / ".."), tcfg.TINY_LLAMA, device="cpu")
 
 
-def test_other_architectures_wait_for_a4(tmp_path, tiny):
-    (tmp_path / "config.json").write_text(json.dumps(HF_CONFIGS["opt"]))
-    with pytest.raises(NotImplementedError, match="A 4"):
-        TL.from_hf_checkpoint(str(tmp_path), device="cpu")
-    _, tp = tiny
-    with pytest.raises(NotImplementedError, match="A 4"):
-        TL.save_hf_checkpoint(tp, tcfg.TINY_OPT, str(tmp_path / "out"))
+def test_other_architectures_wait_for_a4(tmp_path):
+    """(The name is kept from when the port refused other architectures.)
+    OPT (`_OPT_LAYER`, learned positions, biases, LayerNorms): JAX's
+    `save_hf_checkpoint` of TINY_OPT and the port's write the same
+    config.json; either directory loads in the port into JAX's tree bit for
+    bit, and in JAX from the port's; the forward within 1e-5 of JAX's."""
+    from llama3_quantization_tpu.models.configs import TINY_OPT
+
+    jp = init_params(TINY_OPT, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = convert.params_from_numpy(to_numpy_tree(jp), device="cpu")
+    JL.save_hf_checkpoint(jp, TINY_OPT, str(tmp_path / "jax"))
+    TL.save_hf_checkpoint(tp, tcfg.TINY_OPT, str(tmp_path / "port"))
+    assert (json.loads((tmp_path / "jax" / "config.json").read_text())
+            == json.loads((tmp_path / "port" / "config.json").read_text()))
+    for d in ("jax", "port"):
+        got, cfg = TL.from_hf_checkpoint(str(tmp_path / d), dtype=torch.float32, device="cpu")
+        ref, jc = JL.from_hf_checkpoint(str(tmp_path / d), dtype=jnp.float32)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jc)
+        _assert_trees_equal(got, tp)
+        _assert_trees_equal(convert.params_from_numpy(to_numpy_tree(ref), device="cpu"), tp)
+    toks = np.random.default_rng(2).integers(0, TINY_OPT.vocab_size, (2, 16))
+    out = TT.forward_logits(got, torch.from_numpy(toks), cfg).numpy()
+    ref = np.asarray(forward_logits(jp, jnp.asarray(toks), TINY_OPT))
+    assert float(np.abs(out - ref).max()) <= 1e-5 * float(np.abs(ref).max())
 
 
 # ------------------------------------------------------------ checkpoints ----

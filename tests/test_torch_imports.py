@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package (a
+"""The port stands alone: it imports neither JAX nor the JAX package (OPT,
+Falcon and Mixtral with their quantizers, loader, CLI and act-stats tool, a
 forward, serving engines on the int4 and the default fp cache, the W·A8
 backends, sampled and speculative decoding, a hooked decode, the decode
 routes and a microbench entry point run with both blocked), and an entry
@@ -164,9 +165,76 @@ def test_quantizers_run_with_jax_blocked(tmp_path):
         pytree_io.save_pytree_npz("{tmp_path}/t.npz", tree)
         assert torch.equal(pytree_io.load_pytree_npz("{tmp_path}/t.npz", tree)["b"]["c"],
                            tree["b"]["c"])
-        generate_act_stats.main(["--device", "cpu", "--nsamples", "2", "--seqlen", "16",
+        generate_act_stats.main(["--net", "tiny-llama", "--calib_dataset", "synthetic",
+                                 "--device", "cpu", "--nsamples", "2", "--seqlen", "16",
                                  "--out", "{tmp_path}/s.npz"])
         assert len(smoothquant.load_act_stats("{tmp_path}/s.npz", device="cpu")) == cfg.num_layers
+        assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_other_archs_run_with_jax_blocked(tmp_path):
+    """OPT, Falcon and Mixtral (`models/`: forward, the decode caches, the
+    windowed OPT engine, dense and capacity MoE; the loader; the
+    quantizers' arch branches; the CLI with `--moe_capacity`; the act-stats
+    tool on an HF directory) run with JAX and the JAX package blocked."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["llama3_quantization_tpu"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch import api, cli
+        from llama3_quantization_tpu_torch.models import hf_loader
+        from llama3_quantization_tpu_torch.tools import generate_act_stats
+
+        spec = P.QuantSpec(n_bits=4, group_size=32)
+        calib = np.random.default_rng(0).integers(0, 512, (2, 16))
+        for cfg in (P.TINY_OPT, P.TINY_FALCON, P.TINY_MIXTRAL):
+            params = P.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                                   device="cpu")
+            qp = P.quantize_model_rtn(params, cfg, spec, pack=True)
+            toks = torch.randint(0, cfg.vocab_size, (1, 12))
+            assert bool(P.forward_logits(qp, toks, cfg).isfinite().all())
+            for bits in (8, False):
+                cache = P.init_kv_cache(cfg, 1, 32, quantized=bits, device="cpu")
+                out, _ = P.greedy_generate(qp, cache, toks[:, -1:], 0, 4, cfg)
+                assert out.shape == (1, 4)
+            eng = P.ServingEngine(qp, cfg, max_slots=2, max_len=64, quantized_cache=8,
+                                  device="cpu")
+            eng.submit([1, 2, 3], 5)
+            eng.run_pipelined(4)
+            assert (eng.dispatches["windowed"] > 0) == (cfg.arch == "opt")
+            methods = [("gptq", {{"blocksize": 32}}), ("hqq", {{"iters": 2}}),
+                       ("omniquant", {{"epochs": 1, "let": True}}), ("smoothquant", {{}})]
+            if not cfg.parallel_block:
+                methods.append(("awq", {{}}))
+            for method, kw in methods:
+                api.quantize(params, cfg, method, spec, calib_tokens=calib, **kw)
+            P.recode_model_s8(qp, cfg)
+        P.set_moe_capacity(1.25)
+        assert bool(P.forward_logits(qp, toks, P.TINY_MIXTRAL).isfinite().all())
+        P.set_moe_capacity(None)
+        opt = P.init_params(P.TINY_OPT, torch.Generator().manual_seed(0), dtype=torch.float32,
+                            device="cpu")
+        hf_loader.save_hf_checkpoint(opt, P.TINY_OPT, "{tmp_path}/opt")
+        got, cfg = hf_loader.from_hf_checkpoint("{tmp_path}/opt", dtype=torch.float32,
+                                                device="cpu")
+        assert cfg.arch == "opt" and torch.equal(got["pos_embed"], opt["pos_embed"])
+        generate_act_stats.main(["--model", "{tmp_path}/opt", "--calib_dataset", "synthetic",
+                                 "--nsamples", "2", "--seqlen", "16", "--device", "cpu",
+                                 "--out", "{tmp_path}/s.npz"])
+        cli.main(["--net", "tiny-mixtral", "--quant_method", "rtn", "--wbits", "4",
+                  "--group_size", "32", "--moe_capacity", "1.25", "--eval_ppl", "--seqlen", "32",
+                  "--limit", "1", "--ppl_datasets", "wikitext2", "--device", "cpu"])
         assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -7,7 +7,8 @@ within 1e-5 of JAX's; the act-stats file round-trips through both
 packages; `smoothquant_model` gives JAX's smoothed weights (1e-5 of
 their scale) and, RTN-quantized, over 99% of JAX's codes; AWQ picks JAX's
 alpha (its scale within 1e-5) and `awq_quantize_model` gives over 99% of
-JAX's codes in every linear.
+JAX's codes in every linear; `fold_norm_moe` on TINY_MIXTRAL within 1e-6 of
+JAX's and fp-neutral.
 """
 
 import numpy as np
@@ -186,5 +187,35 @@ def test_awq_model_matches_jax(tiny):
 
 
 def test_moe_fold_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A 4"):
-        TS.fold_norm_moe({}, {}, {}, torch.ones(4))
+    """(The name is kept from when the port refused MoE.) `fold_norm_moe` (`smoothing.py:150-175`) on TINY_MIXTRAL's layer 0:
+    the norm, the router and every expert's gate/up within 1e-6 of JAX's,
+    down untouched, the MoE block's output unchanged (1e-5 of its scale);
+    a shift raises in both packages (the experts have no bias)."""
+    from llama3_quantization_tpu.models.configs import TINY_MIXTRAL
+    from llama3_quantization_tpu.quant.calibration import _layer_slice as j_slice
+    from llama3_quantization_tpu_torch.models import transformer as TT
+    from llama3_quantization_tpu_torch.quant.calibration import _layer_slice as t_slice
+
+    jp = init_params(TINY_MIXTRAL, jax.random.PRNGKey(0), dtype=jnp.float32)
+    jl = j_slice(jp["layers"], 0)
+    tl = t_slice(convert.params_from_numpy(to_numpy_tree(jp), device="cpu")["layers"], 0)
+    (s,) = _arrs(4, (TINY_MIXTRAL.hidden_size,), positive=(0,))
+    jout = JS.fold_norm_moe(jl["ln2"], jl["router"], jl["experts"], jnp.asarray(s))
+    tout = TS.fold_norm_moe(tl["ln2"], tl["router"], tl["experts"], torch.from_numpy(s))
+    for j, t in zip(jax.tree_util.tree_leaves(jout),
+                    jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+                        lambda x: x.numpy(), list(tout)))):
+        np.testing.assert_allclose(t, np.asarray(j), rtol=0, atol=1e-6)
+    assert torch.equal(tout[2]["down"]["w"], tl["experts"]["down"]["w"])
+    x, = _arrs(5, (1, 6, TINY_MIXTRAL.hidden_size))
+    x = torch.from_numpy(x)
+    ref = TT._moe_block(tl, TT.rms_norm(x, tl["ln2"]["w"], 1e-5), tcfg.TINY_MIXTRAL, TT.NO_QUANT)
+    p = dict(tl, router=tout[1], experts=tout[2])
+    got = TT._moe_block(p, TT.rms_norm(x, tout[0]["w"], 1e-5), tcfg.TINY_MIXTRAL, TT.NO_QUANT)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    with pytest.raises(ValueError, match="scale-only"):
+        JS.fold_norm_moe(jl["ln2"], jl["router"], jl["experts"], jnp.asarray(s),
+                         jnp.zeros_like(jnp.asarray(s)))
+    with pytest.raises(ValueError, match="scale-only"):
+        TS.fold_norm_moe(tl["ln2"], tl["router"], tl["experts"], torch.from_numpy(s),
+                         torch.zeros(TINY_MIXTRAL.hidden_size))
