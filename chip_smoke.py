@@ -21,6 +21,8 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --harness --harness-seed 1  # the same on other weights and documents
     python3 chip_smoke.py --archs         # only the kernel checks and phase 12 (OPT-125M,
                                           # Falcon-7B and Mixtral-8x7B at full width and depth)
+    python3 chip_smoke.py --seq2seq       # only the kernel checks and phase 13 (the T5 trunk
+                                          # at T0-3B width and depth, its GPTQ, LM, CLI, profile)
 
 Phases, in order; any failure exits non-zero:
   1. require CUDA and print the card's name and power limit;
@@ -61,11 +63,13 @@ Phases, in order; any failure exits non-zero:
      noscale, cast8, multi S = 1/2/4) and B10 dot2 / cat bit for bit, B10
      bf16 within 1e-2, every B9 and B10 form bit-equal between two calls,
      and B10 dot2 / cat bit-equal to B3's `a8_plain` at the unpack default
-     [4096, 14336] and on a ragged K = 384; and phase 12's shapes
+     [4096, 14336] and on a ragged K = 384; phase 12's shapes
      (`check_arch_kernels`): B1 at M = 1 and 8 and B2 at M = 128 on
      OPT-125M's W4 g128 and Falcon-7B's W4 g64 linears, the B5 forms and
      B6 at rep 1, D = 64, T = 512, B7 at 71 query heads over one K/V head
-     and at 12 over 12, D = 64, S = 128 and 2048;
+     and at 12 over 12, D = 64, S = 128 and 2048; and phase 13's
+     (`check_t5_kernels`): B1 at M = 1, 4 and 8 and B2 at M = 128 and 2048
+     on T0-3B's [2048, 2048], [2048, 5120] and [5120, 2048] W4 g128;
   4. drive the first main path at full Llama-3-8B width and depth (W4 g128
      packed synthetic weights, bf16, 32 layers, the pallas backend):
      `forward_logits` on [1, 128] tokens, a 128-token prefill into an int8
@@ -163,6 +167,20 @@ Phases, in order; any failure exits non-zero:
      counted; 32 greedy int8 steps; the int8 engine, never windowed). Each
      model's launches of B1, B2, B5, B6 and B7, its routes and its seconds
      are printed.
+ 13. the T5 trunk (`drive_seq2seq`, run after phase 12) at T0-3B's published
+     width and depth (24 + 24 layers, RTN W4 g128 packed, bf16):
+     `forward_logits_seq2seq` on [4, 512] -> [4, 128] (B2 only, 432
+     launches) against the plain versions with a witness and a faulty
+     control in the same run; `greedy_generate_seq2seq_cached` 32 steps at
+     B = 4 (216 B1 launches a step), each step against the teacher-forced
+     `decode_logits` (< 0.15) and the stream against the re-forward (equal
+     but at near ties); 4 cached steps under `utils.profile_trace`, read by
+     `tools/profile_report` (B1 864 times); `Seq2SeqTorchLM` log-likelihoods
+     (fp32 activations, <= 1e-2 a token against the plain versions) and
+     `greedy_until` against the cached greedy; GPTQ at T0-3B width, 2 + 2
+     layers, below RTN on held-out inputs; `cli.main` on an HF directory of
+     that model (`t5-seq2seq`, `gptq W4 g128 applied (seq2seq)`). The golden
+     rows (phase 7's) include `seq2seq_fp`, `seq2seq_rtn`, `seq2seq_gptq`.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel form that a path should run and did not, or one it
@@ -2554,18 +2572,26 @@ GOLDEN_REL = 2e-3
 
 
 def drive_golden(P, card):
-    """The study's golden rows on the card: `run_study(list(ROWS),
-    device="cuda")`, every decoder row (fp, rtn, gptq, awq, smoothquant,
+    """The study's golden rows on the card: `run_study(ROWS, device="cuda")`
+    and `run_study(SEQ2SEQ_ROWS, device="cuda")`, every decoder row (fp, rtn, gptq, awq, smoothquant,
     omniquant, hqq, irqlora, mixed, rtn_s4, rtn_a8; TINY_LLAMA fp32, PPL over 24
-    windows of 64 tokens, piqa and arc_easy zero-shot) against
+    windows of 64 tokens, piqa and arc_easy zero-shot) and the seq2seq rows
+    (seq2seq_fp, seq2seq_rtn, seq2seq_gptq: the tiny T5, piqa and arc_easy) against
     `tests/fixtures/golden_study.json` within |got - golden| <= 2e-3 *
-    max(1, |golden|). The s4 and a8 rows run B3."""
+    max(1, |golden|). The s4 and a8 rows run B3. The seq2seq rows run under
+    "xla" (JAX's default) on the tiny T5's g8 weights, which
+    `Seq2SeqTorchLM` pads once to the kernels' tiles (`pad_for_kernels`):
+    the only path allowed the `pad` route."""
     from llama3_quantization_tpu_torch.tools import reproduce_study as study
 
     counts = {}
     table = run_counted(counts, "golden rows (TINY_LLAMA study)",
                         lambda: study.run_study(list(study.ROWS), device="cuda", verbose=False),
                         must=("B3.s4", "B3.s8", "B3.gemm"))
+    table.update(run_counted(counts, "golden rows (tiny T5 study, xla, g8 weights padded)",
+                             lambda: study.run_study(list(study.SEQ2SEQ_ROWS), device="cuda",
+                                                     verbose=False),
+                             never=("B1", "B2"), allow=("pad",)))
     golden = json.loads(study.GOLDEN.read_text())
     for method, row in table.items():
         for key, val in row.items():
@@ -2793,13 +2819,14 @@ def reversed_plain(fq):
 DOWN_K = 14336
 
 
-def dropped_group_plain(fq):
+def dropped_group_plain(fq, k=DOWN_K):
     """B1's and B2's plain versions with a fault that a kernel's loop over
     K could have: the last group of input channels of every linear of K =
-    DOWN_K (the down projection, 1 of its 112 groups) left out of the sum."""
+    `k` (default DOWN_K: the down projection, 1 of its 112 groups) left out
+    of the sum."""
 
     def cut(x2d, qt):
-        if qt.k != DOWN_K:
+        if qt.k != k:
             return x2d
         x2d = x2d.clone()
         x2d[:, -(qt.group_size or qt.k):] = 0
@@ -3633,6 +3660,413 @@ def drive_archs(P, card):
     return sum_counts(paths)
 
 
+# ---------------------------------------------------------------- phase 13 ----
+#: T0-3B, the reference's seq2seq model (bigscience/T0_3B `config.json`:
+#: gated-gelu, untied head); built here since the JAX package names no such
+#: config
+T0_3B = dict(vocab_size=32128, d_model=2048, d_kv=64, d_ff=5120, num_heads=32, num_layers=24,
+             num_decoder_layers=24, rel_buckets=32, rel_max_distance=128, gated_act=True,
+             tie_word_embeddings=False, layer_norm_eps=1e-6, decoder_start_token_id=0,
+             pad_token_id=0, eos_token_id=1)
+#: (K, N) of T0-3B's linears at g128
+T5_LINEARS = {"t0-3b q/k/v/o/cq/ck/cv/co": (2048, 2048), "t0-3b wi0/wi1": (2048, 5120),
+              "t0-3b wo": (5120, 2048)}
+#: (kernel, M) of their checks: cached steps at B = 1, 4, 8; a [1, 128]
+#: decoder; the [4, 512] encoder
+T5_QMM_CASES = (("B1", 1), ("B1", 4), ("B1", 8), ("B2", 128), ("B2", 2048))
+#: linears a T0-3B layer runs through `qlinear`: the encoder's, the
+#: decoder's, a cached step's (the cross k/v come from the state)
+T5_ENC_LINEARS, T5_DEC_LINEARS, T5_STEP_LINEARS = 7, 11, 9
+T5_STEPS = 32
+#: phase 13's bound on the T0-3B forward's logits, kernels against B1's and
+#: B2's plain versions (the attention is eager on both): every position's
+#: row within T5_ROW_TOL * that row's max|logit|; the sound witness
+#: (reversed sums) must read within it and the faulty control (every wo's
+#: last group of 128 left out) past it, in the same run. Readings: kernels
+#: 2.217e-2, witness 2.250e-2, control 8.057e-2 (NVIDIA H100 80GB HBM3,
+#: 700 W)
+T5_ROW_TOL = ARCH_ROW_TOL
+
+
+def check_t5_kernels(P, gen, results):
+    """B1 at M = 1, 4 and 8 and B2 at M = 128 and 2048 on T0-3B's three
+    linear shapes (W4 g128): fp32 out within 1e-4 * max|ref|, bf16 within
+    1e-2, as `check_qmatmul`."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    for label, (k, n) in T5_LINEARS.items():
+        qt = rand_weights(P, k, n, 1, gen)[0]
+        for kid, m in T5_QMM_CASES:
+            kern, plain = ((fq.qmm_gemv, fq.qmm_gemv_plain) if kid == "B1"
+                           else (fq.qmm_gemm, fq.qmm_gemm_plain))
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            compare(f"{kid} {label} M={m} fp32-out", kern(x, qt, torch.float32),
+                    plain(x, qt, torch.float32), 1e-4)
+            err = compare(f"{kid} {label} M={m} bf16-out", kern(x, qt, torch.bfloat16),
+                          plain(x, qt, torch.bfloat16), 1e-2)
+            results.setdefault(kid, {})[f"{label} M={m}"] = err
+
+
+def t5_fp32_activations(params):
+    """`params` with `shared`, the norms, the relative-bias tables and the
+    head in fp32 (the same quantized linears, which still round x to bf16):
+    the trunk keeps its activations in fp32."""
+    wide = {k: v if k in ("enc", "dec") else v.float() for k, v in params.items()}
+    for side in ("enc", "dec"):
+        wide[side] = {"layers": {k: w.float() if k.startswith("ln") else w
+                                 for k, w in params[side]["layers"].items()}}
+    return wide
+
+
+def write_t5_dir(params, cfg, path):
+    """An HF T5 directory of `params`: `model.safetensors` under HF's names
+    (linears back to `[out, in]`) and a `config.json`."""
+    from llama3_quantization_tpu_torch.models import hf_loader
+    from llama3_quantization_tpu_torch.models import seq2seq as S
+
+    tensors = {"shared.weight": params["shared"], "lm_head.weight": params["lm_head"].T,
+               "encoder.final_layer_norm.weight": params["enc_ln"],
+               "decoder.final_layer_norm.weight": params["dec_ln"]}
+    for side, sub, names in (("encoder", 1, S.T5_ENC_NAMES), ("decoder", 2, S.T5_DEC_NAMES)):
+        tensors[f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = \
+            params[side[:3] + "_rel"]
+        for ours, theirs in {**names, **S.t5_mlp_names(cfg.gated_act, sub)}.items():
+            for i, w in enumerate(params[side[:3]]["layers"][ours]):
+                tensors[f"{side}.block.{i}.{theirs}"] = w if ours.startswith("ln") else w.T
+    hf_loader.write_safetensors(tensors, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "t5", "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+                   "d_kv": cfg.d_kv, "d_ff": cfg.d_ff, "num_heads": cfg.num_heads,
+                   "num_layers": cfg.num_layers, "num_decoder_layers": cfg.num_decoder_layers,
+                   "relative_attention_num_buckets": cfg.rel_buckets,
+                   "relative_attention_max_distance": cfg.rel_max_distance,
+                   "feed_forward_proj": "gated-gelu" if cfg.gated_act else "relu",
+                   "tie_word_embeddings": cfg.tie_word_embeddings,
+                   "layer_norm_epsilon": cfg.layer_norm_eps,
+                   "decoder_start_token_id": cfg.decoder_start_token_id,
+                   "pad_token_id": cfg.pad_token_id, "eos_token_id": cfg.eos_token_id}, f)
+
+
+def drive_seq2seq(P, card):
+    """Phase 13, the T5 trunk at T0-3B's published width and depth (`T0_3B`:
+    24 + 24 layers, bf16 random normals from `init_seq2seq_params` seed 17,
+    RTN W4 g128 packed by `quantize_seq2seq_rtn`):
+
+    1. `forward_logits_seq2seq` on an encoder [4, 512] (row 3 padded from
+       position 300) and a decoder [4, 128]: B2 only, 432 launches (7 + 11
+       linears x 24 layers); against B1's and B2's plain versions (the
+       attention eager on both), with the sound witness (reversed sums) and
+       the faulty control (every wo's last group left out) read in the same
+       run: max over positions of max|d logit| / max|logit| within
+       T5_ROW_TOL, the control past it;
+    2. `greedy_generate_seq2seq_cached`, 32 steps at B = 4: B2 only for the
+       encoder and the cross K/V (216), then 216 B1 launches a step; each
+       step's logits (the stream fed back) against the teacher-forced
+       `decode_logits` (< 0.15, phase 4's bound); the stream against the
+       O(T^2) `greedy_generate_seq2seq` (B2), equal but at near ties (a
+       row's first difference where the cached step's top-2 gap is within
+       twice its distance to the teacher-forced logits), counted and
+       printed;
+    3. 4 cached steps under `utils.profile_trace`, read back by
+       `tools/profile_report`: B1's kernel (`qmm_gemv_kernel`) 864 times;
+    4. `Seq2SeqTorchLM` (`ByteTokenizer`, batch 4) on the study's 27 piqa
+       and arc_easy requests with fp32 activations, kernels against the
+       plain versions, |d ll| per continuation token <= EVAL_LL_TOL;
+       `greedy_until` on two contexts (16 tokens) equal to
+       `greedy_generate_seq2seq_cached` from the same bucketed input;
+    5. `api.quantize(method="gptq")` at T0-3B width, 2 + 2 layers, 8
+       calibration windows of 512 bytes of the fixture's front half
+       (`ByteTokenizer`) split by `split_calib_pairs`: seconds a block,
+       capture under "xla" (no kernel), and its mean |d logit| against the
+       fp model below RTN W4 g128's on held-out windows of the back half;
+    6. `cli.main` on an HF directory of that 2 + 2-layer model (written by
+       `write_safetensors`) with `--quant_method gptq --wbits 4 --group_size
+       128 --calib_dataset synthetic --nsamples 4 --seqlen 512`: JAX's
+       `t5-seq2seq` and `gptq W4 g128 applied (seq2seq)` lines;
+
+    No call may launch B5, B6 or B7, or take a route off the kernels."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from llama3_quantization_tpu_torch import api, cli
+    from llama3_quantization_tpu_torch.eval import ByteTokenizer, bucket_pow2
+    from llama3_quantization_tpu_torch.eval import data as tdata
+    from llama3_quantization_tpu_torch.eval.harness import Seq2SeqTorchLM
+    from llama3_quantization_tpu_torch.models import seq2seq as S
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+    from llama3_quantization_tpu_torch.tools import profile_report
+    from llama3_quantization_tpu_torch.tools.reproduce_study import CORPUS
+    from llama3_quantization_tpu_torch.utils import profile_trace
+
+    t_phase = time.time()
+    counts, checks = {}, {}
+    never = B5_KEYS + ("B6", "B6.f32", "B7", "B7.stats")
+    kernels_off = ("B1", "B2") + never
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    cfg = P.Seq2SeqConfig(**T0_3B)
+    spec = P.QuantSpec(n_bits=4, group_size=GS)
+    L = cfg.num_layers
+
+    t0 = time.time()
+    fp = P.init_seq2seq_params(cfg, torch.Generator(device="cuda").manual_seed(17),
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    fp_gib = torch.cuda.memory_allocated() / 2**30
+    params = P.quantize_seq2seq_rtn(fp, cfg, spec, pack=True)
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 13: T0-3B W4 g{GS} packed, {L} + {cfg.num_decoder_layers} layers, built in "
+        f"{time.time() - t0:.2f} s ({fp_gib:.2f} GiB allocated with the bf16 weights, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after quantizing)")
+
+    # 1. the teacher-forced forward
+    enc = torch.randint(2, cfg.vocab_size, (4, 512), generator=gen, device="cuda")
+    enc[3, 300:] = cfg.pad_token_id
+    dec = torch.randint(2, cfg.vocab_size, (4, 128), generator=gen, device="cuda")
+    dec[:, 0] = cfg.decoder_start_token_id
+
+    def forward():
+        return P.forward_logits_seq2seq(params, enc, dec, cfg)
+
+    label = "T0-3B forward_logits_seq2seq enc [4,512] dec [4,128]"
+    logits, secs = run_counted(counts, label, lambda: timed(forward), must=("B2",),
+                               never=("B1",) + never)
+    b2 = (T5_ENC_LINEARS + T5_DEC_LINEARS) * L
+    if counts[label]["B2"] != b2:
+        raise AssertionError(f"{label}: {counts[label]['B2']} B2 launches, not {b2}")
+    with plain_versions(P):
+        ref = run_counted(checks, "T0-3B forward, plain (check)", forward, never=kernels_off)
+    with plain_versions(P, forms=reversed_plain(fq)):
+        witness = run_counted(checks, "T0-3B forward, sums reversed (witness)", forward,
+                              never=kernels_off)
+    with plain_versions(P, forms=dropped_group_plain(fq, k=cfg.d_ff)):
+        control = run_counted(checks, "T0-3B forward, wo's last group out (control)", forward,
+                              never=kernels_off)
+    r_k, r_w, r_c = (logit_rows(x, ref) for x in (logits, witness, control))
+    log(f"  T0-3B forward (first call {secs:.2f} s host clock, {b2} B2 launches), kernels vs "
+        f"plain, max over rows of max|d logit| / max|logit|: kernels {r_k:.3e}, witness "
+        f"(reversed sums) {r_w:.3e}, control (every wo's last group of {GS} out) {r_c:.3e} "
+        f"(bound {T5_ROW_TOL:g}; the control must read past it)  [{card}]")
+    if not (r_k <= T5_ROW_TOL and r_w <= T5_ROW_TOL and r_c > T5_ROW_TOL):
+        raise AssertionError(f"T0-3B forward: kernels {r_k}, witness {r_w}, control {r_c} "
+                             f"against the bound {T5_ROW_TOL}")
+    del logits, ref, witness, control
+
+    # 2. the cached decode
+    n, start = T5_STEPS, cfg.decoder_start_token_id
+    label = f"T0-3B greedy_generate_seq2seq_cached {n} steps, B=4"
+    toks, secs = run_counted(
+        counts, label, lambda: timed(lambda: P.greedy_generate_seq2seq_cached(params, enc, n, cfg)),
+        must=("B1", "B2"), never=never)
+    b1, b2 = T5_STEP_LINEARS * L * n, (T5_ENC_LINEARS + 2) * L
+    if (counts[label]["B1"], counts[label]["B2"]) != (b1, b2):
+        raise AssertionError(f"{label}: B1 {counts[label]['B1']} (not {b1}), B2 "
+                             f"{counts[label]['B2']} (not {b2}: the encoder and cross K/V only)")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{label}: tokens out of range")
+
+    def stepped():
+        state = S.init_seq2seq_state(params, enc, n, cfg)
+        tok, out = torch.full((4, 1), start, dtype=torch.long, device="cuda"), []
+        for i in range(n):
+            lg, state = S.decode_step_seq2seq(params, state, tok, i, cfg)
+            out.append(lg[:, 0].float())
+            tok = toks[:, i : i + 1]
+        return torch.stack(out, 1), state["enc_h"], state["enc_mask"]
+
+    steps, enc_h, enc_mask = run_counted(checks, "T0-3B cached steps fed the stream (check)",
+                                         stepped, must=("B1",), never=never)
+    if not torch.equal(steps.argmax(-1), toks):
+        raise AssertionError("T0-3B: the cached steps fed their own stream gave another stream")
+    dec_in = torch.cat([torch.full((4, 1), start, dtype=torch.long, device="cuda"),
+                        toks[:, :-1]], 1)
+    tf = run_counted(checks, "T0-3B teacher-forced decode_logits [4, 32] (check)",
+                     lambda: S.decode_logits(params, dec_in, enc_h, cfg, P.NO_QUANT,
+                                             enc_mask).float(), must=("B2",), never=never)
+    rel = float((steps - tf).abs().max() / tf.abs().max())
+    reforward = run_counted(checks, "T0-3B greedy_generate_seq2seq re-forward (check)",
+                            lambda: P.greedy_generate_seq2seq(params, enc, n, cfg),
+                            must=("B2",), never=("B1",) + never)
+    ties = []
+    for row in range(4):
+        diff = (toks[row] != reforward[row]).nonzero()
+        if len(diff):
+            i = int(diff[0])
+            top = steps[row, i].topk(2).values
+            gap, dist = float(top[0] - top[1]), float((steps[row, i] - tf[row, i]).abs().max())
+            ties.append((row, i, gap, dist))
+    log(f"  T0-3B cached decode: {4 * n / secs:.1f} tok/s (B=4, {n} steps, first call, host "
+        f"clock); each step's logits vs the teacher-forced decode_logits: max rel error "
+        f"{rel:.3e} (limit 0.15); stream vs the re-forward: {4 - len(ties)} of 4 rows equal, "
+        f"first differences (row, step, top-2 gap, |d logit| to teacher-forced) {ties}  [{card}]")
+    if not rel < 0.15:
+        raise AssertionError(f"T0-3B decode/forward divergence: rel err {rel:.4f}")
+    far = [t for t in ties if t[2] > 2 * t[3]]
+    if far:
+        raise AssertionError(f"T0-3B: cached and re-forward streams differ away from a near "
+                             f"tie: {far}")
+    del steps, tf, enc_h
+
+    # 3. the profiler around 4 cached steps, read back by the trace report
+    state = run_counted(counts, "T0-3B init_seq2seq_state (profiled steps' state)",
+                        lambda: S.init_seq2seq_state(params, enc, 4, cfg), must=("B2",),
+                        never=("B1",) + never)
+    with tempfile.TemporaryDirectory(prefix="t5_trace_") as tdir:
+        def traced():
+            tok = torch.full((4, 1), start, dtype=torch.long, device="cuda")
+            with profile_trace(tdir):
+                for i in range(4):
+                    lg, _ = S.decode_step_seq2seq(params, state, tok, i, cfg)
+                    tok = lg[:, 0].argmax(-1)[:, None]
+
+        run_counted(counts, "T0-3B 4 cached steps under profile_trace", traced, must=("B1",),
+                    never=("B2",) + never)
+        rows = profile_report.main([tdir, "--steps", "4", "--top", "200"])
+    b1 = sum(r["count"] for r in rows if "qmm_gemv_kernel" in r["name"])
+    log(f"  profile_report: B1 (qmm_gemv_kernel) {b1} launches in the trace "
+        f"({[r['name'][:40] for r in rows[:3]]} lead)  [{card}]")
+    if b1 != 4 * T5_STEP_LINEARS * L:
+        raise AssertionError(f"profile_report: {b1} B1 launches, not {4 * T5_STEP_LINEARS * L}")
+    del state
+
+    # 4. the harness's seq2seq engine
+    tok = ByteTokenizer()
+    reqs = eval_requests(tok)
+    ntok = [len(tok.encode(cont)) for _, cont in reqs]
+    wide = t5_fp32_activations(params)
+    lm = Seq2SeqTorchLM(wide, cfg, tok, batch_size=4)
+    ll = run_counted(counts, f"Seq2SeqTorchLM.loglikelihood x {len(reqs)} (fp32 activations)",
+                     lambda: lm.loglikelihood(reqs), must=("B2",), never=never)
+    with plain_versions(P):
+        ll_plain = run_counted(checks, "Seq2SeqTorchLM.loglikelihood, plain (check)",
+                               lambda: lm.loglikelihood(reqs), never=kernels_off)
+    d_ll = max(abs(a[0] - b[0]) / c for a, b, c in zip(ll, ll_plain, ntok))
+    flags = sum(a[1] == b[1] for a, b in zip(ll, ll_plain))
+    del lm, wide
+    lm = Seq2SeqTorchLM(params, cfg, tok, batch_size=4)
+    lm.max_gen_toks = 16
+    seen = []
+    lm.tok_decode = lambda ids: (seen.append(list(ids)), tok.decode(ids))[1]
+    text = CORPUS.read_text()
+    back = text[len(text) // 2:]
+    ctxs = [back[:300], back[5000:5700]]
+
+    def generate():
+        out = []
+        for ctx in ctxs:
+            lm.greedy_until([(ctx, ["<<no such text>>"])])
+            out.append(seen[-1])
+        return out
+
+    got = run_counted(counts, "Seq2SeqTorchLM.greedy_until x 2, 16 tokens", generate,
+                      must=("B1", "B2"), never=never)
+    keep = max(lm.max_length - lm.max_gen_toks, lm.max_length // 2)
+    refs = []
+    for ctx in ctxs:
+        ids = lm.tok_encode(ctx)[-keep:]
+        padded = torch.full((1, bucket_pow2(len(ids))), cfg.pad_token_id, dtype=torch.long,
+                            device="cuda")
+        padded[0, : len(ids)] = torch.tensor(ids, device="cuda")
+        with torch.inference_mode():
+            stream = P.greedy_generate_seq2seq_cached(params, padded, 16, cfg)[0].tolist()
+        refs.append(stream[: stream.index(cfg.eos_token_id)] if cfg.eos_token_id in stream
+                    else stream)
+    log(f"  Seq2SeqTorchLM, {len(reqs)} piqa/arc_easy requests, fp32 activations: max |d ll| "
+        f"per continuation token {d_ll:.3e} against B1's and B2's plain versions (limit "
+        f"{EVAL_LL_TOL:g}), greedy flags equal {flags}/{len(reqs)}; greedy_until {got} "
+        f"(greedy_generate_seq2seq_cached {refs})  [{card}]")
+    if not d_ll <= EVAL_LL_TOL:
+        raise AssertionError(f"Seq2SeqTorchLM kernels against plain: {d_ll} per token")
+    if got != refs:
+        raise AssertionError(f"greedy_until {got} != greedy_generate_seq2seq_cached {refs}")
+    del lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. GPTQ at T0-3B width, 2 + 2 layers
+    small = P.Seq2SeqConfig(**{**T0_3B, "num_layers": 2, "num_decoder_layers": 2})
+    fp2 = P.init_seq2seq_params(small, torch.Generator(device="cuda").manual_seed(18),
+                                dtype=torch.bfloat16)
+    # text, not random ids: on random ids the activations are isotropic, so
+    # GPTQ has nothing to gain over RTN and fits its Hessians' noise
+    front, held = tok.encode(text[: len(text) // 2]), tok.encode(back)
+    starts = np.random.default_rng(SEED + 18).integers(0, len(front) - 512, 8)
+    calib = np.stack([front[s0 : s0 + 512] for s0 in starts])
+    marks = []
+
+    def progress(done, total, errs):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    gq = run_counted(counts, "T0-3B width, 2 + 2 layers: api.quantize gptq W4 g128 (8 x 512)",
+                     lambda: api.quantize(fp2, small, "gptq", spec, calib_tokens=calib,
+                                          progress=progress), never=kernels_off)
+    block_s = [round(b - a, 2) for a, b in zip(marks, marks[1:])]
+    rtn = P.quantize_seq2seq_rtn(fp2, small, spec)
+    h_enc = torch.from_numpy(np.stack([held[i * 700 : i * 700 + 512]
+                                       for i in range(2)])).to("cuda")
+    h_dec = torch.from_numpy(np.stack([held[5000 + i * 300 : 5128 + i * 300]
+                                       for i in range(2)])).to("cuda")
+    h_dec[:, 0] = start
+    with torch.inference_mode():
+        ref = P.forward_logits_seq2seq(fp2, h_enc, h_dec, small).float()
+        e_g, e_r = (float((run_counted(counts, f"T0-3B width 2 + 2 forward ({name})",
+                                       lambda: P.forward_logits_seq2seq(q, h_enc, h_dec, small),
+                                       must=("B2",), never=never).float() - ref).abs().mean())
+                    for name, q in (("gptq", gq), ("rtn", rtn)))
+    log(f"  GPTQ W4 g{GS} at T0-3B width (2 + 2 layers, 8 windows of 512 split by "
+        f"split_calib_pairs, bytes of the fixture's front half): seconds a block {block_s}; "
+        f"held-out (the back half) mean |d logit| against the fp model: GPTQ {e_g:.4e}, RTN "
+        f"{e_r:.4e}  [{card}]")
+    if not e_g < e_r:
+        raise AssertionError(f"T0-3B GPTQ {e_g} not below RTN {e_r}")
+    del gq, rtn, ref
+
+    # 6. the CLI on an HF directory of that model
+    tmp = tempfile.mkdtemp(prefix="t0_3b_2x2_")
+    try:
+        write_t5_dir(fp2, small, tmp)
+        del fp2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        class NoTokenizer:  # the directory holds no tokenizer files
+            def __init__(self, *a, **k):
+                raise OSError("no tokenizer files in this directory")
+
+        had, tdata.HFTokenizer = tdata.HFTokenizer, NoTokenizer
+        err = io.StringIO()
+        argv = ["--model", tmp, "--quant_method", "gptq", "--wbits", "4", "--group_size",
+                str(GS), "--calib_dataset", "synthetic", "--nsamples", "4", "--seqlen", "512"]
+        try:
+            with contextlib.redirect_stderr(err):
+                run_counted(counts, "cli.main --model <T0-3B width 2 + 2 dir> gptq W4 g128",
+                            lambda: cli.main(argv), never=kernels_off)
+        finally:
+            tdata.HFTokenizer = had
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = err.getvalue().strip().splitlines()
+    log("  cli.main " + " ".join(argv[2:]) + ": " + " | ".join(lines))
+    want = ("(t5-seq2seq, 2L)", f"gptq W4 g{GS} applied (seq2seq)")
+    if not all(any(w in line for line in lines) for w in want):
+        raise AssertionError(f"cli.main on a T5 directory: {want} not in {lines}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 13 (the T5 trunk) in {time.time() - t_phase:.1f} s  [{card}]")
+    return sum_counts(counts)
+
+
 def clock_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
@@ -4347,6 +4781,10 @@ def main() -> int:
                     help="only build and check the kernels (phase 12's shapes among them), then "
                          "phase 12 (OPT-125M, Falcon-7B and Mixtral-8x7B at full width and "
                          "depth)")
+    ap.add_argument("--seq2seq", action="store_true",
+                    help="only build and check the kernels (T0-3B's shapes among them), then "
+                         "phase 13 (the T5 trunk at T0-3B width and depth, its GPTQ, LM, CLI "
+                         "and profile)")
     ap.add_argument("--microbench", action="store_true",
                     help="only check, drive and time the weight-stream probes B8-B10 through "
                          "the microbench entry points")
@@ -4430,6 +4868,7 @@ def main() -> int:
     check_probes(P, gen, errs)
     check_c2(P)
     check_arch_kernels(P, gen, errs)
+    check_t5_kernels(P, gen, errs)
     torch.cuda.synchronize()
     if args.kernels_only:
         log("kernel checks passed")
@@ -4455,6 +4894,13 @@ def main() -> int:
         return 0
     if args.archs:
         total = drive_archs(P, card)
+        log(f"launches: {json.dumps(total)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        }}), flush=True)
+        return 0
+    if args.seq2seq:
+        total = drive_seq2seq(P, card)
         log(f"launches: {json.dumps(total)}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
@@ -4498,6 +4944,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     paths.append(drive_archs(P, card))
+    paths.append(drive_seq2seq(P, card))
     paths.append(drive_microbench(P, card))
     total = {key: sum(p[key] for p in paths) for key in paths[0]}
     log(f"launches over all paths: {json.dumps(total)}")

@@ -22,6 +22,17 @@ from .models.configs import (
     ModelConfig,
 )
 from .models.params import init_params, linear_names, quantize_model_rtn
+from .models.seq2seq import (
+    Seq2SeqConfig,
+    decode_step_seq2seq,
+    forward_logits_seq2seq,
+    from_hf_seq2seq,
+    greedy_generate_seq2seq,
+    greedy_generate_seq2seq_cached,
+    init_seq2seq_params,
+    init_seq2seq_state,
+    quantize_seq2seq_rtn,
+)
 from .models.synthetic import init_quantized_params
 from .models.transformer import (
     NO_QUANT,
@@ -74,16 +85,19 @@ from .serving import ServingEngine
 __all__ = [
     "FALCON_7B", "LLAMA3_8B", "MIXTRAL_8X7B", "NAMED_CONFIGS", "NO_QUANT", "OPT_125M",
     "TINY_FALCON", "TINY_LLAMA", "TINY_MIXTRAL", "TINY_OPT", "ModelConfig", "QuantSpec",
-    "QuantizedTensor", "RuntimeQuantConfig", "S4Weight", "ServingEngine", "a8_matmul", "backend",
-    "decode_step", "decode_step_multi", "decode_window", "dequantize", "fake_quant",
+    "QuantizedTensor", "RuntimeQuantConfig", "S4Weight", "Seq2SeqConfig", "ServingEngine",
+    "a8_matmul", "backend", "decode_step", "decode_step_multi", "decode_step_seq2seq", "decode_window", "dequantize", "fake_quant",
     "fake_quant_dynamic", "flash_attention", "flash_decode_gqa", "flash_decode_gqa_s8",
     "flash_decode_gqa_s8_stacked", "flash_decode_gqa_stacked", "flatten_speculative",
-    "forward_hidden", "forward_logits", "from_codes", "fuse_for_decode", "fused_dequant_matmul",
-    "get_backend", "greedy_generate", "init_kv_cache", "init_params", "init_quantized_params",
+    "forward_hidden", "forward_logits", "forward_logits_seq2seq", "from_codes", "from_hf_seq2seq", "fuse_for_decode", "fused_dequant_matmul",
+    "get_backend", "greedy_generate", "greedy_generate_seq2seq", "greedy_generate_seq2seq_cached",
+    "init_kv_cache", "init_params", "init_quantized_params", "init_seq2seq_params",
+    "init_seq2seq_state",
     "kv4_codes", "kv4_pack", "kv4_quantize", "kv4_unpack_codes", "kv_quantize", "launches",
     "linear_names", "merge_window_into_cache", "minmax_scale_zp", "pack_factor", "pack_subbyte",
     "PaddedWeight", "pad_for_kernels", "params_from_numpy", "prepare_decode_params", "prepare_s4",
     "qlinear", "qmatmul", "quantize_activations_s8", "quantize_model_rtn", "quantize_rtn",
+    "quantize_seq2seq_rtn",
     "recode_head_s4", "recode_head_s8", "recode_model_s8", "recode_s8_percol", "resolve_device",
     "s4_matmul", "s4w_matmul", "sample_generate", "sample_logits", "set_backend",
     "set_decode_attn", "set_decode_kernel", "set_flash", "set_moe_capacity", "set_stacked_decode",

@@ -9,7 +9,10 @@ save it.
 
 `build_parser` has JAX's options, types, defaults and actions, and one
 more: `--device` (default `cuda`; the CPU only when asked). `--model` reads
-a local HF directory in bf16 (Llama, OPT, Falcon or RefinedWeb, Mixtral);
+a local HF directory in bf16 (Llama, OPT, Falcon or RefinedWeb, Mixtral),
+or in fp32 a T5-family one (`model_type` t5, mt5 or longt5: the
+reference's T0-3B case), which takes JAX's seq2seq path (`_main_seq2seq`:
+RTN or GPTQ, `--tasks` through `Seq2SeqTorchLM`, `--eval_ppl` skipped);
 `--net` builds the named config's random parameters in fp32 from a
 `torch.Generator` seeded with `--seed` (the port's values, not
 `jax.random`'s). `--moe_capacity f` switches Mixtral's MoE to capacity
@@ -24,7 +27,7 @@ The matmul backend is the port's default, `pallas` (JAX's default is
 (`eval/harness/tasks`), rolls MMLU subjects up as JAX does, and passes
 `--decontamination_ngrams_path` to `simple_evaluate`. What the port cannot
 do yet exits with the ROADMAP item it waits for, before any model is
-loaded: `--tp`, `--dp`, `--sp` (A 5) and a T5 directory (A 4.4).
+loaded: `--tp`, `--dp` and `--sp` (A 5).
 """
 
 from __future__ import annotations
@@ -129,8 +132,9 @@ def refuse_unported(args) -> None:
 
 
 def load_model(args):
-    """(params, cfg): `--model <dir>` through `from_hf_checkpoint` (bf16),
-    `--net <name>` from `init_params` in fp32 (`cli.py:94-122`)."""
+    """(params, cfg): `--model <dir>` through `from_hf_checkpoint` (bf16)
+    or, on a T5-family directory, `from_hf_seq2seq` (fp32); `--net <name>`
+    from `init_params` in fp32 (`cli.py:94-122`)."""
     import torch
 
     from .device import resolve_device
@@ -148,7 +152,10 @@ def load_model(args):
         except OSError:
             mt = None
         if mt in ("t5", "mt5", "longt5"):
-            raise SystemExit(f"model_type {mt!r} (the T5 trunk) waits for ROADMAP A 4.4")
+            # the reference's T0-3B seq2seq case (`models/LMClass.py:35-39`)
+            from .models.seq2seq import from_hf_seq2seq
+
+            return from_hf_seq2seq(args.model, device=dev)
         return from_hf_checkpoint(args.model, device=dev)
     if args.net:
         cfg = NAMED_CONFIGS[args.net]
@@ -203,13 +210,65 @@ def task_dict_for(requested):
     return task_dict
 
 
+def _main_seq2seq(args, params, cfg):
+    """The seq2seq (T5/T0) path (`cli.py:141-204`): RTN or GPTQ weight
+    quantization, then task eval through `Seq2SeqTorchLM`. PPL streams and
+    the other calibration algorithms are decoder-only (the reference
+    evaluates T0 on tasks only)."""
+    from .models.seq2seq import quantize_seq2seq_rtn
+    from .quant.quantizer import QuantSpec
+
+    tokenizer = None
+    if args.model:
+        from .eval.data import HFTokenizer
+
+        try:
+            tokenizer = HFTokenizer(args.model)
+        except Exception as e:
+            print(f"[cli] tokenizer unavailable: {e}", file=sys.stderr)
+    if args.quant_method not in ("none",) and args.wbits < 16:
+        if args.quant_method not in ("rtn", "gptq"):
+            raise SystemExit(
+                f"seq2seq supports --quant_method rtn|gptq (got {args.quant_method}); the "
+                "remaining calibration algorithms are decoder-only")
+        spec = QuantSpec(n_bits=args.wbits, group_size=args.group_size,
+                         symmetric=args.symmetric, disable_zero_point=args.disable_zero_point)
+        if args.quant_method == "gptq":
+            from .quant.seq2seq_calibration import gptq_quantize_seq2seq, split_calib_pairs
+
+            enc_t, dec_t = split_calib_pairs(get_calib(args, tokenizer, cfg.vocab_size))
+            params = gptq_quantize_seq2seq(params, cfg, enc_t, dec_t, spec,
+                                           actorder=args.act_order)
+        else:
+            params = quantize_seq2seq_rtn(params, cfg, spec)
+        print(f"[cli] {args.quant_method} W{args.wbits} g{args.group_size} applied (seq2seq)",
+              file=sys.stderr)
+    if args.eval_ppl:
+        print("[cli] --eval_ppl is decoder-only; skipping for seq2seq", file=sys.stderr)
+    if args.tasks:
+        from .eval.data import ByteTokenizer
+        from .eval.harness import Seq2SeqTorchLM, make_table, simple_evaluate
+
+        lm = Seq2SeqTorchLM(params, cfg, tokenizer or ByteTokenizer(), batch_size=args.batch_size)
+        res = simple_evaluate(lm, tasks=task_dict_for([t for t in args.tasks.split(",") if t]),
+                              num_fewshot=args.num_fewshot)
+        print(make_table(res))
+    return None
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     t0 = time.time()
     params, cfg = load_model(args)
-    print(f"[cli] model ready ({cfg.arch}, {cfg.num_layers}L) in {time.time()-t0:.1f}s",
+    from .models.seq2seq import Seq2SeqConfig
+
+    is_seq2seq = isinstance(cfg, Seq2SeqConfig)
+    arch = "t5-seq2seq" if is_seq2seq else cfg.arch
+    print(f"[cli] model ready ({arch}, {cfg.num_layers}L) in {time.time()-t0:.1f}s",
           file=sys.stderr)
+    if is_seq2seq:
+        return _main_seq2seq(args, params, cfg)
     if args.seqlen > cfg.max_position_embeddings:
         # the reference pins seqlen to the model's position table
         print(f"[cli] seqlen {args.seqlen} > max_position_embeddings "

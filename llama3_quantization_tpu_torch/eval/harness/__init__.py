@@ -2,7 +2,8 @@
 
 The reference's request semantics (`loglikelihood`,
 `loglikelihood_rolling`, `greedy_until`) and seeded doc sampling, over
-`TorchLM`. The framework-free modules are copies of the JAX package's.
+`TorchLM` (and `Seq2SeqTorchLM` for the T5 trunk, outside `MODEL_REGISTRY`
+as `Seq2SeqJAXLM` is outside JAX's). The framework-free modules are copies of the JAX package's.
 """
 
 from .base import (  # noqa: F401
@@ -13,7 +14,7 @@ from .base import (  # noqa: F401
     Task,
     rf,
 )
-from .lm import BaseLM, DummyLM, TorchLM  # noqa: F401
+from .lm import BaseLM, DummyLM, Seq2SeqTorchLM, TorchLM  # noqa: F401
 from .models import GPT3LM, HFCausalLM, HFSeq2SeqLM, TextSynthLM  # noqa: F401
 from .caching import CachingLM  # noqa: F401
 from .evaluator import evaluate, make_table, pattern_match, simple_evaluate  # noqa: F401

@@ -12,9 +12,9 @@ windows for perplexity requests.
 counterpart of `JAXLM`: it scores each padded batch with one
 `forward_logits` at a power-of-two bucket of positions (capped at
 `max_length + 1`, as JAX buckets its compiled shapes), and generates
-greedily through `decode_step` on a fresh fp KV cache. JAX's
-`Seq2SeqJAXLM`, over its T5 encoder-decoder trunk, waits for that trunk
-(ROADMAP A 4).
+greedily through `decode_step` on a fresh fp KV cache.
+`Seq2SeqTorchLM` is the counterpart of `Seq2SeqJAXLM`, over the T5
+encoder-decoder trunk (`models/seq2seq.py`).
 """
 
 from __future__ import annotations
@@ -25,6 +25,12 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...models.seq2seq import (
+    _pad_mask,
+    decode_logits,
+    encode,
+    greedy_generate_seq2seq_cached,
+)
 from ...models.transformer import NO_QUANT, decode_step, forward_logits, init_kv_cache
 from ...ops.padding import pad_for_kernels
 from ..data import bucket_pow2
@@ -280,6 +286,120 @@ class TorchLM(BaseLM):
                 logits, cache = decode_step(self.params, cache, tok, pos, self.cfg, self.rq)
                 nxt = int(logits[0, -1].argmax())
                 pos += 1
+        return text
+
+
+class Seq2SeqTorchLM(BaseLM):
+    """T5-family request engine over the encoder-decoder trunk
+    (`Seq2SeqJAXLM`, `eval/harness/lm.py:321-461`): the context feeds the
+    encoder, the continuation is scored by the teacher-forced decoder (the
+    reference's hf-seq2seq semantics). Weights on the card that a kernel
+    does not take are padded once, here (`ops/padding.pad_for_kernels`)."""
+
+    def __init__(
+        self,
+        params,
+        cfg,
+        tokenizer,
+        rq=None,
+        batch_size: int = 8,
+        max_length: Optional[int] = None,
+        device=None,
+    ):
+        self.params = pad_for_kernels(params)
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.rq = rq or NO_QUANT
+        self.batch_size = batch_size
+        self.max_length = max_length or 512
+        self.device = torch.device(device) if device is not None else params["shared"].device
+
+    @property
+    def eot_token_id(self) -> int:
+        return self.cfg.eos_token_id
+
+    def tok_encode(self, string: str) -> List[int]:
+        try:
+            ids = self.tokenizer.encode(string, add_special_tokens=False)
+        except TypeError:
+            ids = self.tokenizer.encode(string)
+        return list(map(int, ids))
+
+    def tok_decode(self, tokens) -> str:
+        return self.tokenizer.decode(list(tokens))
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _score_tokens(self, inps, targets, mask):
+        raise NotImplementedError("seq2seq scores (enc, dec) pairs")
+
+    def _score(self, enc, dec, tgt, msk):
+        """(ll sums [B], greedy_ok [B]) of the targets under one teacher-forced
+        forward, in fp32 (`lm.py:353-363`)."""
+        enc, dec, tgt, msk = (self._to_device(a) for a in (enc, dec, tgt, msk))
+        with torch.inference_mode():
+            enc_mask = _pad_mask(enc, self.cfg.pad_token_id)
+            enc_h = encode(self.params, enc, self.cfg, self.rq, enc_mask)
+            logits = decode_logits(self.params, dec, enc_h, self.cfg, self.rq, enc_mask).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            tok_lp = torch.gather(logits, -1, tgt[..., None])[..., 0] - logz
+            lls = (tok_lp * msk).sum(dim=-1)
+            greedy = logits.argmax(dim=-1) == tgt
+            greedy_ok = torch.where(msk > 0, greedy, True).all(dim=-1)
+        return lls.cpu().numpy(), greedy_ok.cpu().numpy()
+
+    def _loglikelihood_tokens(self, requests, disable_reorder: bool = False):
+        """Seq2seq batching (`lm.py:391-430`): the encoder takes the context
+        (its last `max_length` tokens), the decoder input is the start token
+        then the continuation shifted right, every continuation token is
+        scored; both padded to power-of-two buckets."""
+        reord = Reorderer(
+            requests, (lambda x: 0) if disable_reorder else (lambda x: -(len(x[1]) + len(x[2])))
+        )
+        ordered = reord.get_reordered() if not disable_reorder else requests
+        results = []
+        start_id, pad_id = self.cfg.decoder_start_token_id, self.cfg.pad_token_id
+        for s0 in range(0, len(ordered), self.batch_size):
+            chunk = ordered[s0 : s0 + self.batch_size]
+            b = len(chunk)
+            encs = [list(c[1])[-self.max_length:] for c in chunk]
+            conts = [list(c[2])[: self.max_length] for c in chunk]
+            el = bucket_pow2(max(max(len(e) for e in encs), 1))
+            dl = bucket_pow2(max(max(len(c) for c in conts), 1))
+            enc = np.full((b, el), pad_id, np.int64)
+            dec = np.full((b, dl), pad_id, np.int64)
+            tgt = np.zeros((b, dl), np.int64)
+            msk = np.zeros((b, dl), np.float32)
+            for i, (e, c) in enumerate(zip(encs, conts)):
+                enc[i, : len(e)] = e
+                dec[i, 0] = start_id
+                dec[i, 1 : len(c)] = c[:-1]
+                tgt[i, : len(c)] = c
+                msk[i, : len(c)] = 1.0
+            lls, ok = self._score(enc, dec, tgt, msk)
+            results.extend((float(lls[i]), bool(ok[i])) for i in range(b))
+        return reord.get_original(results) if not disable_reorder else results
+
+    def _model_generate(self, context: List[int], max_gen: int, stops: List[str]) -> str:
+        """Greedy text after `context` (`lm.py:432-461`): the context,
+        padded to its power-of-two bucket, through
+        `greedy_generate_seq2seq_cached` for `min(max_gen, 64)` steps, cut
+        at EOS, then at the stop strings."""
+        el = bucket_pow2(max(len(context), 1))
+        enc = np.full((1, el), self.cfg.pad_token_id, np.int64)
+        enc[0, : len(context)] = context[-el:]
+        with torch.inference_mode():
+            toks = greedy_generate_seq2seq_cached(self.params, self._to_device(enc),
+                                                  min(max_gen, 64), self.cfg, self.rq)[0]
+        out = []
+        for t in toks.tolist():
+            if t == self.cfg.eos_token_id:
+                break
+            out.append(t)
+        text = self.tok_decode(out)
+        for stop in stops:
+            text = text.split(stop)[0]
         return text
 
 

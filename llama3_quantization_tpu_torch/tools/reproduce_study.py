@@ -1,9 +1,9 @@
 """The study table on the port, in two halves.
 
-**The golden rows** (counterpart of the root `tools/reproduce_study.py:87-183`
+**The golden rows** (counterpart of the root `tools/reproduce_study.py:87-229`
 for every decoder row: `fp`, `rtn`, `gptq`, `awq`, `smoothquant`,
-`omniquant`, `hqq`, `irqlora`, `mixed`, `rtn_s4` and `rtn_a8`; the
-`seq2seq_*` rows wait for ROADMAP A 4).
+`omniquant`, `hqq`, `irqlora`, `mixed`, `rtn_s4` and `rtn_a8`; and the
+seq2seq rows `seq2seq_fp`, `seq2seq_rtn` and `seq2seq_gptq`).
 
 The same recipe as the JAX study: `TINY_LLAMA` with the parameters JAX's
 `init_params(PRNGKey(0), float32)` gives (kept in `tiny_llama_init.npz`
@@ -16,7 +16,12 @@ zero-shot on the documents written out below, each method with the root
 study's kwargs (`KWARGS`: GPTQ and mixed at blocksize 32, OmniQuant for one
 epoch). `fp`, `rtn` and the calibration quantizers run under the "xla"
 backend (the JAX package's default), `rtn_s4` and `rtn_a8` under "s4" and
-"a8".
+"a8". The seq2seq rows (`SEQ2SEQ_ROWS`) take the T5 trunk of the root
+study: vocab 512, d_model 32, d_kv 8, d_ff 64, 4 heads, 2 + 2 layers, 8
+buckets, with the parameters of JAX's `init_seq2seq_params(PRNGKey(7))`
+(`tiny_seq2seq_init.npz`), RTN and GPTQ at `QuantSpec(4, 8)` on the same
+calibration windows (split by `split_calib_pairs`, batch 4), piqa and
+arc_easy through `Seq2SeqTorchLM`, under "xla".
 
     python -m llama3_quantization_tpu_torch.tools.reproduce_study            # on the card
     python -m llama3_quantization_tpu_torch.tools.reproduce_study --device cpu --check
@@ -50,6 +55,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent.parent
 PARAMS_NPZ = HERE / "tiny_llama_init.npz"
+SEQ2SEQ_NPZ = HERE / "tiny_seq2seq_init.npz"
 GOLDEN = REPO / "tests" / "fixtures" / "golden_study.json"
 CORPUS = REPO / "tests" / "fixtures" / "wikitext2_slice.txt"
 
@@ -57,6 +63,8 @@ CORPUS = REPO / "tests" / "fixtures" / "wikitext2_slice.txt"
 ROWS = {"fp": "xla", "rtn": "xla", "gptq": "xla", "awq": "xla", "smoothquant": "xla",
         "omniquant": "xla", "hqq": "xla", "irqlora": "xla", "mixed": "xla", "rtn_s4": "s4",
         "rtn_a8": "a8"}
+#: the seq2seq rows (root `tools/reproduce_study.py:186-229`), under "xla"
+SEQ2SEQ_ROWS = ("seq2seq_fp", "seq2seq_rtn", "seq2seq_gptq")
 #: each method's kwargs, the root study's (`tools/reproduce_study.py:38-57`)
 KWARGS = {"gptq": {"blocksize": 32}, "omniquant": {"epochs": 1}, "hqq": {"iters": 10},
           "irqlora": {"tau_n": 10, "blocksize2": 4}, "mixed": {"blocksize": 32}}
@@ -176,6 +184,20 @@ def load_params_npz(path, device="cuda"):
     return params_from_numpy(tree, device=device)
 
 
+def tiny_seq2seq_config(vocab_size: int = 512):
+    """The root study's T5 trunk (`tools/reproduce_study.py:204-207`)."""
+    from ..models.seq2seq import Seq2SeqConfig
+
+    return Seq2SeqConfig(vocab_size=vocab_size, d_model=32, d_kv=8, d_ff=64, num_heads=4,
+                         num_layers=2, num_decoder_layers=2, rel_buckets=8)
+
+
+def load_tiny_seq2seq_params(device="cuda"):
+    """JAX's `init_seq2seq_params(tiny_seq2seq_config(), PRNGKey(7))`, from
+    the npz."""
+    return load_params_npz(SEQ2SEQ_NPZ, device)
+
+
 class Tok:
     """The study's tokenizer adapter: `SyntheticTokenizer` ids as lists,
     end of text 0."""
@@ -193,12 +215,44 @@ class Tok:
         return self.tok.decode(ids)
 
 
+def seq2seq_rows(methods, calib, tok, device, verbose: bool = True):
+    """The seq2seq rows `methods` (of SEQ2SEQ_ROWS): piqa accuracy and
+    arc_easy normalized accuracy of the tiny T5 trunk, fp or quantized on
+    `calib` (`tools/reproduce_study.py:195-229`)."""
+    import torch
+
+    from ..api import quantize
+    from ..eval.harness import Seq2SeqTorchLM, simple_evaluate
+    from ..ops import matmul as mm
+    from ..quant.quantizer import QuantSpec
+
+    cfg = tiny_seq2seq_config(tok.vocab_size)
+    params = load_tiny_seq2seq_params(device)
+    out = {}
+    for row in methods:
+        method = row[len("seq2seq_"):]
+        with mm.backend("xla"), torch.inference_mode():
+            qp = params if method == "fp" else quantize(
+                params, cfg, method=method, spec=QuantSpec(n_bits=4, group_size=8),
+                calib_tokens=calib, batch_size=4)
+            lm = Seq2SeqTorchLM(qp, cfg, Tok(tok), batch_size=4, max_length=SEQLEN, device=device)
+            res = simple_evaluate(lm, ["piqa", "arc_easy"], num_fewshot=0, bootstrap_iters=2,
+                                  task_data=TASK_DATA)["results"]
+        out[row] = {"piqa_acc": round(res["piqa"]["acc"], 4),
+                    "arc_easy_acc_norm": round(res["arc_easy"]["acc_norm"], 4)}
+        if verbose:
+            print(f"  {row:<12} piqa={out[row]['piqa_acc']} arc={out[row]['arc_easy_acc_norm']}",
+                  flush=True)
+    return out
+
+
 def run_study(methods: Optional[Iterable[str]] = None, device="cuda", params=None,
               verbose: bool = True) -> Dict[str, Dict[str, float]]:
-    """The rows `methods` (default: all of ROWS) on `device`: PPL on the
-    fixture's back half, piqa accuracy and arc_easy normalized accuracy,
-    rounded as the golden JSON rounds them. `params` overrides the npz
-    (JAX-layout TINY_LLAMA parameters already on `device`)."""
+    """The rows `methods` (default: all of ROWS and SEQ2SEQ_ROWS) on
+    `device`: PPL on the fixture's back half, piqa accuracy and arc_easy
+    normalized accuracy (the seq2seq rows: the accuracies), rounded as the
+    golden JSON rounds them. `params` overrides the npz (JAX-layout
+    TINY_LLAMA parameters already on `device`)."""
     import torch
 
     from ..api import quantize
@@ -211,8 +265,8 @@ def run_study(methods: Optional[Iterable[str]] = None, device="cuda", params=Non
     from ..quant.quantizer import QuantSpec
 
     dev = resolve_device(device)
+    methods = list(methods or (*ROWS, *SEQ2SEQ_ROWS))
     cfg = TINY_LLAMA
-    params = params if params is not None else load_tiny_params(dev)
     tok = SyntheticTokenizer()
     text = CORPUS.read_text()
     cut = len(text) // 2
@@ -223,7 +277,10 @@ def run_study(methods: Optional[Iterable[str]] = None, device="cuda", params=Non
     calib = np.stack([inp[0] for inp, _ in trainloader])
     spec = QuantSpec(n_bits=4, group_size=32)
     out = {}
-    for method in methods or ROWS:
+    decoder_rows = [m for m in methods if m not in SEQ2SEQ_ROWS]
+    if decoder_rows:
+        params = params if params is not None else load_tiny_params(dev)
+    for method in decoder_rows:
         exec_backend = ROWS[method]
         base = method.split("_")[0]
         if base == "fp":
@@ -246,6 +303,9 @@ def run_study(methods: Optional[Iterable[str]] = None, device="cuda", params=Non
             print(f"  {method:<8} ppl={out[method]['ppl_wikitext2']:<10} "
                   f"piqa={out[method]['piqa_acc']} arc={out[method]['arc_easy_acc_norm']}",
                   flush=True)
+    s2 = [m for m in methods if m in SEQ2SEQ_ROWS]
+    if s2:
+        out.update(seq2seq_rows(s2, calib, tok, dev, verbose))
     return out
 
 
@@ -371,7 +431,7 @@ def main(argv=None) -> int:
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--methods", default=",".join(ROWS))
+    ap.add_argument("--methods", default=",".join((*ROWS, *SEQ2SEQ_ROWS)))
     ap.add_argument("--check", action="store_true")
     args = ap.parse_args(argv)
     table = run_study(args.methods.split(","), device=args.device)

@@ -8,7 +8,8 @@ TINY_LLAMA, `cli.main` of both packages prints the same results within
 windows of 64; the port on the CPU under JAX's default backend, xla);
 `--save_dir` reloads in both packages; OPT and Mixtral (`--net`, dense
 and `--moe_capacity 1.25`) print JAX's results within the same 2e-3;
-every flag the port has not yet exits naming its ROADMAP item; tasks run offline through the port's
+every flag the port has not yet exits naming its ROADMAP item; a T5
+directory takes JAX's seq2seq path in both packages; tasks run offline through the port's
 registry with `--use_cache`, any of JAX's names and patterns among them
 (`hellaswag`, `piqa,hendrycksTest-*` with JAX's MMLU rollup), and
 `--decontamination_ngrams_path` reaches `simple_evaluate`; JAX's task
@@ -228,10 +229,53 @@ def test_unported_tasks_exit_before_loading(monkeypatch):
                   "hellaswag,no_such_task*x,no_such_task", "--device", "cpu"])
 
 
-def test_t5_directory_waits_for_a4(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "t5"}))
-    with pytest.raises(SystemExit, match="A 4"):
-        cli.main(["--model", str(tmp_path), "--device", "cpu"])
+def write_t5_dir(path, gated=True, seed=0):
+    """A tiny T5 directory (HF names, `config.json`) written by the port."""
+    from llama3_quantization_tpu_torch.models import seq2seq as T
+
+    cfg = T.Seq2SeqConfig(vocab_size=96, d_model=32, d_kv=8, d_ff=64, num_heads=4, num_layers=2,
+                          num_decoder_layers=2, rel_buckets=8, rel_max_distance=32,
+                          gated_act=gated)
+    p = T.init_seq2seq_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    tensors = {"shared.weight": p["shared"], "lm_head.weight": p["lm_head"].T,
+               "encoder.final_layer_norm.weight": p["enc_ln"],
+               "decoder.final_layer_norm.weight": p["dec_ln"],
+               "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+                   p["enc_rel"],
+               "decoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+                   p["dec_rel"]}
+    for side, sub, names in (("encoder", 1, T.T5_ENC_NAMES), ("decoder", 2, T.T5_DEC_NAMES)):
+        for ours, theirs in {**names, **T.t5_mlp_names(gated, sub)}.items():
+            for i, w in enumerate(p[side[:3]]["layers"][ours]):
+                tensors[f"{side}.block.{i}.{theirs}"] = w if ours.startswith("ln") else w.T
+    path.mkdir(parents=True, exist_ok=True)
+    TL.write_safetensors(tensors, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "t5", "vocab_size": 96, "d_model": 32, "d_kv": 8, "d_ff": 64,
+        "num_heads": 4, "num_layers": 2, "num_decoder_layers": 2,
+        "relative_attention_num_buckets": 8, "relative_attention_max_distance": 32,
+        "feed_forward_proj": "gated-gelu" if gated else "relu", "tie_word_embeddings": False,
+        "decoder_start_token_id": 0, "pad_token_id": 0, "eos_token_id": 1}))
+    return p, cfg
+
+
+def test_t5_directory_waits_for_a4(tmp_path, capsys):
+    """A T5-family directory takes JAX's seq2seq path (`t5-seq2seq`, RTN
+    applied) in both packages; a decoder-only method exits with JAX's text."""
+    params, cfg = write_t5_dir(tmp_path)
+    loaded, lcfg = cli.load_model(cli.build_parser().parse_args(
+        ["--model", str(tmp_path), "--device", "cpu"]))
+    assert lcfg == cfg and torch.equal(loaded["dec"]["layers"]["wo"], params["dec"]["layers"]["wo"])
+    argv = ["--model", str(tmp_path), "--quant_method", "rtn", "--wbits", "4", "--group_size", "8"]
+    assert cli.main(argv + ["--device", "cpu", "--eval_ppl"]) is None
+    err = capsys.readouterr().err
+    jcli.main(argv + ["--eval_ppl"])
+    jerr = capsys.readouterr().err
+    for line in ("(t5-seq2seq, 2L)", "rtn W4 g8 applied (seq2seq)",
+                 "--eval_ppl is decoder-only; skipping for seq2seq"):
+        assert line in err and line in jerr, line
+    with pytest.raises(SystemExit, match="seq2seq supports --quant_method rtn|gptq"):
+        cli.main(["--model", str(tmp_path), "--quant_method", "awq", "--device", "cpu"])
 
 
 def test_cli_needs_the_card_unless_told(monkeypatch):

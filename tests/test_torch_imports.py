@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (OPT,
-Falcon and Mixtral with their quantizers, loader, CLI and act-stats tool, a
+Falcon and Mixtral with their quantizers, loader, CLI and act-stats tool,
+the T5 trunk with its GPTQ, LM and golden rows, the logging and profiling
+utilities and the trace report, a
 forward, serving engines on the int4 and the default fp cache, the W·A8
 backends, sampled and speculative decoding, a hooked decode, the decode
 routes and a microbench entry point run with both blocked), and an entry
@@ -235,6 +237,59 @@ def test_other_archs_run_with_jax_blocked(tmp_path):
         cli.main(["--net", "tiny-mixtral", "--quant_method", "rtn", "--wbits", "4",
                   "--group_size", "32", "--moe_capacity", "1.25", "--eval_ppl", "--seqlen", "32",
                   "--limit", "1", "--ppl_datasets", "wikitext2", "--device", "cpu"])
+        assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_seq2seq_and_utils_run_with_jax_blocked(tmp_path):
+    """The T5 trunk (`models/seq2seq.py`: forward, both greedy decodes, RTN),
+    its GPTQ (`quant/seq2seq_calibration.py`) through `api.quantize`,
+    `Seq2SeqTorchLM`, the study's seq2seq rows, `utils/` (logger,
+    profiling) and `tools/profile_report.py` run with JAX and the JAX
+    package blocked."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["llama3_quantization_tpu"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch import api
+        from llama3_quantization_tpu_torch.eval.harness import Seq2SeqTorchLM
+        from llama3_quantization_tpu_torch.quant import seq2seq_calibration
+        from llama3_quantization_tpu_torch.tools import profile_report, reproduce_study
+        from llama3_quantization_tpu_torch.utils import Throughput, create_logger, profile_trace
+
+        cfg = P.Seq2SeqConfig(vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_heads=4,
+                              num_layers=2, num_decoder_layers=2, rel_buckets=8)
+        params = P.init_seq2seq_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        enc = torch.randint(2, 64, (2, 10))
+        spec = P.QuantSpec(n_bits=4, group_size=8)
+        calib = np.random.default_rng(0).integers(2, 64, (2, 16))
+        for method in ("rtn", "gptq"):
+            qp = api.quantize(params, cfg, method, spec, calib_tokens=calib, batch_size=2)
+            assert isinstance(qp["dec"]["layers"]["cv"], P.QuantizedTensor)
+            logits = P.forward_logits_seq2seq(qp, enc, enc[:, :4], cfg)
+            assert logits.shape == (2, 4, 64) and bool(logits.isfinite().all())
+            assert torch.equal(P.greedy_generate_seq2seq_cached(qp, enc, 4, cfg),
+                               P.greedy_generate_seq2seq(qp, enc, 4, cfg))
+        assert seq2seq_calibration.split_calib_pairs(calib)[1].shape == (2, 8)
+        lm = Seq2SeqTorchLM(qp, cfg, reproduce_study.Tok(P.eval.SyntheticTokenizer(64)))
+        assert len(lm.loglikelihood([("a b c", " d e")])) == 1
+        table = reproduce_study.run_study(["seq2seq_rtn"], device="cpu", verbose=False)
+        assert reproduce_study.golden_misses(table) == []
+        with profile_trace("{tmp_path}/trace"):
+            P.forward_logits_seq2seq(params, enc, enc[:, :2], cfg)
+        assert profile_report.main(["{tmp_path}/trace"]) == []
+        assert Throughput().hbm_gbps == 3350.0
+        create_logger("{tmp_path}/log", 0, name="blocked").info("ok")
         assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
