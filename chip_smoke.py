@@ -23,6 +23,10 @@ NVIDIA GPU (written for an H100).
                                           # Falcon-7B and Mixtral-8x7B at full width and depth)
     python3 chip_smoke.py --seq2seq       # only the kernel checks and phase 13 (the T5 trunk
                                           # at T0-3B width and depth, its GPTQ, LM, CLI, profile)
+    python3 chip_smoke.py --parallel      # only the kernel checks and phase 14 (parallelism on
+                                          # a world of one NCCL rank at Llama-3-8B width)
+    python3 chip_smoke.py --multi-rank    # only the parallel paths across all the machine's
+                                          # cards, one NCCL rank a card (2 or more cards)
 
 Phases, in order; any failure exits non-zero:
   1. require CUDA and print the card's name and power limit;
@@ -181,6 +185,22 @@ Phases, in order; any failure exits non-zero:
      layers, below RTN on held-out inputs; `cli.main` on an HF directory of
      that model (`t5-seq2seq`, `gptq W4 g128 applied (seq2seq)`). The golden
      rows (phase 7's) include `seq2seq_fp`, `seq2seq_rtn`, `seq2seq_gptq`.
+ 14. parallelism (`drive_parallel`, run after phase 13) on a world of one
+     NCCL rank (one card holds one NCCL rank: multi-rank collectives are
+     proven over gloo on the CPU) at Llama-3-8B width, 8 layers, RTN W4
+     g128: NCCL carries a CUDA all-reduce and a gloo group refuses it; the
+     (dp 1, tp 1) sharded forward bit-equal to `forward_logits`; the
+     sharded int8 and fp engines under a decode mesh (16 requests,
+     `run_pipelined(16)`) equal to the one-replica engine; tp-overlap,
+     pipeline (pp 1, 2 microbatches) and sp forwards within ARCH_ROW_TOL a
+     row and the sp PPL within EVAL_LN_PPL_TOL; sharded GPTQ of a down
+     projection bit-equal to `gptq_quantize_weight`; the LWC train step (2
+     layers, [2, 2048], B7.stats/dkv/dq) against `set_flash(False)`; a
+     4-layer sharded checkpoint bit for bit; `measure_scaling`; the CLI's
+     `--tp 1 --dp 1` and `--sp 1`. Its kernel checks (phase 3,
+     `check_parallel_kernels`): B1 at M = 1 and 8 and B2 at M = 128 on the
+     column and row shards of every linear at tp = 2, 4, 8, B5's forms and
+     B6 at G = 4, 2, 1, B7 at H = 32 / tp over G = 8 / tp, S = 2048.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel form that a path should run and did not, or one it
@@ -1075,7 +1095,7 @@ FLASH_CASES = ((1, 128, 32, 8, 128), (1, 2048, 32, 8, 128), (1, 200, 32, 8, 128)
                (1, 128, 12, 12, 64), (1, 2048, 12, 12, 64))
 
 
-def check_flash(P, gen, results):
+def check_flash(P, gen, results, cases=None):
     """B7 at FLASH_CASES, bf16, against its plain version, row by row: every
     output row (one query position of one head) within 2e-2 * its own
     max|ref|. The kernel rounds unnormalized probabilities to bf16 for PV,
@@ -1084,7 +1104,7 @@ def check_flash(P, gen, results):
     taken from the whole tensor's max|ref| would not see its errors."""
     from llama3_quantization_tpu_torch.ops import flash_attention as fa
 
-    for b, s, h, g, d in FLASH_CASES:
+    for b, s, h, g, d in cases or FLASH_CASES:
         q, k, v = b7_inputs(gen, s, b, h, g, d)
         label = f"S={s}" if (b, h, g, d) == (1, 32, 8, 128) else f"B={b} S={s} H={h} G={g} D={d}"
         got, ref = fa.flash_attention_cuda(q, k, v).float(), fa.attention_plain(q, k, v).float()
@@ -4067,6 +4087,743 @@ def drive_seq2seq(P, card):
     return sum_counts(counts)
 
 
+#: phase 14's depth: Llama-3-8B at full width, 8 of 32 layers (for time)
+PARALLEL_LAYERS = 8
+#: the tensor-parallel widths whose shard shapes phase 14's kernel checks hold
+PARALLEL_TPS = (2, 4, 8)
+
+
+def parallel_shards(tp):
+    """(name, (K, N)) of each Llama-3-8B W4 g128 linear's shard at `tp`:
+    column shards of q, k/v and gate/up, row shards of o and down."""
+    return (("q col", (4096, 4096 // tp)), ("k/v col", (4096, 1024 // tp)),
+            ("gate/up col", (4096, 14336 // tp)), ("o row", (4096 // tp, 4096)),
+            ("down row", (14336 // tp, 4096)))
+
+
+def check_parallel_kernels(P, gen, results):
+    """Phase 14's shapes: B1 at M = 1 and 8 and B2 at M = 128 on every
+    column and row shard of the Llama-3-8B W4 g128 linears at tp = 2, 4, 8
+    (each one B1 and B2 take unpadded: no `pad` route), phase 3's
+    tolerances; B5 (int8 and int4, with and without stats) and B6 on the
+    local KV groups G = 8 / tp (4, 2, 1), rep 4; B7 at the local heads
+    H = 32 / tp over G = 8 / tp, S = 2048, row by row."""
+    import torch
+    from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
+
+    for tp in PARALLEL_TPS:
+        for name, (k, n) in parallel_shards(tp):
+            qt = rand_weights(P, k, n, 1, gen)[0]
+            if not (fq.b1_takes(8, k, n, GS, 4, True) and fq.b2_takes(k, n, GS, 4, True)):
+                raise AssertionError(f"tp {tp} {name} [{k}, {n}]: B1 or B2 would pad it")
+            for kid, m in (("B1", 1), ("B1", 8), ("B2", 128)):
+                kern, plain = ((fq.qmm_gemv, fq.qmm_gemv_plain) if kid == "B1"
+                               else (fq.qmm_gemm, fq.qmm_gemm_plain))
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                label = f"{kid} tp{tp} {name} [{k}, {n}] M={m}"
+                compare(f"{label} fp32-out", kern(x, qt, torch.float32),
+                        plain(x, qt, torch.float32), 1e-4)
+                err = compare(f"{label} bf16-out", kern(x, qt, torch.bfloat16),
+                              plain(x, qt, torch.bfloat16), 1e-2)
+                results.setdefault(kid, {})[f"tp{tp} {name} M={m}"] = err
+    for tp in PARALLEL_TPS:
+        g = 8 // tp
+        check_decode_forms(P, gen, results, g=g, ts=(512,), tag=f"tp{tp} G={g} ")
+        check_fp_decode(P, gen, results, g=g, tag=f"tp{tp} G={g} ",
+                        cases=((1, 512, "bf16", True), (8, 512, "bf16", False)))
+    check_flash(P, gen, results, cases=tuple((1, 2048, 32 // tp, 8 // tp, 128)
+                                             for tp in PARALLEL_TPS))
+
+
+def build_rtn_cfg(P, cfg, seed):
+    """RTN W4 g128 packed of seeded random-normal bf16 weights of `cfg`, on
+    the card; also the fp tree it came from."""
+    import torch
+
+    fp = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    return fp, P.quantize_model_rtn(fp, cfg, P.QuantSpec(n_bits=4, group_size=GS), pack=True)
+
+
+def drive_parallel(P, card):
+    """Phase 14, parallelism (`parallel/`, `benchmarks/`, the sharded
+    checkpoints, the CLI's --tp/--dp/--sp) at Llama-3-8B width on a world of
+    one NCCL rank (a store on 127.0.0.1; one card cannot hold two NCCL
+    ranks, so multi-rank collectives are proven over gloo on the CPU):
+
+    a. a CUDA tensor's all-reduce runs on NCCL and a gloo group refuses it
+       (no staging through the host), as a CPU tensor meets NCCL;
+    b. `make_sharded_forward` on a (dp 1, tp 1) rank-local tree at [1, 128]:
+       bit-equal to `forward_logits` (B2, B7);
+    c. `shard_params` + `set_decode_mesh` + `ServingEngine(8 slots, 512,
+       ljf)` on phase 5's 16 requests, `run_pipelined(16)`, on the int8 and
+       the fp cache: streams identical to the one-replica engine under the
+       same decode mesh (B1 at M = 8, B5 or B6 per step: no windows under a
+       decode mesh but on the codes-direct route, as JAX);
+    d. `make_tp_overlap_forward` [1, 128] (ring collective matmuls of one
+       rank), `make_pipeline_forward` at pp 1 with 2 microbatches of [2, 128]
+       and `make_sp_forward` [1, 2048] (ring attention, plain torch) against
+       `forward_logits`, each within ARCH_ROW_TOL a row; `compute_ppl` with
+       `sp_windowed_nll_fn` against the unsharded step, |d ln PPL| within
+       EVAL_LN_PPL_TOL;
+    e. `sharded_gptq_quantize_weight` of layer 0's down [14336, 4096] at tp
+       1: codes, scales and zeros bit-equal to `gptq_quantize_weight`;
+    f. the LWC train step at 2 layers, tokens [2, 2048 + 1], 2 steps on B7's
+       gradient route (B7.stats, B7.dkv, B7.dq counted) against the same
+       steps under `set_flash(False)`: losses within 1e-2 relative (B7
+       rounds p and ds to bf16), the updated clipping logits reported;
+    g. a 4-layer W4 g128 rank-local tree through `save_checkpoint_sharded`
+       and `load_checkpoint_sharded`: every leaf and the forward bit-equal;
+    h. `measure_scaling(device_counts=(1,))`: tok/s beside the card;
+    i. `cli.main` at 4 layers, RTN W4 g128 `--eval_ppl` (1 window of 2048):
+       with `--tp 1 --dp 1` and with `--sp 1` against the same run without,
+       |d ln PPL| within EVAL_LN_PPL_TOL."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from llama3_quantization_tpu_torch import parallel as PP
+    from llama3_quantization_tpu_torch.benchmarks import measure_scaling
+    from llama3_quantization_tpu_torch.eval.ppl import compute_ppl, sp_windowed_nll_fn
+    from llama3_quantization_tpu_torch.models import configs as TCFG
+    from llama3_quantization_tpu_torch.models.hf_loader import (
+        load_checkpoint_sharded,
+        save_checkpoint_sharded,
+    )
+    from llama3_quantization_tpu_torch.ops import collectives as C
+    from llama3_quantization_tpu_torch.parallel import distributed, mesh as M, train
+    from llama3_quantization_tpu_torch.parallel.pipeline import _layer_slice
+    from llama3_quantization_tpu_torch.quant.gptq import (
+        gptq_quantize_weight,
+        hessian_init,
+        hessian_update,
+    )
+    from llama3_quantization_tpu_torch.utils.pytree_io import _unflatten, tree_leaves
+
+    counts, checks = {}, {}
+    t_phase = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    distributed.init_distributed()
+    try:
+        # a. the backends
+        backend = str(dist.get_backend())
+        x = torch.arange(4.0, device="cuda")
+        C.all_reduce_(x, dist.group.WORLD)
+        gloo = dist.new_group(backend="gloo")
+        refused = []
+        for t, group in ((x, gloo), (x.cpu(), dist.group.WORLD)):
+            try:
+                C.all_reduce_(t, group)
+            except RuntimeError as e:
+                refused.append(str(e).split(":")[0])
+        log(f"  world of {dist.get_world_size()} ({backend}); a CUDA all-reduce on NCCL "
+            f"{x.tolist()}; refused: {refused}")
+        if backend != "nccl" or len(refused) != 2:
+            raise AssertionError(f"collectives: backend {backend}, refusals {refused}")
+
+        cfg = dataclasses.replace(P.LLAMA3_8B, num_layers=PARALLEL_LAYERS)
+        (fp, params), dt = timed(lambda: build_rtn_cfg(P, cfg, SEED + 14))
+        down_fp = fp["layers"]["down"]["w"][0].clone()
+        del fp
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  RTN W4 g128, {PARALLEL_LAYERS} layers at 8B width: {dt:.1f} s")
+        mesh = PP.make_mesh(dp=1, tp=1)
+        local = PP.shard_params(params, mesh, cfg)
+
+        # b. the sharded forward
+        toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+        fwd = PP.make_sharded_forward(cfg, mesh)
+        got = run_counted(counts, "make_sharded_forward (dp 1, tp 1) [1,128]",
+                          lambda: fwd(local, toks), must=("B2", "B7"))
+        ref = run_counted(checks, "forward_logits [1,128] (check)",
+                          lambda: P.forward_logits(params, toks, cfg))
+        log(f"  make_sharded_forward == forward_logits bit for bit: {torch.equal(got, ref)}")
+        if not torch.equal(got, ref):
+            raise AssertionError("the (dp 1, tp 1) sharded forward differs from forward_logits")
+
+        # c. the sharded engines under the decode mesh
+        reqs = serve_requests(16, cfg.vocab_size)
+        P.set_decode_mesh(mesh)
+        try:
+            for quantized, must in ((8, ("B1", "B2", "B5")), (False, ("B1", "B2", "B6"))):
+                kind = "int8" if quantized else "fp"
+                eng = P.ServingEngine(local, cfg, max_slots=8, max_len=512, schedule="ljf",
+                                      quantized_cache=quantized)
+                (streams, secs) = run_counted(
+                    counts, f"sharded ServingEngine {kind}, decode mesh, run_pipelined(16)",
+                    lambda: timed(lambda: pipelined_streams(eng, reqs, 16)), must=must)
+                one = P.ServingEngine(params, cfg, max_slots=8, max_len=512, schedule="ljf",
+                                      quantized_cache=quantized)
+                want = run_counted(checks, f"one-replica engine {kind} (check)",
+                                   lambda: pipelined_streams(one, reqs, 16))
+                check_streams(f"sharded engine {kind}", streams, reqs, cfg.vocab_size)
+                n_tok = sum(map(len, streams))
+                log(f"  sharded engine {kind}: {n_tok} tokens in {secs:.2f} s "
+                    f"({n_tok / secs:.1f} tok/s), windows {eng.dispatches}, streams == "
+                    f"one replica's: {streams == want}  [{card}]")
+                if streams != want:
+                    raise AssertionError(f"sharded engine {kind}: streams differ")
+                del eng, one
+        finally:
+            P.set_decode_mesh(None)
+
+        # d. the other forwards
+        readings = {}
+        got = run_counted(counts, "make_tp_overlap_forward (tp 1) [1,128]",
+                          lambda: PP.make_tp_overlap_forward(cfg, mesh)(local, toks),
+                          must=("B2", "B7"))
+        readings["tp_overlap [1,128]"] = logit_rows(got, ref)
+        toks4 = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen, device="cuda")
+        pmesh = M.named_mesh((1,), ("pp",))
+        stage = PP.shard_params_pipeline(params, pmesh, cfg)
+        got = run_counted(counts, "make_pipeline_forward (pp 1, 2 microbatches of [2,128])",
+                          lambda: PP.make_pipeline_forward(cfg, pmesh, 2)(stage, toks4),
+                          must=("B2", "B7"))
+        ref4 = run_counted(checks, "forward_logits [4,128] (check)",
+                           lambda: P.forward_logits(params, toks4, cfg))
+        readings["pipeline [4,128]"] = logit_rows(got, ref4)
+        smesh = M.named_mesh((1,), ("sp",))
+        toks_l = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+        got = run_counted(counts, "make_sp_forward (sp 1) [1,2048]",
+                          lambda: PP.make_sp_forward(cfg, smesh)(params, toks_l), must=("B2",),
+                          never=("B7",))
+        ref_l = run_counted(checks, "forward_logits [1,2048] (check)",
+                            lambda: P.forward_logits(params, toks_l, cfg))
+        readings["sp forward [1,2048]"] = logit_rows(got, ref_l)
+        del got, ref_l
+        for name, r in readings.items():
+            log(f"  {name} vs forward_logits: max over rows of max|d logit| / max|logit| "
+                f"{r:.3e} (bound {ARCH_ROW_TOL:g})")
+            if not r <= ARCH_ROW_TOL:
+                raise AssertionError(f"{name}: {r} above {ARCH_ROW_TOL}")
+        stream = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2048 * 2))
+        ppl_sp = run_counted(counts, "compute_ppl, sp_windowed_nll_fn (sp 1), 2 x 2048",
+                             lambda: compute_ppl(params, cfg, stream, seqlen=2048,
+                                                 step_fn=sp_windowed_nll_fn(cfg, smesh)),
+                             must=("B2",))
+        ppl = run_counted(checks, "compute_ppl, the unsharded step (check)",
+                          lambda: compute_ppl(params, cfg, stream, seqlen=2048))
+        d_sp = abs(math.log(ppl_sp) - math.log(ppl))
+        log(f"  PPL 2 x 2048: sp step {ppl_sp:.4f}, unsharded {ppl:.4f}, |d ln PPL| {d_sp:.3e} "
+            f"(limit {EVAL_LN_PPL_TOL:g})")
+        if not d_sp <= EVAL_LN_PPL_TOL:
+            raise AssertionError(f"sp PPL {ppl_sp} against {ppl}")
+
+        # e. sharded GPTQ of layer 0's down
+        hs = hessian_init(14336, device="cuda")
+        for _ in range(2):
+            hs = hessian_update(hs, torch.randn((1, 512, 14336), generator=gen, device="cuda"))
+        spec = P.QuantSpec(n_bits=4, group_size=GS)
+        tmesh = M.named_mesh((1,), ("tp",))
+        (qt, err), secs = timed(lambda: PP.sharded_gptq_quantize_weight(
+            down_fp.float(), hs.H, spec, tmesh, pack=True))
+        qr, er = gptq_quantize_weight(down_fp.float(), hs.H, spec, pack=True)
+        same = (torch.equal(qt.data, qr.data) and torch.equal(qt.scale, qr.scale)
+                and torch.equal(qt.zero, qr.zero))
+        log(f"  sharded GPTQ down [14336, 4096] (tp 1): {secs:.2f} s, codes/scales/zeros "
+            f"bit-equal {same}, err {float(err):.6e} vs {float(er):.6e}")
+        if not same:
+            raise AssertionError("sharded GPTQ differs from gptq_quantize_weight")
+        del down_fp, hs, qt, qr
+
+        # f. the LWC train step, B7's gradient route against the eager one
+        cfg2 = dataclasses.replace(P.LLAMA3_8B, num_layers=2)
+        fp2 = P.init_params(cfg2, torch.Generator(device="cuda").manual_seed(SEED + 15))
+        local2 = PP.shard_params(fp2, mesh, cfg2)
+        wspec = P.QuantSpec(n_bits=4, group_size=GS, lwc=True)
+        ttoks = torch.randint(0, cfg2.vocab_size, (2, 2049), generator=gen, device="cuda")
+
+        def lwc_steps():
+            lwc = train.init_model_lwc(local2, cfg2, wspec)
+            opt, step = train.make_lwc_train_step(cfg2, mesh, wspec)
+            state, losses = opt.init(lwc), []
+            for _ in range(2):
+                lwc, state, loss = step(lwc, state, local2, ttoks)
+                losses.append(float(loss))
+            return lwc, losses
+
+        (lwc_k, loss_k), secs = timed(lambda: run_counted(
+            counts, "LWC train step, 2 layers, [2,2048], 2 steps",
+            lwc_steps, must=("B7.stats", "B7.dkv", "B7.dq")))
+        c = counts["LWC train step, 2 layers, [2,2048], 2 steps"]
+        P.set_flash(False)
+        try:
+            lwc_e, loss_e = run_counted(checks, "LWC train step, set_flash(False) (check)",
+                                        lwc_steps, never=("B7", "B7.stats", "B7.dkv", "B7.dq"))
+        finally:
+            P.set_flash("auto")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss_e))
+        d = torch.cat([(a - b).abs().flatten() for a, b in zip(tree_leaves(lwc_k),
+                                                               tree_leaves(lwc_e))])
+        log(f"  LWC step: {secs / 2:.2f} s a step, launches B7.stats {c['B7.stats']}, "
+            f"B7.dkv {c['B7.dkv']}, B7.dq {c['B7.dq']}; losses {loss_k} vs eager {loss_e} "
+            f"(max rel {rel:.3e}, limit 1e-2); updated clipping logits vs eager: max |d| "
+            f"{float(d.max()):.3e}, mean |d| {float(d.mean()):.3e}, share moved apart > 1e-3 "
+            f"{float((d > 1e-3).float().mean()):.3e}  [{card}]")
+        if not (all(map(math.isfinite, loss_k)) and rel <= 1e-2):
+            raise AssertionError(f"LWC losses {loss_k} against eager {loss_e}")
+        del fp2, local2, lwc_k, lwc_e
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # g. a sharded checkpoint of 4 layers
+        tree4 = dict(local, layers=_layer_slice(local["layers"], 0, 4))
+        cfg4 = dataclasses.replace(P.LLAMA3_8B, num_layers=4)
+        tmp = tempfile.mkdtemp(prefix="l3q_dcp_")
+        try:
+            _, t_save = timed(lambda: save_checkpoint_sharded(tree4, os.path.join(tmp, "ckpt")))
+            body = {k: v for k, v in tree4.items() if k != "shard"}
+            like = _unflatten(body, iter(torch.zeros_like(t) for t in tree_leaves(body)))
+            like["shard"] = tree4["shard"]
+            back, t_load = timed(lambda: load_checkpoint_sharded(os.path.join(tmp, "ckpt"), like))
+            size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                       os.walk(os.path.join(tmp, "ckpt")) for f in fs)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                   zip(tree_leaves(body), tree_leaves({k: v for k, v in back.items()
+                                                       if k != "shard"})))
+        fwd_same = torch.equal(P.forward_logits(back, toks, cfg4), P.forward_logits(tree4, toks, cfg4))
+        log(f"  sharded checkpoint, 4 layers: {size / 2**30:.2f} GiB, save {t_save:.2f} s, "
+            f"load {t_load:.2f} s; leaves bit-equal {same}, forward bit-equal {fwd_same}")
+        if not (same and fwd_same):
+            raise AssertionError("the sharded checkpoint did not round-trip bit for bit")
+        del back, like, tree4
+
+        # h. scaling
+        res = run_counted(counts, "measure_scaling (1,)",
+                          lambda: measure_scaling(params, cfg, device_counts=(1,)), must=("B2",))
+        log(f"  measure_scaling (1,), {PARALLEL_LAYERS} layers, [2, 128]: {json.dumps(res)}  "
+            f"[{card}]")
+        del params, local
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # i. the CLI
+        name = "llama3-8b-4layers"
+        TCFG.NAMED_CONFIGS[name] = cfg4
+        base = ["--net", name, "--quant_method", "rtn", "--wbits", "4", "--group_size", str(GS),
+                "--eval_ppl", "--ppl_datasets", "wikitext2", "--seqlen", "2048", "--limit", "1"]
+        try:
+            ppls = {}
+            for label, extra, must in (("one replica", [], ("B2", "B7")),
+                                       ("--tp 1 --dp 1", ["--tp", "1", "--dp", "1"], ("B2", "B7")),
+                                       ("--sp 1", ["--sp", "1"], ("B2",))):
+                res, _, _ = cli_run(P, counts if extra else checks,
+                                    f"cli.main --net llama3-8b (4 layers) rtn --eval_ppl {label}",
+                                    base + extra, must=must)
+                ppls[label] = res["wikitext2"]
+        finally:
+            del TCFG.NAMED_CONFIGS[name]
+            P.set_decode_mesh(None)
+        for label in ("--tp 1 --dp 1", "--sp 1"):
+            d = abs(math.log(ppls[label]) - math.log(ppls["one replica"]))
+            log(f"  cli {label}: PPL {ppls[label]:.4f} vs {ppls['one replica']:.4f}, "
+                f"|d ln PPL| {d:.3e} (limit {EVAL_LN_PPL_TOL:g})")
+            if not d <= EVAL_LN_PPL_TOL:
+                raise AssertionError(f"cli {label}: PPL {ppls[label]}")
+    finally:
+        P.set_decode_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14 (parallelism) in {time.time() - t_phase:.1f} s  [{card}]")
+    return sum_counts(counts)
+
+
+#: the ranks of `--multi-rank` (one process per card)
+MULTI_RANK_LAYERS = 8
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (the ranks' store)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def all_ranks_equal(t) -> bool:
+    """Does every rank hold the same tensor as rank 0, bit for bit?"""
+    import torch
+    import torch.distributed as dist
+
+    first = t.clone()
+    dist.broadcast(first, 0)
+    same = torch.tensor([float(torch.equal(first, t))], device=t.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def drive_multi_rank(P, card):
+    """`--multi-rank`: the parallel paths across the cards of one host, one
+    NCCL rank a card, each against the one-replica path on the rank's own
+    card (Llama-3-8B width, MULTI_RANK_LAYERS layers, RTN W4 g128 of seeded
+    random normals, the same on every card):
+
+    - `make_sharded_forward` [4, 128] at (dp, tp) = (1, W), (2, W/2), (W, 1):
+      every rank the same logits, within ARCH_ROW_TOL a row of
+      `forward_logits` (the all-reduce sums bf16 partials in another order);
+    - teacher-forced int8 decode (128-token prefill, 16 steps) on the tp W
+      rank-local tree under a decode mesh against the one replica's, rows
+      within ARCH_ROW_TOL; 32 greedy int8 steps, parting from the one
+      replica's stream only at a near tie (top-2 gap within twice the
+      step's distance on the same history); the tp W int8 engine on the 16
+      requests: `run_pipelined(16)` equal to the sequential `step_n(16)`,
+      every first token that differs from the one replica's at a near tie,
+      the streams equal to the one replica's and where each first differs
+      reported (random weights tie often in bf16, PR 17);
+    - `ag_matmul` / `rs_matmul` at tp W (gate [4096, 14336] column shards,
+      down [14336, 4096] row shards, 512 rows) against `qmatmul` on the
+      whole weight, 1e-2 of max|ref| (bf16);
+    - the tp-overlap forward [1, 512], the pipeline (pp W, 2 microbatches
+      of [2, 128]) and ring attention (sp W, [1, 2048]) against
+      `forward_logits`, within ARCH_ROW_TOL a row; the sp PPL within
+      EVAL_LN_PPL_TOL;
+    - the LWC step at tp W (2 layers, [2, 2048 + 1], B7.stats/dkv/dq)
+      against the one-replica step: losses within 1e-2 relative;
+    - sharded GPTQ of down at tp W: codes gathered against the one-rank
+      solve (equal codes counted); a sharded checkpoint at tp W bit for bit;
+    - `measure_scaling` at 1, 2, 4 (8) cards up to W (tp = n): tok/s and
+      efficiency, beside the card."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from llama3_quantization_tpu_torch import parallel as PP
+    from llama3_quantization_tpu_torch.benchmarks import measure_scaling
+    from llama3_quantization_tpu_torch.eval.ppl import compute_ppl, sp_windowed_nll_fn
+    from llama3_quantization_tpu_torch.models.hf_loader import (
+        load_checkpoint_sharded,
+        save_checkpoint_sharded,
+    )
+    from llama3_quantization_tpu_torch.ops import collectives as C
+    from llama3_quantization_tpu_torch.parallel import mesh as M, train
+    from llama3_quantization_tpu_torch.parallel.sharding import _col_qtensor, _Cut, _row_qtensor
+    from llama3_quantization_tpu_torch.quant.gptq import (
+        gptq_quantize_weight,
+        hessian_init,
+        hessian_update,
+    )
+    from llama3_quantization_tpu_torch.utils.pytree_io import _unflatten, tree_leaves
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    say = log if rank == 0 else (lambda msg: None)
+    counts = {}
+    t_phase = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    cfg = dataclasses.replace(P.LLAMA3_8B, num_layers=MULTI_RANK_LAYERS)
+    fp, params = build_rtn_cfg(P, cfg, SEED + 20)
+    down_fp = fp["layers"]["down"]["w"][0].float()
+    del fp
+    torch.cuda.empty_cache()
+    say(f"  world of {world} ({dist.get_backend()}), {MULTI_RANK_LAYERS} layers at 8B width  "
+        f"[{card}]")
+
+    def check_rows(name, got, ref, bound=ARCH_ROW_TOL):
+        r = logit_rows(got, ref)
+        say(f"  {name}: max over rows of max|d logit| / max|logit| {r:.3e} (bound {bound:g})")
+        if not r <= bound:
+            raise AssertionError(f"{name}: {r} above {bound}")
+        return r
+
+    # forwards at every (dp, tp)
+    toks = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen, device="cuda")
+    ref = P.forward_logits(params, toks, cfg)
+    for dp, tp in ((1, world), (2, world // 2), (world, 1)):
+        mesh = PP.make_mesh(dp=dp, tp=tp)
+        local = PP.shard_params(params, mesh, cfg)
+        got = run_counted(counts, f"make_sharded_forward dp {dp} tp {tp} [4,128]",
+                          lambda: PP.make_sharded_forward(cfg, mesh)(local, toks),
+                          must=("B2", "B7"))
+        if not all_ranks_equal(got):
+            raise AssertionError(f"dp {dp} tp {tp}: ranks returned different logits")
+        check_rows(f"sharded forward dp {dp} x tp {tp} [4,128] vs forward_logits "
+                   f"(every rank the same logits)", got, ref)
+        del local, got
+
+    mesh = PP.make_mesh(dp=1, tp=world)
+    local = PP.shard_params(params, mesh, cfg)
+    group = mesh.get_group("tp")
+
+    # decode and serving under the decode mesh
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+    cont = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device="cuda")
+    P.set_decode_mesh(mesh)
+    try:
+        got = run_counted(counts, f"teacher-forced int8 decode tp {world}",
+                          lambda: teacher_forced(P, local, cfg, prompt, cont, 8), must=("B1", "B5"))
+        want = teacher_forced(P, params, cfg, prompt, cont, 8)
+        check_rows(f"int8 decode tp {world} (16 steps) vs one replica", got, want)
+
+        def greedy(tree):
+            cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
+            lg, cache = P.decode_step(tree, cache, prompt, 0, cfg)
+            tok0 = lg[:, -1].argmax(dim=-1)[:, None]
+            out, _ = P.greedy_generate(tree, cache, tok0, prompt.shape[1], 32, cfg)
+            return torch.cat([tok0, out], dim=1)
+
+        def rows_along(tree, stream):  # the logits that pick stream[0..n-1]
+            cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
+            lg, _ = P.decode_step(tree, cache, prompt, 0, cfg)
+            rows = [lg[0, -1]]
+            for j in range(stream.shape[1] - 1):
+                lg, _ = P.decode_step(tree, cache, stream[:, j:j + 1], prompt.shape[1] + j, cfg)
+                rows.append(lg[0, 0])
+            return torch.stack(rows).float()
+
+        s_tp = run_counted(counts, f"greedy_generate int8 tp {world}, 32 steps",
+                           lambda: greedy(local), must=("B1", "B5"))
+        s_one = greedy(params)
+        apart = (s_tp != s_one)[0].nonzero()
+        if apart.numel():
+            # a stream may part only where the one replica's top two are within
+            # twice the tp model's distance from it on the same history
+            i = int(apart[0, 0])
+            r_one, r_tp = rows_along(params, s_one)[i], rows_along(local, s_one)[i]
+            top2 = r_one.topk(2).values
+            gap, dist_i = float(top2[0] - top2[1]), float((r_one - r_tp).abs().max())
+            say(f"  greedy int8 tp {world}, 33 tokens: parts from the one replica at step {i}, "
+                f"top-2 gap {gap:.4e} against twice the step's distance {2 * dist_i:.4e}")
+            if not gap <= 2 * dist_i:
+                raise AssertionError(f"greedy tp {world} parts at step {i} beyond a near tie")
+        else:
+            say(f"  greedy int8 tp {world}, 33 tokens: equal to the one replica's")
+        reqs = serve_requests(16, cfg.vocab_size)
+        eng = P.ServingEngine(local, cfg, max_slots=8, max_len=512, schedule="ljf",
+                              quantized_cache=8)
+        streams, secs = run_counted(counts, f"ServingEngine int8 tp {world}, run_pipelined(16)",
+                                    lambda: timed(lambda: pipelined_streams(eng, reqs, 16)),
+                                    must=("B1", "B5"))
+        seq = P.ServingEngine(local, cfg, max_slots=8, max_len=512, schedule="ljf",
+                              quantized_cache=8)
+        if sequential_streams(seq, reqs, 16) != streams:
+            raise AssertionError(f"engine tp {world}: run_pipelined differs from step_n")
+        one = P.ServingEngine(params, cfg, max_slots=8, max_len=512, schedule="ljf",
+                              quantized_cache=8)
+        ones = pipelined_streams(one, reqs, 16)
+        check_streams(f"engine tp {world}", streams, reqs, cfg.vocab_size)
+        same = sum(a == b for a, b in zip(streams, ones))
+        # a stream parting at its first token parts at the prefill: the one
+        # replica's top two there must be within twice the tp model's distance
+        ties = []
+        for prompt_i, _ in sorted(reqs, key=lambda r: r[1]):
+            t = torch.tensor([prompt_i], device="cuda")
+            lo, lt = (P.decode_step(tree, P.init_kv_cache(cfg, 1, 512, quantized=8), t, 0,
+                                    cfg)[0][0, -1].float() for tree in (params, local))
+            if int(lo.argmax()) != int(lt.argmax()):
+                top2 = lo.topk(2).values
+                ties.append((float(top2[0] - top2[1]), 2 * float((lo - lt).abs().max())))
+        say(f"  engine tp {world}: run_pipelined == step_n; first tokens differing from the "
+            f"one replica's {len(ties)}, each at a near tie (top-2 gap, twice the distance): "
+            f"{[(f'{g:.3e}', f'{d:.3e}') for g, d in ties]}")
+        if not all(g <= d for g, d in ties):
+            raise AssertionError(f"engine tp {world}: a first token parts beyond a near tie")
+        parted = sorted(next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+                        for a, b in zip(streams, ones))
+        n_tok = sum(map(len, streams))
+        say(f"  engine int8 tp {world}: {n_tok} tokens in {secs:.2f} s ({n_tok / secs:.1f} tok/s), "
+            f"{same} of 16 streams equal to the one replica's, first differing token of each "
+            f"(sorted) {parted}  [{card}]")
+        del eng, one
+    finally:
+        P.set_decode_mesh(None)
+
+    # the ring collective matmuls
+    cut = _Cut(world, rank)
+    wg = rand_weights(P, 4096, 14336, 1, gen)[0]
+    wd = rand_weights(P, 14336, 4096, 1, gen)[0]
+    x = torch.randn((512, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    xd = torch.randn((512, 14336), generator=gen, device="cuda").to(torch.bfloat16)
+    s_loc, k_loc = 512 // world, 14336 // world
+    ag = run_counted(counts, f"ag_matmul tp {world}", lambda: PP.ag_matmul(
+        x[rank * s_loc:(rank + 1) * s_loc].contiguous(), _col_qtensor(wg, cut), group),
+        must=("B2",))
+    rs = run_counted(counts, f"rs_matmul tp {world}", lambda: PP.rs_matmul(
+        xd[:, rank * k_loc:(rank + 1) * k_loc].contiguous(), _row_qtensor(wd, cut), group),
+        must=("B2",))
+    ref_ag = P.qmatmul(x, wg)[:, rank * (14336 // world):(rank + 1) * (14336 // world)]
+    ref_rs = P.qmatmul(xd, wd)[rank * s_loc:(rank + 1) * s_loc]
+    for name, g, r in (("ag_matmul gate col shards", ag, ref_ag),
+                       ("rs_matmul down row shards", rs, ref_rs)):
+        err = float((g.float() - r.float()).abs().max()) / float(r.float().abs().max())
+        say(f"  {name} tp {world} [512 rows] vs qmatmul: max|d| / max|ref| {err:.3e} (bound 1e-2)")
+        if not err <= 1e-2:
+            raise AssertionError(f"{name}: {err}")
+
+    # tp-overlap, pipeline, ring attention
+    t512 = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen, device="cuda")
+    got = run_counted(counts, f"tp_overlap tp {world} [1,512]",
+                      lambda: PP.make_tp_overlap_forward(cfg, mesh)(local, t512), must=("B2", "B7"))
+    check_rows(f"tp-overlap forward tp {world} [1,512] vs forward_logits", got,
+               P.forward_logits(params, t512, cfg))
+    pmesh = M.named_mesh((world,), ("pp",))
+    stage = PP.shard_params_pipeline(params, pmesh, cfg)
+    got = run_counted(counts, f"pipeline pp {world}",
+                      lambda: PP.make_pipeline_forward(cfg, pmesh, 2)(stage, toks), must=("B2", "B7"))
+    check_rows(f"pipeline pp {world}, 2 microbatches of [2,128] vs forward_logits", got, ref)
+    smesh = M.named_mesh((world,), ("sp",))
+    t2k = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    got = run_counted(counts, f"sp forward sp {world}",
+                      lambda: PP.make_sp_forward(cfg, smesh)(params, t2k), must=("B2",))
+    check_rows(f"ring attention sp {world} [1,2048] vs forward_logits", got,
+               P.forward_logits(params, t2k, cfg))
+    stream = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2048 * 2))
+    a = compute_ppl(params, cfg, stream, seqlen=2048)
+    b = run_counted(counts, f"sp PPL sp {world}", lambda: compute_ppl(
+        params, cfg, stream, seqlen=2048, step_fn=sp_windowed_nll_fn(cfg, smesh)), must=("B2",))
+    d = abs(math.log(a) - math.log(b))
+    say(f"  sp PPL sp {world}, 2 x 2048: {b:.4f} vs {a:.4f}, |d ln PPL| {d:.3e} "
+        f"(limit {EVAL_LN_PPL_TOL:g})")
+    if not d <= EVAL_LN_PPL_TOL:
+        raise AssertionError(f"sp PPL {b} vs {a}")
+    del got, stage
+
+    # the LWC step
+    cfg2 = dataclasses.replace(P.LLAMA3_8B, num_layers=2)
+    fp2 = P.init_params(cfg2, torch.Generator(device="cuda").manual_seed(SEED + 21))
+    wspec = P.QuantSpec(n_bits=4, group_size=GS, lwc=True)
+    ttoks = torch.randint(0, cfg2.vocab_size, (2, 2049), generator=gen, device="cuda")
+
+    def lwc_loss(tree, m):
+        lwc = train.init_model_lwc(tree, cfg2, wspec)
+        opt, step = train.make_lwc_train_step(cfg2, m, wspec)
+        state, losses = opt.init(lwc), []
+        for _ in range(2):
+            lwc, state, loss = step(lwc, state, tree, ttoks)
+            losses.append(float(loss))
+        return losses
+
+    (loss_tp, secs) = run_counted(counts, f"LWC step tp {world}", lambda: timed(
+        lambda: lwc_loss(PP.shard_params(fp2, mesh, cfg2), mesh)),
+        must=("B7.stats", "B7.dkv", "B7.dq"))
+    loss_one = None
+    for r in range(world):  # every rank's one-replica mesh, made collectively
+        m1 = PP.make_mesh(dp=1, tp=1, devices=[r])
+        if r == rank:
+            loss_one = lwc_loss(PP.shard_params(fp2, m1, cfg2), m1)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(loss_tp, loss_one))
+    say(f"  LWC step tp {world}: {secs / 2:.2f} s a step, losses {loss_tp} vs one replica "
+        f"{loss_one} (max rel {rel:.3e}, limit 1e-2)  [{card}]")
+    if not rel <= 1e-2:
+        raise AssertionError(f"LWC tp {world}: {loss_tp} vs {loss_one}")
+    del fp2
+    torch.cuda.empty_cache()
+
+    # sharded GPTQ
+    hs = hessian_init(14336, device="cuda")
+    hs = hessian_update(hs, torch.randn((2, 512, 14336), generator=gen, device="cuda"))
+    tmesh = M.named_mesh((world,), ("tp",))
+    spec = P.QuantSpec(n_bits=4, group_size=GS)
+    (qt, err), secs = timed(lambda: PP.sharded_gptq_quantize_weight(down_fp, hs.H, spec, tmesh,
+                                                                    pack=True))
+    parts = [torch.empty_like(qt.data) for _ in range(world)]
+    dist.all_gather(parts, qt.data)
+    codes = torch.cat(parts, dim=-1)
+    (qr, er), secs1 = timed(lambda: gptq_quantize_weight(down_fp, hs.H, spec, pack=True))
+    equal = float((codes == qr.data).float().mean())
+    say(f"  sharded GPTQ down tp {world}: {secs:.2f} s ({secs1:.2f} s on one rank), packed code "
+        f"bytes equal to the one-rank solve {equal:.6f}, err {float(err):.6e} vs {float(er):.6e}")
+
+    # a sharded checkpoint
+    tmp = tempfile.mkdtemp(prefix="l3q_dcp_mr_") if rank == 0 else None
+    box = [tmp]
+    dist.broadcast_object_list(box, 0)
+    try:
+        save_checkpoint_sharded(local, os.path.join(box[0], "ckpt"))
+        body = {k: v for k, v in local.items() if k != "shard"}
+        like = _unflatten(body, iter(torch.zeros_like(t) for t in tree_leaves(body)))
+        like["shard"] = local["shard"]
+        back = load_checkpoint_sharded(os.path.join(box[0], "ckpt"), like)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(body), tree_leaves({k: v for k, v in back.items() if k != "shard"})))
+        flag = torch.tensor([float(same)], device="cuda")
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        say(f"  sharded checkpoint tp {world}: every rank's leaves bit-equal {bool(flag.item())}")
+        if not flag.item():
+            raise AssertionError("the sharded checkpoint did not round-trip")
+    finally:
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(box[0], ignore_errors=True)
+
+    # scaling
+    res = measure_scaling(params, cfg, device_counts=tuple(n for n in (1, 2, 4, 8) if n <= world))
+    say(f"  measure_scaling {MULTI_RANK_LAYERS} layers, [2n, 128] (tp n): {json.dumps(res)}  "
+        f"[{card}]")
+    say(f"--multi-rank ({world} ranks) in {time.time() - t_phase:.1f} s  [{card}]")
+    return sum_counts(counts) if rank == 0 else None
+
+
+def multi_rank_main(rank, world, port, card, q):
+    """One rank of `--multi-rank`: NCCL on card `rank`."""
+    import torch
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import llama3_quantization_tpu_torch as P
+    from llama3_quantization_tpu_torch.parallel import distributed
+
+    try:
+        distributed.init_distributed(f"127.0.0.1:{port}", world, rank)
+        total = drive_multi_rank(P, card)
+        q.put((rank, True, total))
+    except BaseException:  # reported by the parent, which fails with it
+        import traceback
+
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_multi_rank(card) -> dict:
+    """Spawn one rank a card, wait for all, fail if any failed."""
+    import multiprocessing as mp
+
+    import torch
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        raise AssertionError(f"--multi-rank needs 2 or more cards, found {world}")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=multi_rank_main, args=(r, world, port, card, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, ok, val = q.get(timeout=1500)
+            results[rank] = (ok, val)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    bad = {r: v for r, (ok, v) in results.items() if not ok}
+    if bad or len(results) != world:
+        raise AssertionError(f"--multi-rank failed on ranks {sorted(bad)}:\n" +
+                             "\n".join(bad.values()))
+    return results[0][1]
+
+
 def clock_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
@@ -4785,6 +5542,14 @@ def main() -> int:
                     help="only build and check the kernels (T0-3B's shapes among them), then "
                          "phase 13 (the T5 trunk at T0-3B width and depth, its GPTQ, LM, CLI "
                          "and profile)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only build and check the kernels (phase 14's shard shapes among "
+                         "them), then phase 14 (parallelism on a world of one NCCL rank at "
+                         "Llama-3-8B width)")
+    ap.add_argument("--multi-rank", action="store_true",
+                    help="only build the kernels, then the parallel paths across every card of "
+                         "the machine, one NCCL rank a card, against one replica (needs 2 or "
+                         "more cards)")
     ap.add_argument("--microbench", action="store_true",
                     help="only check, drive and time the weight-stream probes B8-B10 through "
                          "the microbench entry points")
@@ -4833,6 +5598,14 @@ def main() -> int:
     if args.serve_profile:
         serve_profile(P, card)
         return 0
+    if args.multi_rank:
+        total = run_multi_rank(card)
+        log(f"launches on rank 0: {json.dumps(total)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
     if args.decode_drift:
         params = build_rtn_params(P)
         decode_drift(P, params, P.LLAMA3_8B, card)
@@ -4869,6 +5642,7 @@ def main() -> int:
     check_c2(P)
     check_arch_kernels(P, gen, errs)
     check_t5_kernels(P, gen, errs)
+    check_parallel_kernels(P, gen, errs)
     torch.cuda.synchronize()
     if args.kernels_only:
         log("kernel checks passed")
@@ -4901,6 +5675,13 @@ def main() -> int:
         return 0
     if args.seq2seq:
         total = drive_seq2seq(P, card)
+        log(f"launches: {json.dumps(total)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        }}), flush=True)
+        return 0
+    if args.parallel:
+        total = drive_parallel(P, card)
         log(f"launches: {json.dumps(total)}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
@@ -4945,6 +5726,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.append(drive_archs(P, card))
     paths.append(drive_seq2seq(P, card))
+    paths.append(drive_parallel(P, card))
     paths.append(drive_microbench(P, card))
     total = {key: sum(p[key] for p in paths) for key in paths[0]}
     log(f"launches over all paths: {json.dumps(total)}")

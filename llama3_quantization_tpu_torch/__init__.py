@@ -48,6 +48,7 @@ from .models.transformer import (
     sample_logits,
     set_decode_attn,
     set_decode_kernel,
+    set_decode_mesh,
     set_flash,
     set_moe_capacity,
     set_stacked_decode,
@@ -100,7 +101,7 @@ __all__ = [
     "quantize_seq2seq_rtn",
     "recode_head_s4", "recode_head_s8", "recode_model_s8", "recode_s8_percol", "resolve_device",
     "s4_matmul", "s4w_matmul", "sample_generate", "sample_logits", "set_backend",
-    "set_decode_attn", "set_decode_kernel", "set_flash", "set_moe_capacity", "set_stacked_decode",
+    "set_decode_attn", "set_decode_kernel", "set_decode_mesh", "set_flash", "set_moe_capacity", "set_stacked_decode",
     "set_windowed_decode", "speculative_generate", "unpack_subbyte", "windowed_ok",
     "xla_decode_gqa_s8", "xla_decode_gqa_s8_stacked",
 ]

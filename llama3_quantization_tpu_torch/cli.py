@@ -25,9 +25,18 @@ The matmul backend is the port's default, `pallas` (JAX's default is
 `xla`; `ops.matmul.backend("xla")` around `main` gives JAX's route).
 `--tasks` takes any of JAX's registry names and patterns
 (`eval/harness/tasks`), rolls MMLU subjects up as JAX does, and passes
-`--decontamination_ngrams_path` to `simple_evaluate`. What the port cannot
-do yet exits with the ROADMAP item it waits for, before any model is
-loaded: `--tp`, `--dp` and `--sp` (A 5).
+`--decontamination_ngrams_path` to `simple_evaluate`; a task name that
+matches nothing exits before any model is loaded.
+
+`--tp` / `--dp` shard the model over a (dp, tp) mesh of the process group
+(`parallel.make_mesh`; JAX's `ValueError` where dp * tp is not the world
+size) after it is loaded and quantized, and set the decode mesh: every rank
+loads, shards and evaluates. `--sp N` runs the PPL under ring attention
+over the first N ranks (`eval.ppl.sp_windowed_nll_fn`). Under torchrun each
+process is a rank (`torchrun --nproc_per_node 2 -m llama3_quantization_tpu_
+torch.cli --tp 2 ...`; NCCL on the card, gloo with `--device cpu`); without
+torchrun's environment a world of one starts on its own. `--save_dir`
+writes the whole tree, from rank 0.
 """
 
 from __future__ import annotations
@@ -113,20 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: flags whose paths the port does not have yet -> the ROADMAP item they wait for
-UNPORTED_FLAGS = {
-    "tp": "A 5 (parallelism)",
-    "dp": "A 5 (parallelism)",
-    "sp": "A 5 (parallelism)",
-}
-
-
 def refuse_unported(args) -> None:
-    """Exit before any work on a flag the port cannot run yet, or on a task
-    name that matches nothing."""
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag} is not ported yet: it waits for ROADMAP {item}")
+    """Exit before any work on a task name that matches nothing."""
     if args.tasks:
         check_tasks([t for t in args.tasks.split(",") if t])
 
@@ -256,6 +253,13 @@ def _main_seq2seq(args, params, cfg):
     return None
 
 
+def _rank0() -> bool:
+    """Is this process rank 0 of its process group, or in none?"""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
@@ -340,10 +344,29 @@ def main(argv=None):
         mm.set_backend("a8")
         print("[cli] serving recode: per-column s8 weights, a8 backend", file=sys.stderr)
         if args.fuse_decode:
+            if args.tp or args.dp:
+                raise SystemExit("--fuse_decode is single-replica only (no --tp/--dp)")
             from .quant.serving import fuse_for_decode
 
             params = fuse_for_decode(params, cfg)
             print("[cli] fused qkv + gate/up projections", file=sys.stderr)
+
+    full_params = params
+    if args.tp or args.dp or args.sp:
+        from .parallel.distributed import init_distributed
+
+        init_distributed(device=args.device)
+    if args.tp or args.dp:
+        from .models.transformer import set_decode_mesh
+        from .parallel import make_mesh, shard_params
+        from .parallel.mesh import mesh_shape
+
+        mesh = make_mesh(dp=args.dp, tp=args.tp, device=args.device)
+        params = shard_params(params, mesh, cfg)
+        # the decode kernels run on each rank's rows and KV groups; shapes
+        # that do not divide the mesh take the eager attention
+        set_decode_mesh(mesh)
+        print(f"[cli] sharded over mesh {mesh_shape(mesh)}", file=sys.stderr)
 
     results = {}
     if args.eval_ppl:
@@ -360,8 +383,21 @@ def main(argv=None):
                                          tokenizer=tokenizer)
                 streams[ds] = np.asarray(testenc)
         limit = None if args.limit == -1 else args.limit
-        results.update(eval_ppl_suite(params, cfg, streams, seqlen=args.seqlen, rq=rq,
-                                      limit=limit))
+        if args.sp:
+            from .eval.ppl import compute_ppl, sp_windowed_nll_fn
+            from .parallel.mesh import in_mesh, named_mesh
+
+            smesh = named_mesh((args.sp,), ("sp",), ranks=range(args.sp), device=args.device)
+            # ranks past the first sp (if any) run the one-replica step: same PPL
+            step_fn = sp_windowed_nll_fn(cfg, smesh, rq=rq) if in_mesh(smesh) else None
+            print(f"[cli] PPL under ring attention, sp={args.sp}", file=sys.stderr)
+            results.update({
+                name: compute_ppl(full_params, cfg, enc, args.seqlen, rq, limit, step_fn=step_fn)
+                for name, enc in streams.items()
+            })
+        else:
+            results.update(eval_ppl_suite(params, cfg, streams, seqlen=args.seqlen, rq=rq,
+                                          limit=limit))
         for k, v in results.items():
             print(f"[cli] {k} ppl = {v:.4f}", file=sys.stderr)
 
@@ -391,13 +427,13 @@ def main(argv=None):
             for k, v in roll.items():
                 print(f"[cli] {k} = {v:.4f}", file=sys.stderr)
 
-    if args.save_dir:
+    if args.save_dir and _rank0():
         from .models.hf_loader import save_checkpoint
 
-        save_checkpoint(params, cfg, args.save_dir)
+        save_checkpoint(full_params, cfg, args.save_dir)
         print(f"[cli] saved to {args.save_dir}", file=sys.stderr)
 
-    if args.output_json:
+    if args.output_json and _rank0():
         with open(args.output_json, "w") as f:
             json.dump(results, f, indent=2, default=str)
         print(f"[cli] results written to {args.output_json}", file=sys.stderr)

@@ -11,8 +11,11 @@ so the `[S, vocab]` fp32 logits never exist whole. Every window runs under
 takes the port's routes (B2 for the linears of a [1, 2048] window under
 the "pallas" backend, B7 for its attention), on weights padded once per
 `compute_ppl` call where a kernel does not take their shape
-(`ops/padding.py`). `sp_windowed_nll_fn`, the
-sequence-parallel step, waits for the port's ring attention.
+(`ops/padding.py`). `sp_windowed_nll_fn` is the sequence-parallel step:
+the window split over an `sp` mesh under ring attention
+(`parallel/ring_attention.py`). On a rank-local tree (`parallel.
+shard_params`) the forward runs tensor parallel and every rank computes
+the same PPL.
 """
 
 from __future__ import annotations
@@ -57,6 +60,29 @@ def windowed_nll_fn(cfg: ModelConfig, rq: RuntimeQuantConfig = NO_QUANT,
             shift_t = tokens[:, 1:]
             ce_sum = _chunked_nll(params, hidden[:, :-1, :], shift_t, cfg, chunk)
             return ce_sum / shift_t.numel() * tokens.shape[1]
+
+    return step
+
+
+def sp_windowed_nll_fn(
+    cfg: ModelConfig,
+    mesh,
+    rq: RuntimeQuantConfig = NO_QUANT,
+    chunk: int = 512,
+) -> Callable:
+    """The sequence-parallel per-window NLL step (`eval/ppl.py:76-96`): the
+    trunk under ring attention with the window split over the mesh's `sp`
+    axis (per-rank attention [S/sp, S/sp]), the hidden states gathered, the
+    window math of `windowed_nll_fn`."""
+    from ..parallel.ring_attention import make_sp_forward
+
+    hidden_fn = make_sp_forward(cfg, mesh, rq, return_hidden=True)
+
+    def step(params, tokens: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            hidden = hidden_fn(params, tokens)
+            ce_sum = _chunked_nll(params, hidden[:, :-1, :], tokens[:, 1:], cfg, chunk)
+            return ce_sum / tokens[:, 1:].numel() * tokens.shape[1]
 
     return step
 

@@ -16,8 +16,10 @@ equal by `tests/test_torch_checkpoint.py`.
 (`utils/pytree_io.py`, leaf i of the tree in JAX's order as `leaf_{i}`,
 QuantizedTensors included) and `manifest.json` with the config, so a
 directory either package writes loads in the other. JAX's orbax
-checkpoints (`save_checkpoint_orbax`, sharded pod saves) wait for
-`torch.distributed.checkpoint` (ROADMAP A 5). As in JAX,
+checkpoints (`save_checkpoint_orbax`, sharded pod saves) are
+`save_checkpoint_sharded` / `load_checkpoint_sharded` here, over
+`torch.distributed.checkpoint`: each rank saves and restores its own
+shards of a rank-local tree (JAX's orbax directories are not read). As in JAX,
 `save_hf_checkpoint` writes the llama and OPT families only.
 """
 
@@ -444,3 +446,48 @@ def load_checkpoint(path: str, params_like) -> Any:
     from ..utils.pytree_io import load_pytree_npz
 
     return load_pytree_npz(os.path.join(path, "params.npz"), params_like)
+
+
+def _rank_state(params):
+    """(this rank's leaves keyed `rank{r}.leaf_{i}`, in JAX's leaf order
+    with QuantizedTensor fields; the tree without its `Shard`)."""
+    import torch.distributed as dist
+
+    from ..ops.collectives import SHARD_KEY
+    from ..utils.pytree_io import tree_leaves
+
+    tree = {k: v for k, v in params.items() if k != SHARD_KEY}
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return {f"rank{rank}.leaf_{i}": t for i, t in enumerate(tree_leaves(tree))}, tree
+
+
+def save_checkpoint_sharded(params, path: str) -> None:
+    """Save a parameter tree, rank-local or whole, with
+    `torch.distributed.checkpoint` (JAX `save_checkpoint_orbax`,
+    `hf_loader.py:448-456`): every rank of the process group calls it and
+    writes its own leaves (QuantizedTensor fields included) into `path`."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    state, _ = _rank_state(params)
+    dcp.save(state, checkpoint_id=os.path.abspath(path), no_dist=not dist.is_initialized())
+
+
+def load_checkpoint_sharded(path: str, params_like):
+    """Restore what `save_checkpoint_sharded` wrote into the structure of
+    `params_like` (JAX `load_checkpoint_orbax`, `:459-466`): each rank
+    reads its own leaves, on the device and in the dtype of the leaf of
+    `params_like` each replaces; a rank-local `params_like` keeps its `Shard`."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    from ..ops.collectives import SHARD_KEY
+    from ..utils.pytree_io import _unflatten
+
+    like, tree = _rank_state(params_like)
+    state = {k: torch.empty_like(v) for k, v in like.items()}
+    dcp.load(state, checkpoint_id=os.path.abspath(path), no_dist=not dist.is_initialized())
+    out = _unflatten(tree, iter(state[k] for k in like))
+    if SHARD_KEY in params_like:
+        out[SHARD_KEY] = params_like[SHARD_KEY]
+    return out

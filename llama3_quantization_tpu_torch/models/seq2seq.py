@@ -32,6 +32,12 @@ Generation: `greedy_generate_seq2seq` re-runs the decoder over a fixed
 `greedy_generate_seq2seq_cached` computes the encoder and the cross K/V
 once and appends each step's self K/V into a preallocated cache, which
 `decode_step_seq2seq` updates in place.
+
+A rank-local tree (`parallel.shard_params_seq2seq`) runs tensor parallel
+with no further call: each rank's heads (the columns of q/k/v/cq/ck/cv and
+wi*) with their columns of the relative-position bias, o, co and wo
+all-reduced, an untied head's vocab shards gathered; the cached state holds
+the rank's heads. `forward_logits_seq2seq` splits its batch over dp.
 """
 
 from __future__ import annotations
@@ -46,6 +52,15 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops.collectives import (
+    copy_tp,
+    gather_rows,
+    gather_tp,
+    local_rows,
+    reduce_tp,
+    row_parallel_input,
+    shard_of,
+)
 from ..ops.matmul import qlinear
 from ..quant.qtensor import quantize_rtn
 from .params import stack_qtensors
@@ -133,6 +148,21 @@ def _attend(q, k, v, bias_mask, dtype):
     return torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, h * dk)
 
 
+def _row(x: torch.Tensor, w, rq: RuntimeQuantConfig, tp) -> torch.Tensor:
+    """A row-parallel linear (o, co, wo): the rank's partial product,
+    all-reduced over tp."""
+    with row_parallel_input(tp):
+        return reduce_tp(qlinear(x, w, None, rq.act), tp)
+
+
+def _rank_heads(bias: torch.Tensor, cfg: Seq2SeqConfig, tp) -> torch.Tensor:
+    """The columns of a `[*, H, ...]` bias (axis 1) of a tp rank's heads."""
+    if tp is None or tp.tp == 1 or bias is None or bias.shape[1] != cfg.num_heads:
+        return bias
+    n = cfg.num_heads // tp.tp
+    return bias[:, tp.tp_rank * n : (tp.tp_rank + 1) * n]
+
+
 def _t5_attention(
     p: Params,
     x: torch.Tensor,  # [B, S, D] queries
@@ -141,23 +171,25 @@ def _t5_attention(
     cfg: Seq2SeqConfig,
     rq: RuntimeQuantConfig,
     prefix: str = "",
+    tp=None,
 ) -> torch.Tensor:
     b, s, _ = x.shape
     t = kv.shape[1]
-    h, dk = cfg.num_heads, cfg.d_kv
-    q = qlinear(x, p[prefix + "q"], None, rq.act).reshape(b, s, h, dk)
-    k = qlinear(kv, p[prefix + "k"], None, rq.act).reshape(b, t, h, dk)
-    v = qlinear(kv, p[prefix + "v"], None, rq.act).reshape(b, t, h, dk)
-    return qlinear(_attend(q, k, v, bias_mask, x.dtype), p[prefix + "o"], None, rq.act)
+    dk = cfg.d_kv
+    x, kv = copy_tp(x, tp), copy_tp(kv, tp)
+    q = qlinear(x, p[prefix + "q"], None, rq.act).reshape(b, s, -1, dk)
+    k = qlinear(kv, p[prefix + "k"], None, rq.act).reshape(b, t, -1, dk)
+    v = qlinear(kv, p[prefix + "v"], None, rq.act).reshape(b, t, -1, dk)
+    return _row(_attend(q, k, v, _rank_heads(bias_mask, cfg, tp), x.dtype), p[prefix + "o"], rq, tp)
 
 
-def _t5_mlp(p: Params, x: torch.Tensor, cfg: Seq2SeqConfig, rq: RuntimeQuantConfig):
+def _t5_mlp(p: Params, x: torch.Tensor, cfg: Seq2SeqConfig, rq: RuntimeQuantConfig, tp=None):
+    x = copy_tp(x, tp)
     if cfg.gated_act:
         g = F.gelu(qlinear(x, p["wi0"], None, rq.act), approximate="tanh")
         u = qlinear(x, p["wi1"], None, rq.act)
-        return qlinear(g * u, p["wo"], None, rq.act)
-    hdn = F.relu(qlinear(x, p["wi"], None, rq.act))
-    return qlinear(hdn, p["wo"], None, rq.act)
+        return _row(g * u, p["wo"], rq, tp)
+    return _row(F.relu(qlinear(x, p["wi"], None, rq.act)), p["wo"], rq, tp)
 
 
 def _pad_mask(toks: torch.Tensor, pad_id: int) -> torch.Tensor:
@@ -182,7 +214,8 @@ def _head(params: Params, h: torch.Tensor, cfg: Seq2SeqConfig, rq: RuntimeQuantC
     if cfg.tie_word_embeddings:
         h = h * (cfg.d_model ** -0.5)
         return torch.einsum("btd,vd->btv", h, params["shared"].to(h.dtype))
-    return qlinear(h, params["lm_head"], None, rq.act)
+    tp = shard_of(params)
+    return gather_tp(qlinear(copy_tp(h, tp), params["lm_head"], None, rq.act), tp)
 
 
 def encode(
@@ -197,13 +230,14 @@ def encode(
     bias = _position_bias(params["enc_rel"], s, s, True, cfg, torch.float32)
     bm = bias if enc_mask is None else bias + enc_mask
     eps = cfg.layer_norm_eps
+    tp = shard_of(params)
     layers = params["enc"]["layers"]
     for l in range(cfg.num_layers):
         lp = _layer_params(layers, l)
         x = _rms(lp["ln1"], h, eps)
-        h = h + _t5_attention(lp, x, x, bm, cfg, rq)
+        h = h + _t5_attention(lp, x, x, bm, cfg, rq, tp=tp)
         x = _rms(lp["ln2"], h, eps)
-        h = h + _t5_mlp(lp, x, cfg, rq)
+        h = h + _t5_mlp(lp, x, cfg, rq, tp)
     return _rms(params["enc_ln"], h, eps)
 
 
@@ -220,15 +254,16 @@ def decode_logits(
     bias = _position_bias(params["dec_rel"], t, t, False, cfg, torch.float32)
     self_bm = bias + _causal(t, h.device)
     eps = cfg.layer_norm_eps
+    tp = shard_of(params)
     layers = params["dec"]["layers"]
     for l in range(cfg.num_decoder_layers):
         lp = _layer_params(layers, l)
         x = _rms(lp["ln1"], h, eps)
-        h = h + _t5_attention(lp, x, x, self_bm, cfg, rq)
+        h = h + _t5_attention(lp, x, x, self_bm, cfg, rq, tp=tp)
         x = _rms(lp["ln2"], h, eps)
-        h = h + _t5_attention(lp, x, enc_hidden, enc_mask, cfg, rq, prefix="c")
+        h = h + _t5_attention(lp, x, enc_hidden, enc_mask, cfg, rq, prefix="c", tp=tp)
         x = _rms(lp["ln3"], h, eps)
-        h = h + _t5_mlp(lp, x, cfg, rq)
+        h = h + _t5_mlp(lp, x, cfg, rq, tp)
     return _head(params, _rms(params["dec_ln"], h, eps), cfg, rq)
 
 
@@ -239,10 +274,15 @@ def forward_logits_seq2seq(
     cfg: Seq2SeqConfig,
     rq: RuntimeQuantConfig = NO_QUANT,
 ) -> torch.Tensor:
-    """Teacher-forced encoder + decoder forward (the harness scoring mode)."""
+    """Teacher-forced encoder + decoder forward (the harness scoring mode);
+    on a rank-local tree each dp rank runs its rows and every rank returns
+    all of them."""
+    tp = shard_of(params)
+    b = enc_toks.shape[0]
+    enc_toks, dec_toks = local_rows(enc_toks, tp), local_rows(dec_toks, tp)
     enc_mask = _pad_mask(enc_toks, cfg.pad_token_id)
     enc_h = encode(params, enc_toks, cfg, rq, enc_mask)
-    return decode_logits(params, dec_toks, enc_h, cfg, rq, enc_mask)
+    return gather_rows(decode_logits(params, dec_toks, enc_h, cfg, rq, enc_mask), tp, b)
 
 
 def greedy_generate_seq2seq(
@@ -435,7 +475,8 @@ def init_seq2seq_state(
     dk]`), and allocate the self cache `[L, B, max_new + 1, H, dk]` in the
     activation dtype."""
     b, s = enc_toks.shape
-    h, dk = cfg.num_heads, cfg.d_kv
+    tp = shard_of(params)
+    h, dk = cfg.num_heads // (1 if tp is None else tp.tp), cfg.d_kv
     enc_mask = _pad_mask(enc_toks, cfg.pad_token_id)
     enc_h = encode(params, enc_toks, cfg, rq, enc_mask)
     layers = params["dec"]["layers"]
@@ -468,7 +509,8 @@ def decode_step_seq2seq(
     The step's self K/V are written into `state` in place; its attention
     covers all `t_max` cached positions, those after `pos` masked (-1e9)."""
     b = tok.shape[0]
-    h, dk = cfg.num_heads, cfg.d_kv
+    tp = shard_of(params)
+    h, dk = state["self_k"].shape[3], cfg.d_kv
     t_max = state["self_k"].shape[2]
     x = _embed(params, tok)  # [B, 1, D]
     eps = cfg.layer_norm_eps
@@ -477,7 +519,7 @@ def decode_step_seq2seq(
     buckets = _relative_position_bucket(mem - pos, False, cfg.rel_buckets, cfg.rel_max_distance)
     bias = params["dec_rel"][buckets.to(x.device).long()].T[None, :, None, :]
     causal = torch.where(mem <= pos, 0.0, NEG).float().to(x.device)
-    self_bm = bias.float() + causal  # [1, H, 1, T]
+    self_bm = _rank_heads(bias.float() + causal, cfg, tp)  # [1, H, 1, T]
     layers = params["dec"]["layers"]
     for l in range(cfg.num_decoder_layers):
         lp = _layer_params(layers, l)
@@ -486,15 +528,15 @@ def decode_step_seq2seq(
         q = qlinear(xa, lp["q"], None, rq.act).reshape(b, 1, h, dk)
         sk[:, pos] = qlinear(xa, lp["k"], None, rq.act).reshape(b, h, dk)
         sv[:, pos] = qlinear(xa, lp["v"], None, rq.act).reshape(b, h, dk)
-        x = x + qlinear(_attend(q, sk, sv, self_bm, x.dtype), lp["o"], None, rq.act)
+        x = x + _row(_attend(q, sk, sv, self_bm, x.dtype), lp["o"], rq, tp)
 
         xc = _rms(lp["ln2"], x, eps)
         qc = qlinear(xc, lp["cq"], None, rq.act).reshape(b, 1, h, dk)
         oc = _attend(qc, state["cross_k"][l], state["cross_v"][l], state["enc_mask"], x.dtype)
-        x = x + qlinear(oc, lp["co"], None, rq.act)
+        x = x + _row(oc, lp["co"], rq, tp)
 
         xm = _rms(lp["ln3"], x, eps)
-        x = x + _t5_mlp(lp, xm, cfg, rq)
+        x = x + _t5_mlp(lp, xm, cfg, rq, tp)
     return _head(params, _rms(params["dec_ln"], x, eps), cfg, rq), state
 
 

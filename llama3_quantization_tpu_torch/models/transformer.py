@@ -59,6 +59,17 @@ package as it runs with `set_decode_kernel("interpret")`:
 `RuntimeQuantConfig` carries the runtime fake-quant hooks (`:37-64`): `act`
 on every linear input, q/k before QK^T, p after the softmax, v before PV.
 The KV cache is updated IN PLACE.
+
+A rank-local tree (`parallel.shard_params`) runs every entry point tensor
+and data parallel with no further call (`ops/collectives.py`): heads and
+KV groups are the rank's own (taken from the shards' widths), `o`, `down`,
+`fc2` and the MoE's combined experts are all-reduced over tp, an untied
+head's vocab shards gathered; each dp rank runs its rows of a forward, and
+of a cached step the rows its cache holds (`cache_rows`: all of them, or
+its B/dp from `parallel.shard_kv_cache`), every rank returning every row.
+A cache holding all KV groups keeps the rank's (`localize_kv_groups`).
+`set_decode_mesh` is JAX's gate (`:323-353`): under it a step whose batch
+or KV heads do not divide the mesh takes the eager attention.
 """
 
 from __future__ import annotations
@@ -89,6 +100,17 @@ from ..ops.kvcache import (
     init_quantized_kv_cache,
     layer_view,
     true_div,
+)
+from ..ops.collectives import (
+    Shard,
+    copy_tp,
+    dp_rows,
+    gather_rows,
+    gather_tp,
+    local_rows,
+    reduce_tp,
+    row_parallel_input,
+    shard_of,
 )
 from ..ops.launches import COUNTS
 from ..ops.matmul import prepare_decode_params, qlinear
@@ -193,6 +215,37 @@ def _use_xla_attn(codes_dtype) -> bool:
     return codes_dtype == torch.int8 and _DECODE_ATTN == "xla"
 
 
+#: the decode mesh (`transformer.py:279-360`): None, or a mesh whose "dp" /
+#: "tp" axes a sharded decode runs over
+_DECODE_MESH = None
+
+
+def set_decode_mesh(mesh) -> None:
+    """JAX's partition-aware decode switch (`transformer.py:323-335`): a
+    `DeviceMesh` with axes named "dp" / "tp" (`parallel.make_mesh`), or None.
+    The port's decode kernels always run on a rank's own rows and KV groups
+    (their grid is parallel over (B, G)); under a decode mesh a step whose
+    batch or KV heads do not divide it takes the eager attention, as JAX's
+    gate sends it (`:337-353,422-428`), counted `B5.eager` / `B6.eager`, and
+    a single-token int8 step takes B5 where JAX's "xla" route would be
+    unsharded (`:490,548`)."""
+    global _DECODE_MESH
+    _DECODE_MESH = mesh
+
+
+def _mesh_gate_fails(b: int, g: int) -> bool:
+    """JAX's `_sharded_decode` gate: under a decode mesh, does a batch of
+    `b` rows over `g` KV heads fail to divide its (dp, tp) axes?"""
+    if _DECODE_MESH is None:
+        return False
+    from ..parallel.mesh import axis_size
+
+    names = set(_DECODE_MESH.mesh_dim_names or ())
+    if "dp" not in names and "tp" not in names:
+        return True
+    return bool(b % axis_size(_DECODE_MESH, "dp") or g % axis_size(_DECODE_MESH, "tp"))
+
+
 def _decode_route_ok(rq: RuntimeQuantConfig, s: int = 1) -> bool:
     """The decode gate before shapes: a single-token step, not under
     `set_decode_kernel(False)`, hosting no enabled q/k/v/p hook
@@ -225,8 +278,8 @@ def _decode_kernel_ok(rq: RuntimeQuantConfig, cache: Dict[str, torch.Tensor], s:
 def _stacked_decode_ok(rq: RuntimeQuantConfig, cache: Dict[str, torch.Tensor], s: int,
                        hq: int) -> bool:
     """Does a step take the layer-stacked decode form (`transformer.py:
-    407-431`)? Wherever the decode kernel serves it. The port has no decode
-    mesh."""
+    407-431`)? Wherever the decode kernel serves it (a rank-local cache
+    holds whole layers, so the decode mesh changes nothing here)."""
     return _decode_kernel_ok(rq, cache, s, hq)
 
 
@@ -324,7 +377,7 @@ def full_attention(q, k, v, mask, cfg: ModelConfig, rq: RuntimeQuantConfig = NO_
     Differentiable on both routes: under autograd B7 runs with its gradient
     kernels (`ops/flash_attention.FlashAttentionFn`)."""
     use_flash = q.shape[1] >= FLASH_MIN_SEQ and _flash_ok(rq)
-    if use_flash and not b7_takes(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_):
+    if use_flash and not b7_takes(q.shape[2], k.shape[2], cfg.head_dim_):
         COUNTS["B7.eager"] += 1
         use_flash = False
     return flash_attention(q, k, v) if use_flash else _attention(q, k, v, mask, rq)
@@ -363,8 +416,8 @@ def qkv_proj(p: Params, h: torch.Tensor, cfg: ModelConfig, act: Optional[QuantSp
         q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
     else:
         q, k, v = (qlinear(h, p[n]["w"], p[n].get("b"), act) for n in ("q", "k", "v"))
-    return (q.reshape(b, s, cfg.num_heads, hd), k.reshape(b, s, cfg.num_kv_heads, hd),
-            v.reshape(b, s, cfg.num_kv_heads, hd))
+    # heads from the widths: a rank-local tree's column shards hold its own
+    return q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
 
 
 def decode_block_t(t: int) -> int:
@@ -399,15 +452,25 @@ def _attn_block(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_pos: Union[int, torch.Tensor, None] = None,
     layer: Optional[int] = None,
+    tp: Optional[Shard] = None,
+    mesh_eager: bool = False,
+    attn_impl=None,
 ) -> torch.Tensor:
+    """Attention with its `o` projection. Under tensor parallelism (`tp`, the
+    tree's `Shard`) the heads are the rank's own, `o` is row-parallel and its
+    output all-reduced; `mesh_eager` is the decode mesh's gate failing;
+    `attn_impl(q, k, v)` replaces the cache-free attention (ring attention,
+    `transformer.py:600-605`)."""
     b, s, _ = h.shape
-    hd = cfg.head_dim_
-    q, k, v = qkv_proj(p, h, cfg, rq.act)
+    q, k, v = qkv_proj(p, copy_tp(h, tp), cfg, rq.act)
+    hq = q.shape[2]
     if cos_sin is not None:
         cos, sin = cos_sin
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    if cache is None:
+    if attn_impl is not None:
+        attn = attn_impl(q, k, v)
+    elif cache is None:
         attn = full_attention(q, k, v, mask, cfg, rq)
     elif "k" in cache:  # fp cache (`transformer.py:500-514,567-593`)
         ck, cv = cache["k"], cache["v"]
@@ -415,7 +478,7 @@ def _attn_block(
         _write_cache_stacked(cv, v, layer, cache_pos)
         t = ck.shape[3]
         block_t = decode_block_t(t)
-        if _take_decode_kernel(rq, cache, s, cfg.num_heads, "B6.eager"):
+        if _take_decode_kernel(rq, cache, s, hq, "B6.eager", mesh_eager):
             kmask = _kernel_mask(mask, b, t)
             if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
                 attn = flash_decode_gqa(q.to(ck.dtype), ck[layer], cv[layer], kmask, block_t)
@@ -430,26 +493,43 @@ def _attn_block(
         t = cache["k_s"].shape[3]  # logical tokens (int4 rows hold two)
         block_t = decode_block_t(t)
         codes = tuple(cache[key] for key in CACHE_KEYS)
-        if _decode_route_ok(rq, s) and _use_xla_attn(cache["k_q"].dtype):
+        if (_decode_route_ok(rq, s) and _use_xla_attn(cache["k_q"].dtype)
+                and _DECODE_MESH is None):
             attn = xla_decode_gqa_s8_stacked(q, *codes, _kernel_mask(mask, b, t), layer,
                                              out_dtype=h.dtype)
-        elif _take_decode_kernel(rq, cache, s, cfg.num_heads, "B5.eager"):
+        elif _take_decode_kernel(rq, cache, s, hq, "B5.eager", mesh_eager):
             attn = flash_decode_gqa_s8_stacked(q, *codes, _kernel_mask(mask, b, t), layer,
                                                out_dtype=h.dtype, block_t=block_t)
         else:
             k_all, v_all = cache_read(layer_view(cache, layer), h.dtype)
             attn = _attention(q, k_all, v_all, mask, rq, kv_heads_major=True)
-    return qlinear(attn.reshape(b, s, cfg.num_heads * hd), p["o"]["w"], p["o"].get("b"), rq.act)
+    return _row_linear(attn.reshape(b, s, -1), p["o"], rq.act, tp)
+
+
+def _row_linear(x: torch.Tensor, entry: Params, act: Optional[QuantSpec],
+                tp: Optional[Shard]) -> torch.Tensor:
+    """A row-parallel linear (`o`, `down`, `fc2`): the rank's partial
+    product all-reduced over tp, then the bias, added once. The W·A8
+    backends scale each token over the whole K (`row_parallel_input`); the
+    `act` hook's statistics would be the shard's, so it is refused there."""
+    if tp is None or tp.tp == 1:
+        return qlinear(x, entry["w"], entry.get("b"), act)
+    if act is not None and act.enabled:
+        raise NotImplementedError("the act fake-quant hook under tensor parallelism")
+    with row_parallel_input(tp):
+        y = reduce_tp(qlinear(x, entry["w"], None, act), tp)
+    bias = entry.get("b")
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def _take_decode_kernel(rq: RuntimeQuantConfig, cache, s: int, hq: int,
-                        eager_key: str) -> bool:
+                        eager_key: str, mesh_eager: bool = False) -> bool:
     """Does this cached step take its cache's decode kernel? A step that the
-    route's gate lets through but the kernel's shapes turn away takes the
-    eager path and is counted under `eager_key`."""
+    route's gate lets through but the kernel's shapes (or the decode mesh's
+    gate) turn away takes the eager path and is counted under `eager_key`."""
     if not _decode_route_ok(rq, s):
         return False
-    if _decode_shape_ok(cache, hq):
+    if _decode_shape_ok(cache, hq) and not mesh_eager:
         return True
     COUNTS[eager_key] += 1
     return False
@@ -486,19 +566,25 @@ def set_moe_capacity(factor) -> None:
     _MOE_CAPACITY = factor
 
 
-def _expert_ffn(e_params: Params, x: torch.Tensor, rq: RuntimeQuantConfig) -> torch.Tensor:
+def _expert_ffn(e_params: Params, x: torch.Tensor, rq: RuntimeQuantConfig,
+                k_split: Optional[Shard] = None) -> torch.Tensor:
+    """One expert's SwiGLU; `k_split` the `Shard` whose tp splits `down`'s
+    input (tensor-parallel experts: the output is the rank's partial sum)."""
     gate = qlinear(x, e_params["gate"]["w"], None, rq.act)
     up = qlinear(x, e_params["up"]["w"], None, rq.act)
-    return qlinear(F.silu(gate) * up, e_params["down"]["w"], None, rq.act)
+    with row_parallel_input(k_split):
+        return qlinear(F.silu(gate) * up, e_params["down"]["w"], None, rq.act)
 
 
 def _moe_capacity_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig,
-                        factor: float) -> torch.Tensor:
+                        factor: float, e0: int, n_local: int, tp: Optional[Shard] = None,
+                        k_split: Optional[Shard] = None) -> torch.Tensor:
     """Capacity-scheduled MoE (`transformer.py:644-687`): each expert takes
     at most C = ceil(factor * k * T / E) tokens, rounded up to a multiple of
     8; picks are queued slot-major (every token's first pick before any
     second pick), and a pick past C drops that expert's share. Dispatch
-    and combine are one-hot products, as in JAX."""
+    and combine are one-hot products, as in JAX. Runs the `n_local`
+    experts from `e0` the tree holds; returns their fp32 share `[B, S, D]`."""
     b, s, d = h.shape
     t = b * s
     e, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -514,36 +600,57 @@ def _moe_capacity_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: Runtim
     dispatch = (slot * keep[..., None]).reshape(k, t, e, c).permute(1, 0, 2, 3)
     disp = dispatch.sum(dim=1)  # [T, E, C]
     combine = torch.einsum("tkec,tk->tec", dispatch, topv)
-    xe = torch.einsum("tec,td->ecd", disp.to(x.dtype), x)  # [E, C, D]
-    ye = torch.stack([_expert_ffn(_layer_params(p["experts"], i), xe[i], rq) for i in range(e)])
-    y = torch.einsum("tec,ecd->td", combine, ye.float())
-    return y.reshape(b, s, d).to(h.dtype)
+    xe = torch.einsum("tec,td->ecd", disp.to(x.dtype), copy_tp(x, tp))  # [E, C, D]
+    ye = torch.stack([_expert_ffn(_layer_params(p["experts"], i), xe[e0 + i], rq, k_split)
+                      for i in range(n_local)])
+    y = torch.einsum("tec,ecd->td", combine[:, e0 : e0 + n_local], ye.float())
+    return y.reshape(b, s, d)
 
 
-def _moe_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig
-               ) -> torch.Tensor:
+def _lead(w) -> int:
+    """The leading (stack) size of a weight of any form."""
+    if isinstance(w, PaddedWeight):
+        return _lead(w.w)
+    return (w.scale if isinstance(w, (QuantizedTensor, S4Weight)) else w).shape[0]
+
+
+def _moe_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig,
+               tp: Optional[Shard] = None) -> torch.Tensor:
     """Mixtral's sparse-MoE MLP (`transformer.py:690-705`): by default
     dense, every expert on every token with the top-k routing weights
-    masked in; under `set_moe_capacity(f)` the capacity dispatch."""
+    masked in; under `set_moe_capacity(f)` the capacity dispatch. A
+    rank-local tree holds every expert's feature shards (tensor parallel)
+    or whole experts, its `E / tp` from `tp_rank` on (expert parallel); the
+    rank's share is all-reduced over tp once, in fp32."""
+    p["router"]  # a tree without one fails here first, as in JAX
+    n_local = _lead(p["experts"]["gate"]["w"])
+    ep = tp is not None and n_local < cfg.num_experts
+    e0 = tp.tp_rank * n_local if ep else 0
+    k_split = None if ep else tp
     if _MOE_CAPACITY is not None:
-        return _moe_capacity_block(p, h, cfg, rq, _MOE_CAPACITY)
-    weights = _moe_routing_weights(p, h, cfg)
-    outs = torch.stack([_expert_ffn(_layer_params(p["experts"], i), h, rq)
-                        for i in range(cfg.num_experts)])  # [E, B, S, D]
-    return torch.einsum("ebsd,bse->bsd", outs.float(), weights).to(h.dtype)
+        y = _moe_capacity_block(p, h, cfg, rq, _MOE_CAPACITY, e0, n_local, tp, k_split)
+    else:
+        weights = _moe_routing_weights(p, h, cfg)[..., e0 : e0 + n_local]
+        xh = copy_tp(h, tp)  # the experts' input; the router's is replicated
+        outs = torch.stack([_expert_ffn(_layer_params(p["experts"], i), xh, rq, k_split)
+                            for i in range(n_local)])  # [E, B, S, D]
+        y = torch.einsum("ebsd,bse->bsd", outs.float(), weights)
+    return reduce_tp(y, tp).to(h.dtype)
 
 
 def _mlp_block(p: Params, h: torch.Tensor, cfg: ModelConfig,
-               rq: RuntimeQuantConfig = NO_QUANT) -> torch.Tensor:
+               rq: RuntimeQuantConfig = NO_QUANT, tp: Optional[Shard] = None) -> torch.Tensor:
     """SwiGLU (llama), the MoE (mixtral) or fc1 -> relu/gelu -> fc2 with
-    biases (opt, falcon; JAX's gelu is the tanh form) (`transformer.py:708-721`)."""
+    biases (opt, falcon; JAX's gelu is the tanh form) (`transformer.py:708-721`).
+    Under tensor parallelism `down` / `fc2` are row-parallel (all-reduced)."""
     act = rq.act
     if cfg.is_moe:
-        return _moe_block(p, h, cfg, rq)
+        return _moe_block(p, h, cfg, rq, tp)
+    h = copy_tp(h, tp)
     if cfg.arch != "llama":
         fc1 = qlinear(h, p["fc1"]["w"], p["fc1"].get("b"), act)
         a = F.relu(fc1) if cfg.activation == "relu" else F.gelu(fc1, approximate="tanh")
-        return qlinear(a, p["fc2"]["w"], p["fc2"].get("b"), act)
+        return _row_linear(a, p["fc2"], act, tp)
     if "gateup" in p:  # fused gate|up (`transformer.py:712-714`)
         gu = qlinear(h, p["gateup"]["w"], p["gateup"].get("b"), act)
         half = gu.shape[-1] // 2
@@ -551,27 +658,33 @@ def _mlp_block(p: Params, h: torch.Tensor, cfg: ModelConfig,
     else:
         gate = qlinear(h, p["gate"]["w"], p["gate"].get("b"), act)
         up = qlinear(h, p["up"]["w"], p["up"].get("b"), act)
-    return qlinear(F.silu(gate) * up, p["down"]["w"], p["down"].get("b"), act)
+    return _row_linear(F.silu(gate) * up, p["down"], act, tp)
 
 
 def decoder_layer(
     p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig, cos_sin, mask,
-    cache=None, cache_pos=None, layer=None,
+    cache=None, cache_pos=None, layer=None, tp: Optional[Shard] = None, mesh_eager: bool = False,
+    attn_impl=None,
 ) -> torch.Tensor:
     """Pre-norm residual layer, or Falcon's attention and MLP in parallel
     off one shared norm (the MLP reads its own `ln2` where the tree has one,
     Falcon-40B's) (`transformer.py:730-766`). With `cache`, `layer` indexes
     the layer-stacked cache (fp or quantized), which is written in place at
-    `cache_pos` (an int, or per-row slots `[B]`)."""
+    `cache_pos` (an int, or per-row slots `[B]`). `tp` is a rank-local
+    tree's `Shard` (its blocks all-reduce their outputs over tp: Falcon's
+    parallel block reduces attention and MLP apart); `mesh_eager` sends the
+    cached step to the eager attention (the decode mesh's gate); `attn_impl`
+    is the cache-free attention's replacement (`_attn_block`)."""
+    blocks = dict(tp=tp, mesh_eager=mesh_eager, attn_impl=attn_impl)
     if cfg.parallel_block:
         x = _norm(p["ln1"], h, cfg)
-        attn_out = _attn_block(p, x, cfg, rq, cos_sin, mask, cache, cache_pos, layer)
+        attn_out = _attn_block(p, x, cfg, rq, cos_sin, mask, cache, cache_pos, layer, **blocks)
         mlp_x = _norm(p["ln2"], h, cfg) if "ln2" in p else x
-        return h + attn_out + _mlp_block(p, mlp_x, cfg, rq)
+        return h + attn_out + _mlp_block(p, mlp_x, cfg, rq, tp)
     attn_in = _norm(p["ln1"], h, cfg)
-    h = h + _attn_block(p, attn_in, cfg, rq, cos_sin, mask, cache, cache_pos, layer)
+    h = h + _attn_block(p, attn_in, cfg, rq, cos_sin, mask, cache, cache_pos, layer, **blocks)
     mlp_in = _norm(p["ln2"], h, cfg)
-    return h + _mlp_block(p, mlp_in, cfg, rq)
+    return h + _mlp_block(p, mlp_in, cfg, rq, tp)
 
 
 #: OPT's learned positions are offset by 2 (the HF convention)
@@ -612,17 +725,23 @@ def final_norm(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 def lm_head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The head's logits (the embedding's transpose on a tied head); a
     quantized head on the card that a kernel does not take is padded first
-    (nothing to do on a prepared tree)."""
-    w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    return qlinear(h, pad_weight(w) if isinstance(w, QuantizedTensor) else w)
+    (nothing to do on a prepared tree). A rank-local tree's untied head is
+    column-parallel: its vocab shards are gathered over tp."""
+    if cfg.tie_word_embeddings:
+        return qlinear(h, params["embed"].T)
+    shard = shard_of(params)
+    w = params["lm_head"]
+    y = qlinear(copy_tp(h, shard), pad_weight(w) if isinstance(w, QuantizedTensor) else w)
+    return gather_tp(y, shard)
 
 
-def forward_hidden(
+def forward_local(
     params: Params, tokens: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig = NO_QUANT
 ) -> torch.Tensor:
-    """Full-sequence causal forward to final hidden states `[B, S, d]`.
-    Weights on the card that a kernel does not take are padded first
-    (`ops/padding.pad_for_kernels`; nothing to do on a prepared tree)."""
+    """The forward of the rows `tokens` a rank runs, to final hidden states:
+    on a rank-local tree (`parallel.shard_params`) the layers run tensor
+    parallel over its mesh's tp, with no row split or gather."""
+    shard = shard_of(params)
     params = pad_for_kernels(params)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
@@ -630,15 +749,31 @@ def forward_hidden(
     cos_sin = model_rope(positions, cfg, h.dtype)
     mask = causal_mask(s, device=tokens.device)
     for i in range(cfg.num_layers):
-        h = decoder_layer(_layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask)
+        h = decoder_layer(_layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask,
+                          tp=shard)
     return final_norm(params, h, cfg)
+
+
+def forward_hidden(
+    params: Params, tokens: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig = NO_QUANT
+) -> torch.Tensor:
+    """Full-sequence causal forward to final hidden states `[B, S, d]`.
+    Weights on the card that a kernel does not take are padded first
+    (`ops/padding.pad_for_kernels`; nothing to do on a prepared tree). On a
+    rank-local tree each dp rank runs its rows and every rank returns all."""
+    shard = shard_of(params)
+    h = forward_local(params, local_rows(tokens, shard), cfg, rq)
+    return gather_rows(h, shard, tokens.shape[0])
 
 
 def forward_logits(
     params: Params, tokens: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig = NO_QUANT
 ) -> torch.Tensor:
-    """Logits `[B, S, V]` of the full-sequence forward (prefill / eval)."""
-    return lm_head(params, forward_hidden(params, tokens, cfg, rq), cfg)
+    """Logits `[B, S, V]` of the full-sequence forward (prefill / eval); on
+    a rank-local tree every rank returns all of them."""
+    shard = shard_of(params)
+    h = forward_local(params, local_rows(tokens, shard), cfg, rq)
+    return gather_rows(lm_head(params, h, cfg), shard, tokens.shape[0])
 
 
 def init_kv_cache(
@@ -700,17 +835,82 @@ def _ring_write_and_mask(pos, s: int, max_len: int, sink: int, device):
     return write_slot, mask
 
 
-def _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq) -> torch.Tensor:
-    """The layer stack against the cache (written in place): final hidden.
+def local_kv_heads(cfg: ModelConfig, shard: Optional[Shard]) -> int:
+    """KV heads a rank of `shard`'s tp holds: Hkv / tp, or one replicated
+    head where tp is a multiple of Hkv (rank r uses head r * Hkv // tp, as
+    Megatron replicates K/V heads over more ranks than there are)."""
+    hkv = cfg.num_kv_heads
+    if shard is None or shard.tp == 1 or hkv % shard.tp == 0:
+        return hkv if shard is None else hkv // shard.tp
+    if shard.tp % hkv:
+        raise ValueError(f"num_kv_heads={hkv} and tp={shard.tp}: neither divides the other")
+    return 1
+
+
+def cache_rows(cache: Dict[str, torch.Tensor], b: int, shard: Optional[Shard]):
+    """The rows of a batch of `b` that the cache holds on this rank: None
+    for all of them (every dp rank then runs every row), or this rank's
+    [start, stop) of a cache sharded by `parallel.shard_kv_cache`."""
+    n = next(iter(cache.values())).shape[1]
+    rows = dp_rows(b, shard)
+    if n == b:
+        return None
+    if rows is not None and n == rows[1] - rows[0]:
+        return rows
+    raise ValueError(f"a cache of {n} rows for a batch of {b}")
+
+
+def localize_kv_groups(cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+                       shard: Optional[Shard]) -> Dict[str, torch.Tensor]:
+    """A cache holding all `num_kv_heads` groups keeps only this rank's
+    under tensor parallelism: its entries are replaced IN PLACE (the dict
+    is the caller's) by their rank-local slices."""
+    if shard is None or shard.tp == 1:
+        return cache
+    g_local = local_kv_heads(cfg, shard)
+    g = next(iter(cache.values())).shape[2]
+    if g == g_local:
+        return cache
+    if g != cfg.num_kv_heads:
+        raise ValueError(f"a cache of {g} KV groups on a tp rank of {g_local}")
+    g0 = shard.tp_rank * cfg.num_kv_heads // shard.tp
+    for key, buf in cache.items():
+        cache[key] = buf[:, :, g0 : g0 + g_local].contiguous()
+    return cache
+
+
+def _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq):
+    """The layer stack against the cache (written in place): the final
+    hidden of the rows this rank runs, and those rows (`cache_rows`).
     Weights on the card that a kernel does not take are padded first."""
+    shard = shard_of(params)
+    b = tokens.shape[0]
+    localize_kv_groups(cache, cfg, shard)
+    rows = cache_rows(cache, b, shard)
+    mesh_eager = _mesh_gate_fails(b, cfg.num_kv_heads)
+    if rows is not None:
+        pick = slice(*rows)
+        tokens = tokens[pick]
+        if positions.shape[0] == b:
+            positions = positions[pick]
+        if torch.is_tensor(write_slot) and write_slot.dim() == 1:
+            write_slot = write_slot[pick]
+        if mask.dim() == 3:
+            mask = mask[pick]
     params = pad_for_kernels(params)
     h = embed(params, tokens, cfg, positions)
     cos_sin = model_rope(positions, cfg, h.dtype)
     for i in range(cfg.num_layers):
         h = decoder_layer(
-            _layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask, cache, write_slot, i
+            _layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask, cache, write_slot, i,
+            tp=shard, mesh_eager=mesh_eager,
         )
-    return final_norm(params, h, cfg)
+    return final_norm(params, h, cfg), rows
+
+
+def _gather(x: torch.Tensor, params, rows, b: int) -> torch.Tensor:
+    """Every row of a batch of `b` from the rows this rank ran."""
+    return x if rows is None else gather_rows(x, shard_of(params), b)
 
 
 def decode_hidden(
@@ -728,7 +928,8 @@ def decode_hidden(
     pos = int(pos)
     positions = pos + torch.arange(s, device=tokens.device)[None, :]
     write_slot, mask = _ring_write_and_mask(pos, s, cache_len(cache), sink_tokens, tokens.device)
-    return _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq)
+    h, rows = _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq)
+    return _gather(h, params, rows, b)
 
 
 def decode_step(
@@ -742,8 +943,12 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One prefill/decode step against the cache (fp or quantized), which is
     updated IN PLACE. Returns (logits [B, S, V], cache)."""
-    h = decode_hidden(params, cache, tokens, pos, cfg, rq, sink_tokens)
-    return lm_head(params, h, cfg), cache
+    b, s = tokens.shape
+    pos = int(pos)
+    positions = pos + torch.arange(s, device=tokens.device)[None, :]
+    write_slot, mask = _ring_write_and_mask(pos, s, cache_len(cache), sink_tokens, tokens.device)
+    h, rows = _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq)
+    return _gather(lm_head(params, h, cfg), params, rows, b), cache
 
 
 def decode_step_multi(
@@ -764,8 +969,8 @@ def decode_step_multi(
     if s != 1 or tuple(pos.shape) != (b,):
         raise ValueError(f"multi-slot decode takes tokens [B, 1] and pos [B]; got {tuple(tokens.shape)}, {tuple(pos.shape)}")
     write_slot, mask = _ring_write_and_mask(pos, 1, cache_len(cache), sink_tokens, tokens.device)
-    h = _decode_hidden(params, cache, tokens, pos[:, None], write_slot, mask, cfg, rq)
-    return lm_head(params, h, cfg), cache
+    h, rows = _decode_hidden(params, cache, tokens, pos[:, None], write_slot, mask, cfg, rq)
+    return _gather(lm_head(params, h, cfg), params, rows, b), cache
 
 
 def sampling_logits(

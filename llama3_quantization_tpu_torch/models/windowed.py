@@ -38,13 +38,15 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from ..ops.collectives import gather_rows, shard_of
 from ..ops.decode_attention import (
     NEG,
     flash_decode_gqa_s8_stacked,
     xla_decode_gqa_s8_stacked,
 )
 from ..ops.kvcache import CACHE_KEYS, kv4_codes, kv_quantize, true_div
-from ..ops.matmul import prepare_decode_params, qlinear
+from ..ops.matmul import prepare_decode_params
+from . import transformer as _t
 from .configs import ModelConfig
 from .transformer import (
     NO_QUANT,
@@ -55,13 +57,16 @@ from .transformer import (
     _layer_params,
     _mlp_block,
     _norm,
+    _row_linear,
     _use_xla_attn,
     _ring_write_and_mask,
     apply_rope,
+    cache_rows,
     decode_block_t,
     embed,
     final_norm,
     lm_head,
+    localize_kv_groups,
     model_rope,
     qkv_proj,
     sample_logits,
@@ -87,13 +92,18 @@ def windowed_ok(
     as it runs with the decode kernel: a stack that is neither MoE nor a
     parallel block (llama, OPT) over a quantized cache whose shape B5
     takes, unless the main segment takes the codes-direct route, no enabled
-    q/k/v/p hook, and not under `set_decode_kernel(False)`.) The
+    q/k/v/p hook, and not under `set_decode_kernel(False)`; under a decode
+    mesh only on the codes-direct route, `windowed.py:113-121`.) The
     ring-crossing gate lives in the callers, as in JAX."""
     if not _WINDOWED or cfg.is_moe or cfg.parallel_block:
         return False
     if sorted(cache) != sorted(CACHE_KEYS) or not _decode_route_ok(rq):
         return False
-    return _use_xla_attn(cache["k_q"].dtype) or _decode_shape_ok(cache, cfg.num_heads)
+    if _use_xla_attn(cache["k_q"].dtype):
+        return True
+    # a rank-local cache holds its own KV groups, each with its rep heads
+    hq = cache["k_q"].shape[2] * (cfg.num_heads // cfg.num_kv_heads)
+    return _t._DECODE_MESH is None and _decode_shape_ok(cache, hq)
 
 
 def _merge_attn(o1, m1, l1, o2, m2, l2):
@@ -126,10 +136,13 @@ def _window_attn(q, wk, wks, wv, wvs, wmask):
     return o, m, l
 
 
-def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx, layer, block_t):
+def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx, layer, block_t,
+                         tp=None):
     """Attention = B5 or the codes-direct route (main cache, read in
     place) merged with exact attention over the window. Writes this step's
-    K/V codes into slot `widx` of the layer's window buffers."""
+    K/V codes into slot `widx` of the layer's window buffers. On a
+    rank-local tree (`tp`) the heads and groups are the rank's own and `o`
+    is all-reduced."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
     q, k, v = qkv_proj(p, x, cfg, rq.act)  # fused qkv as `windowed.py:172-177`
@@ -145,8 +158,8 @@ def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx,
         codes_buf[:, :, widx : widx + 1] = codes
         scale_buf[:, :, widx : widx + 1] = scale
 
-    g = cfg.num_kv_heads
-    rep = cfg.num_heads // g
+    g = k.shape[2]
+    rep = q.shape[2] // g
     main = (q, *(cache[key] for key in CACHE_KEYS), main_mask, layer)
     if _use_xla_attn(cache["k_q"].dtype):
         o1, m1, l1 = xla_decode_gqa_s8_stacked(*main, out_dtype=torch.float32, return_stats=True)
@@ -158,22 +171,23 @@ def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx,
     wmask = torch.where(torch.arange(kw, device=x.device) <= widx, 0.0, -math.inf)
     o2, m2, l2 = _window_attn(q.reshape(b, g, rep, hd).float(), wk, wks, wv, wvs,
                               wmask.float()[None, None, None, :])
-    attn = _merge_attn(o1, m1, l1, o2, m2, l2).reshape(b, s, cfg.num_heads * hd).to(x.dtype)
-    return qlinear(attn, p["o"]["w"], p["o"].get("b"), rq.act)
+    attn = _merge_attn(o1, m1, l1, o2, m2, l2).reshape(b, s, -1).to(x.dtype)
+    return _row_linear(attn, p["o"], rq.act, tp)
 
 
 def _decode_step_windowed(params, cache, w_bufs, tokens, pos, widx, main_mask, cfg, rq, block_t):
     """One windowed decode step at per-row positions `pos` [B]: h through
-    the layer stack; the main cache is only read."""
+    the layer stack; the main cache is only read. Logits of the rows run."""
+    tp = shard_of(params)
     h = embed(params, tokens, cfg, pos[:, None])
     cos_sin = model_rope(pos[:, None], cfg, h.dtype)
     for i in range(cfg.num_layers):
         lp = _layer_params(params["layers"], i)
         x = _norm(lp["ln1"], h, cfg)
         h = h + _attn_block_windowed(lp, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx, i,
-                                     block_t)
+                                     block_t, tp)
         mlp_in = _norm(lp["ln2"], h, cfg)
-        h = h + _mlp_block(lp, mlp_in, cfg, rq)
+        h = h + _mlp_block(lp, mlp_in, cfg, rq, tp)
     return lm_head(params, final_norm(params, h, cfg), cfg)
 
 
@@ -257,13 +271,21 @@ def decode_window(
     write-combined cache updates, on the cache's device. Returns (tokens
     [B, n_steps], the cache, merged in place). Under the "s4" backend the
     weights are prepared once per window (`windowed.py:458`); already
-    prepared params pass through unchanged."""
+    prepared params pass through unchanged. On a rank-local tree the
+    window runs the rows and KV groups the cache holds on this rank
+    (`transformer.cache_rows`, `localize_kv_groups`) and every rank draws
+    every row's token from the gathered logits."""
     params = prepare_decode_params(params)
     dev = cache["k_s"].device
     if tok0.device != dev:
         raise ValueError(f"tokens on {tok0.device}, cache on {dev}")
-    b = tok0.shape[0]
-    L, g, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+    b_all = tok0.shape[0]
+    shard = shard_of(params)
+    localize_kv_groups(cache, cfg, shard)
+    rows = cache_rows(cache, b_all, shard)
+    pick = slice(None) if rows is None else slice(*rows)
+    b = cache["k_s"].shape[1]
+    L, g, hd = cfg.num_layers, cache["k_s"].shape[2], cfg.head_dim_
     kw = n_steps
     t = cache["k_s"].shape[3]
     if kw >= t - sink_tokens:
@@ -271,7 +293,7 @@ def decode_window(
         # merge; callers chunk n_steps below the ring width instead
         raise ValueError(f"decode_window n_steps={n_steps} must be < ring width {t - sink_tokens}")
     block_t = decode_block_t(t)
-    posv = _positions(pos0, b, dev)
+    posv = _positions(pos0, b_all, dev)[pick]
     _, mask0 = _ring_write_and_mask(posv - 1, 1, t, sink_tokens, dev)
     main_mask = _kernel_mask(mask0, b, t)
     # pos0 == 0: nothing in the main cache is visible
@@ -282,12 +304,14 @@ def decode_window(
         torch.zeros((L, b, g, kw, hd), dtype=torch.int8, device=dev),
         torch.ones((L, b, g, kw, 1), dtype=torch.float32, device=dev),
     )
-    tok, pos, out = tok0.to(torch.long), posv, []
+    tok, pos, out = tok0.to(torch.long)[pick], posv, []
     for i in range(n_steps):
         logits = _decode_step_windowed(params, cache, w_bufs, tok, pos, i, main_mask, cfg, rq,
                                        block_t)
+        if rows is not None:
+            logits = gather_rows(logits, shard, b_all)
         nxt = sample_logits(logits[:, -1, :], generator, temperature, top_k, top_p)
         out.append(nxt)
-        tok, pos = nxt[:, None], pos + 1
+        tok, pos = nxt[pick, None], pos + 1
     merge_window_into_cache(cache, w_bufs, posv, cfg, sink_tokens)
     return torch.stack(out, dim=1), cache

@@ -12,7 +12,7 @@ int4 writes read-modify-write the shared byte rows.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -38,10 +38,13 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / d
 
 
-def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [..., D] -> (codes int8 [..., D], scale f32 [..., 1]), symmetric."""
+def kv_quantize(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [..., D] -> (codes int8 [..., D], scale f32 [..., 1]), symmetric;
+    `absmax` [..., 1] where the row's |x| maximum is taken elsewhere."""
     xf = x.float()
-    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if absmax is None:
+        absmax = xf.abs().amax(dim=-1, keepdim=True)
     scale = true_div(absmax, 127.0).clamp(min=1e-8)
     codes = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return codes, scale

@@ -63,11 +63,21 @@ def _lib():
     return lib
 
 
+#: the process group over which a row-parallel linear's input is split along
+#: K (`ops/collectives.row_parallel_input`): a token's scale is then its
+#: absmax over every rank's K shard, as GSPMD reduces it over the full K
+_K_GROUP = None
+
+
 def quantize_activations_s8(x: torch.Tensor):
     """Per-row (token) symmetric int8: (xq int8, scale f32 [..., 1]). The KV
     cache's `kv_quantize`, shared as the JAX package shares it
     (`a8_matmul.py:29-36`)."""
-    return kv_quantize(x)
+    if _K_GROUP is None:
+        return kv_quantize(x)
+    from .collectives import all_reduce_max_
+
+    return kv_quantize(x, all_reduce_max_(x.float().abs().amax(dim=-1, keepdim=True), _K_GROUP))
 
 
 def codes_of(data: torch.Tensor, layout: str, k: int, gs: int) -> torch.Tensor:

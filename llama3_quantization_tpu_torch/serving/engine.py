@@ -21,6 +21,12 @@ collect. Host->device copies go through pinned memory and device->host
 copies are waited on by event, so the per-window Python adds no device
 sync inside a window.
 
+On a rank-local tree (`parallel.shard_params`) every rank runs the same
+host schedule (slots, requests, windows); the pool holds the rank's slots
+(B/dp) and KV groups (`parallel.shard_kv_cache`), prefills run every row
+and each rank splices the slots it holds, and every step's tokens are
+gathered, so every rank sees every stream.
+
 The slot pool is the fp cache by default (`quantized_cache=False`, bf16
 from `cfg.dtype`, decoded per step through B6: the windowed decode takes
 quantized caches only), or the int8 (`8`) or int4 (`4`) cache. `rq` is the
@@ -50,6 +56,7 @@ from ..models.configs import ModelConfig
 from ..models.transformer import (
     NO_QUANT,
     RuntimeQuantConfig,
+    cache_rows,
     decode_hidden,
     decode_step_multi,
     init_kv_cache,
@@ -57,6 +64,7 @@ from ..models.transformer import (
     sample_logits,
 )
 from ..models.windowed import decode_window, windowed_ok
+from ..ops.collectives import shard_of
 from ..ops.matmul import get_backend, prepare_decode_params
 from ..quant.serving import fuse_for_decode
 
@@ -112,6 +120,12 @@ class ServingEngine:
         self._quantized_cache = quantized_cache
         self.cache = init_kv_cache(cfg, max_slots, max_len, quantized=quantized_cache,
                                    device=self.device)
+        if shard_of(params) is not None:
+            # a rank-local tree: the pool holds this rank's slots and KV groups
+            # (the host schedule is every rank's); prefills run every row
+            from ..parallel.sharding import shard_kv_cache
+
+            self.cache = shard_kv_cache(self.cache, params, cfg)
         self._scratch: Optional[Dict[str, torch.Tensor]] = None
         self._rq, self._sink_tokens = rq, sink_tokens
         self.temperature = temperature
@@ -185,7 +199,13 @@ class ServingEngine:
 
     def _splice(self, slot: int, batch_cache: Dict[str, torch.Tensor], row: int) -> None:
         """Copy prefill row `row` into pool slot `slot`, in place, cast to
-        the pool's dtype (`serving/engine.py:126-134`)."""
+        the pool's dtype (`serving/engine.py:126-134`); a dp rank's pool
+        takes its own slots only."""
+        rows = cache_rows(self.cache, self.max_slots, shard_of(self.params))
+        if rows is not None:
+            if not rows[0] <= slot < rows[1]:
+                return
+            slot -= rows[0]
         for k, buf in self.cache.items():
             buf[:, slot].copy_(batch_cache[k][:, row])
 

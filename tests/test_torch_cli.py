@@ -8,7 +8,9 @@ TINY_LLAMA, `cli.main` of both packages prints the same results within
 windows of 64; the port on the CPU under JAX's default backend, xla);
 `--save_dir` reloads in both packages; OPT and Mixtral (`--net`, dense
 and `--moe_capacity 1.25`) print JAX's results within the same 2e-3;
-every flag the port has not yet exits naming its ROADMAP item; a T5
+`--tp 2 --dp 1` and `--sp 2` over 2 gloo ranks print JAX's
+single-process PPL, and `--tp 3` on 2 ranks stops with JAX's mesh error;
+a T5
 directory takes JAX's seq2seq path in both packages; tasks run offline through the port's
 registry with `--use_cache`, any of JAX's names and patterns among them
 (`hellaswag`, `piqa,hendrycksTest-*` with JAX's MMLU rollup), and
@@ -158,7 +160,6 @@ def test_cli_save_dir_reloads(hf_dir, tmp_path, capsys):
 
 
 UNPORTED = [
-    (["--tp", "2"], "A 5"), (["--dp", "2"], "A 5"), (["--sp", "2"], "A 5"),
     (["--moe_capacity", "1.25"], "A 4"),
     (["--net", "tiny-opt"], "A 4"), (["--net", "tiny-mixtral"], "A 4"),
     (["--tasks", "no_such_task"], "unknown tasks"),
@@ -214,6 +215,48 @@ def _other_arch_matches_jax(net, extra, capsys, monkeypatch):
     assert _last_json(capsys) == tres and set(tres) == set(jres) == {"wikitext2"}
     for k, v in jres.items():
         assert abs(tres[k] - v) <= 2e-3 * abs(v), (k, tres[k], v)
+
+
+@pytest.fixture(scope="module")
+def two_ranks():
+    from torch_dist_pool import Ranks
+
+    ranks = Ranks(2)
+    yield ranks
+    ranks.close()
+
+
+@pytest.mark.parametrize("extra", [["--tp", "2", "--dp", "1"], ["--dp", "2"], ["--sp", "2"]],
+                         ids=["tp2", "dp2", "sp2"])
+def test_cli_parallel_matches_jax_single_process(extra, two_ranks, capsys):
+    """`cli.main --net tiny-llama --quant_method rtn` with `--tp 2 --dp 1`
+    (a rank-local tree, tensor parallel over 2 gloo ranks), `--dp 2` or `--sp 2`
+    (PPL under ring attention over 2 ranks) prints JAX's single-process PPL
+    on both ranks, within the CLI tests' 2e-3, under JAX's default backend."""
+    import torch_parallel_ranks as R
+    from test_torch_model import to_numpy_tree
+
+    tree = to_numpy_tree(init_params(TINY_LLAMA, jax.random.PRNGKey(2), dtype=jnp.float32))
+    argv = ["--net", "tiny-llama", "--quant_method", "rtn"] + PPL_ARGS
+    jres = jcli.main(argv)
+    capsys.readouterr()
+    outs = two_ranks.run(R.cli_main, tree, argv + extra + ["--device", "cpu"])
+    for tres in outs:
+        assert set(tres) == set(jres) == {"wikitext2"}, tres
+        for k, v in jres.items():
+            assert abs(tres[k] - v) <= 2e-3 * abs(v), (k, tres[k], v)
+    assert outs[0] == outs[1]
+
+
+def test_cli_tp_not_dividing_the_world_exits(two_ranks):
+    """`--tp 3` on a world of 2 ranks stops with JAX's mesh error, on both."""
+    import torch_parallel_ranks as R
+    from test_torch_model import to_numpy_tree
+
+    tree = to_numpy_tree(init_params(TINY_LLAMA, jax.random.PRNGKey(2), dtype=jnp.float32))
+    outs = two_ranks.run(R.cli_main, tree, ["--net", "tiny-llama", "--quant_method", "none",
+                                            "--tp", "3", "--device", "cpu"])
+    assert all(o == "ValueError: dp(0) * tp(3) != device count (2)" for o in outs), outs
 
 
 def test_unported_tasks_exit_before_loading(monkeypatch):

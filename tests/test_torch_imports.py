@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package (OPT,
 Falcon and Mixtral with their quantizers, loader, CLI and act-stats tool,
 the T5 trunk with its GPTQ, LM and golden rows, the logging and profiling
-utilities and the trace report, a
+utilities and the trace report, every module of `parallel/` and
+`benchmarks/` over a world of one gloo rank, a
 forward, serving engines on the int4 and the default fp cache, the W·A8
 backends, sampled and speculative decoding, a hooked decode, the decode
 routes and a microbench entry point run with both blocked), and an entry
@@ -553,3 +554,87 @@ def test_ablation_switch_stays_out_of_the_normal_build(monkeypatch):
     assert _build._lib_path("flash_attention") != normal
     src = (_build.CSRC / "common.cuh").read_text()
     assert "#ifndef L3Q_ABLATE\n#define L3Q_ABLATE 0" in src
+
+
+def test_parallel_runs_with_jax_blocked(tmp_path):
+    """Every module of `parallel/` and `benchmarks/`, `ops/collectives.py`,
+    the sharded checkpoints and `eval.ppl.sp_windowed_nll_fn` run with JAX
+    and the JAX package blocked, on a world of one gloo rank (the world of
+    one the CLI starts without torchrun); the parallel entry points raise
+    without CUDA unless given the CPU."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["llama3_quantization_tpu"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        real_cuda = torch.cuda.is_available
+        torch.cuda.is_available = lambda: False
+        import llama3_quantization_tpu_torch as P
+        from llama3_quantization_tpu_torch import parallel as PP
+        from llama3_quantization_tpu_torch.benchmarks import measure_scaling
+        from llama3_quantization_tpu_torch.eval.ppl import compute_ppl, sp_windowed_nll_fn
+        from llama3_quantization_tpu_torch.models import hf_loader
+        from llama3_quantization_tpu_torch.parallel import distributed, mesh as M, train
+        from llama3_quantization_tpu_torch.quant.gptq import gptq_quantize_weight, hessian_init
+
+        for call in (lambda: PP.make_mesh(), lambda: distributed.init_distributed(),
+                     lambda: distributed.make_pod_mesh()):
+            try:
+                call()
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e)
+            else:
+                raise AssertionError("a parallel entry point ran without CUDA")
+        distributed.init_distributed(device="cpu")
+        cfg = P.TINY_LLAMA
+        params = P.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                               device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+        ref = P.forward_logits(params, toks, cfg)
+        mesh = PP.make_mesh(dp=1, tp=1)
+        assert M.mesh_shape(mesh) == {{"dp": 1, "tp": 1}}
+        local = PP.shard_params(params, mesh, cfg)
+        assert torch.equal(PP.make_sharded_forward(cfg, mesh)(local, toks), ref)
+        assert torch.equal(P.forward_logits(local, toks, cfg), ref)
+        eng = P.ServingEngine(local, cfg, max_slots=2, max_len=64, quantized_cache=8, device="cpu")
+        eng.submit([1, 2, 3], 5)
+        eng.run_pipelined(4)
+        assert [len(r.generated) for r in eng.requests.values()] == [5]
+        assert torch.allclose(PP.make_tp_overlap_forward(cfg, mesh)(params, toks), ref, atol=1e-5)
+        pmesh = M.named_mesh((1,), ("pp",), device="cpu")
+        stage = PP.shard_params_pipeline(params, pmesh, cfg)
+        assert torch.allclose(PP.make_pipeline_forward(cfg, pmesh, 2)(stage, toks), ref, atol=1e-5)
+        smesh = M.named_mesh((1,), ("sp",), device="cpu")
+        assert torch.allclose(PP.make_sp_forward(cfg, smesh)(params, toks), ref, atol=1e-4)
+        stream = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64))
+        a = compute_ppl(params, cfg, stream, seqlen=32)
+        b = compute_ppl(params, cfg, stream, seqlen=32, step_fn=sp_windowed_nll_fn(cfg, smesh))
+        assert abs(a - b) / a < 1e-4
+        tmesh = M.named_mesh((1,), ("tp",), device="cpu")
+        w = torch.randn(64, 32) * 0.1
+        hs = PP.sharded_hessian_update(hessian_init(64), torch.randn(2, 8, 64),
+                                       M.named_mesh((1,), ("dp",), device="cpu"))
+        qt, err = PP.sharded_gptq_quantize_weight(w, hs.H, P.QuantSpec(n_bits=4, group_size=16),
+                                                   tmesh, blocksize=16)
+        qr, er = gptq_quantize_weight(w, hs.H, P.QuantSpec(n_bits=4, group_size=16), blocksize=16)
+        assert torch.equal(qt.data, qr.data) and float(err) == float(er)
+        wspec = P.QuantSpec(n_bits=4, group_size=32, lwc=True)
+        lwc = train.init_model_lwc(local, cfg, wspec)
+        opt, step = train.make_lwc_train_step(cfg, mesh, wspec)
+        lwc2, _, loss = step(lwc, opt.init(lwc), local, torch.cat([toks, toks[:, :1]], 1))
+        assert bool(torch.isfinite(loss))
+        res = measure_scaling(params, cfg, device_counts=(1,), seq=16, iters=1)
+        assert res[1]["efficiency"] == 1.0
+        hf_loader.save_checkpoint_sharded(local, "{tmp_path}/ckpt")
+        back = hf_loader.load_checkpoint_sharded("{tmp_path}/ckpt", local)
+        assert torch.equal(P.forward_logits(back, toks, cfg), ref)
+        assert not any(m == "jax" or m.startswith(("jax.", "llama3_quantization_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
