@@ -28,6 +28,7 @@ import torch
 from ..models.configs import ModelConfig
 from ..models.transformer import NO_QUANT, RuntimeQuantConfig, forward_hidden, lm_head
 from ..ops.padding import pad_for_kernels
+from ..utils import profiling as prof
 
 
 def params_device(params) -> torch.device:
@@ -52,14 +53,18 @@ def _chunked_nll(params, hidden, targets, cfg: ModelConfig, chunk: int) -> torch
 def windowed_nll_fn(cfg: ModelConfig, rq: RuntimeQuantConfig = NO_QUANT,
                     chunk: int = 512) -> Callable:
     """The per-window NLL step: tokens [B, S] -> summed shifted CE, the
-    reference's `loss.mean() * seqlen` (`eval/ppl.py:55-75`)."""
+    reference's `loss.mean() * seqlen` (`eval/ppl.py:55-75`), under the
+    spans `eval.forward` and `eval.nll`."""
 
+    @prof.entry_point
     def step(params, tokens: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            hidden = forward_hidden(params, tokens, cfg, rq)
-            shift_t = tokens[:, 1:]
-            ce_sum = _chunked_nll(params, hidden[:, :-1, :], shift_t, cfg, chunk)
-            return ce_sum / shift_t.numel() * tokens.shape[1]
+            with prof.span("eval.forward"):
+                hidden = forward_hidden(params, tokens, cfg, rq)
+            with prof.span("eval.nll"):
+                shift_t = tokens[:, 1:]
+                ce_sum = _chunked_nll(params, hidden[:, :-1, :], shift_t, cfg, chunk)
+                return ce_sum / shift_t.numel() * tokens.shape[1]
 
     return step
 

@@ -118,6 +118,7 @@ from ..ops.padding import PaddedWeight, pad_for_kernels, pad_weight
 from ..ops.s4_matmul import S4Weight
 from ..quant.qtensor import QuantizedTensor
 from ..quant.quantizer import QuantSpec, fake_quant_dynamic
+from ..utils import profiling as prof
 from .configs import ModelConfig
 
 Params = Dict[str, Any]
@@ -547,9 +548,14 @@ def _moe_topk(p: Params, x: torch.Tensor, cfg: ModelConfig):
 def _moe_routing_weights(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Dense `[B, S, E]` top-k renormalised routing weights, zero for the
     experts not picked (`transformer.py:612-620`)."""
-    topv, topi = _moe_topk(p, h, cfg)
-    return torch.zeros((*h.shape[:-1], cfg.num_experts), dtype=topv.dtype,
-                       device=h.device).scatter(-1, topi, topv)
+    return _routing_weights(*_moe_topk(p, h, cfg), cfg)
+
+
+def _routing_weights(topv: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The top-k picks `[..., k]` spread over a dense `[..., E]`, zero for
+    the experts not picked."""
+    return torch.zeros((*topi.shape[:-1], cfg.num_experts), dtype=topv.dtype,
+                       device=topv.device).scatter(-1, topi, topv)
 
 
 #: MoE compute mode (`transformer.py:623-635`): None = dense exact top-k
@@ -596,6 +602,9 @@ def _moe_capacity_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: Runtim
     oh = onehot.transpose(0, 1).reshape(k * t, e)
     pos = torch.cumsum(oh, dim=0) * oh - oh  # 0-based queue place where picked
     keep = (pos < c).float() * oh
+    if prof.ON:
+        _count_moe(cfg, n_local * c, topi.transpose(0, 1).reshape(-1), e0, n_local,
+                   kept=keep.sum(dim=-1))
     slot = F.one_hot(pos.long().clamp(max=c - 1), c).float()  # [kT, E, C]
     dispatch = (slot * keep[..., None]).reshape(k, t, e, c).permute(1, 0, 2, 3)
     disp = dispatch.sum(dim=1)  # [T, E, C]
@@ -605,6 +614,24 @@ def _moe_capacity_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: Runtim
                       for i in range(n_local)])
     y = torch.einsum("tec,ecd->td", combine[:, e0 : e0 + n_local], ye.float())
     return y.reshape(b, s, d)
+
+
+def _count_moe(cfg: ModelConfig, computed: int, picks: torch.Tensor, e0: int, n_local: int,
+               kept: Optional[torch.Tensor] = None) -> None:
+    """The MoE's counters: expert rows run (`moe.rows_computed`), the
+    (token, expert) picks they serve (`moe.rows_routed`: every pick of a
+    local expert, or the picks `kept` by the capacity dispatch) and the
+    routed rows of each expert (`moe.tokens_per_expert`, `[E]` on the
+    device). `picks` holds the expert ids, `kept` a 0/1 weight a pick."""
+    ones = torch.ones_like(picks) if kept is None else kept.long()
+    per_expert = torch.zeros(cfg.num_experts, dtype=torch.long, device=picks.device)
+    per_expert.scatter_add_(0, picks, ones)
+    prof.count("moe.rows_computed", computed)
+    if kept is None and n_local == cfg.num_experts:
+        prof.count("moe.rows_routed", picks.numel())  # every token's k picks
+    else:
+        prof.count("moe.rows_routed", per_expert[e0 : e0 + n_local].sum())
+    prof.count("moe.tokens_per_expert", per_expert)
 
 
 def _lead(w) -> int:
@@ -630,7 +657,10 @@ def _moe_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantCon
     if _MOE_CAPACITY is not None:
         y = _moe_capacity_block(p, h, cfg, rq, _MOE_CAPACITY, e0, n_local, tp, k_split)
     else:
-        weights = _moe_routing_weights(p, h, cfg)[..., e0 : e0 + n_local]
+        topv, topi = _moe_topk(p, h, cfg)
+        if prof.ON:
+            _count_moe(cfg, h.numel() // h.shape[-1] * n_local, topi.reshape(-1), e0, n_local)
+        weights = _routing_weights(topv, topi, cfg)[..., e0 : e0 + n_local]
         xh = copy_tp(h, tp)  # the experts' input; the router's is replicated
         outs = torch.stack([_expert_ffn(_layer_params(p["experts"], i), xh, rq, k_split)
                             for i in range(n_local)])  # [E, B, S, D]
@@ -677,14 +707,29 @@ def decoder_layer(
     is the cache-free attention's replacement (`_attn_block`)."""
     blocks = dict(tp=tp, mesh_eager=mesh_eager, attn_impl=attn_impl)
     if cfg.parallel_block:
-        x = _norm(p["ln1"], h, cfg)
-        attn_out = _attn_block(p, x, cfg, rq, cos_sin, mask, cache, cache_pos, layer, **blocks)
-        mlp_x = _norm(p["ln2"], h, cfg) if "ln2" in p else x
-        return h + attn_out + _mlp_block(p, mlp_x, cfg, rq, tp)
-    attn_in = _norm(p["ln1"], h, cfg)
-    h = h + _attn_block(p, attn_in, cfg, rq, cos_sin, mask, cache, cache_pos, layer, **blocks)
-    mlp_in = _norm(p["ln2"], h, cfg)
-    return h + _mlp_block(p, mlp_in, cfg, rq, tp)
+        with prof.span("model.norm"):
+            x = _norm(p["ln1"], h, cfg)
+        with prof.span("model.attn"):
+            attn_out = _attn_block(p, x, cfg, rq, cos_sin, mask, cache, cache_pos, layer,
+                                   **blocks)
+        mlp_x = x
+        if "ln2" in p:
+            with prof.span("model.norm"):
+                mlp_x = _norm(p["ln2"], h, cfg)
+        with prof.span("model.mlp"):
+            mlp_out = _mlp_block(p, mlp_x, cfg, rq, tp)
+        return h + attn_out + mlp_out
+    with prof.span("model.norm"):
+        attn_in = _norm(p["ln1"], h, cfg)
+    with prof.span("model.attn"):
+        attn_out = _attn_block(p, attn_in, cfg, rq, cos_sin, mask, cache, cache_pos, layer,
+                               **blocks)
+    h = h + attn_out
+    with prof.span("model.norm"):
+        mlp_in = _norm(p["ln2"], h, cfg)
+    with prof.span("model.mlp"):
+        mlp_out = _mlp_block(p, mlp_in, cfg, rq, tp)
+    return h + mlp_out
 
 
 #: OPT's learned positions are offset by 2 (the HF convention)
@@ -741,19 +786,24 @@ def forward_local(
     """The forward of the rows `tokens` a rank runs, to final hidden states:
     on a rank-local tree (`parallel.shard_params`) the layers run tensor
     parallel over its mesh's tp, with no row split or gather."""
-    shard = shard_of(params)
-    params = pad_for_kernels(params)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None, :]
-    h = embed(params, tokens, cfg, positions)
-    cos_sin = model_rope(positions, cfg, h.dtype)
-    mask = causal_mask(s, device=tokens.device)
-    for i in range(cfg.num_layers):
-        h = decoder_layer(_layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask,
-                          tp=shard)
-    return final_norm(params, h, cfg)
+    with prof.span("model.step"):
+        with prof.span("model.prep"):
+            shard = shard_of(params)
+            params = pad_for_kernels(params)
+            s = tokens.shape[1]
+            positions = torch.arange(s, device=tokens.device)[None, :]
+            h = embed(params, tokens, cfg, positions)
+            cos_sin = model_rope(positions, cfg, h.dtype)
+            mask = causal_mask(s, device=tokens.device)
+        for i in range(cfg.num_layers):
+            with prof.span("model.layer"):
+                h = decoder_layer(_layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask,
+                                  tp=shard)
+        with prof.span("model.head"):
+            return final_norm(params, h, cfg)
 
 
+@prof.entry_point
 def forward_hidden(
     params: Params, tokens: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig = NO_QUANT
 ) -> torch.Tensor:
@@ -879,33 +929,43 @@ def localize_kv_groups(cache: Dict[str, torch.Tensor], cfg: ModelConfig,
     return cache
 
 
-def _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq):
-    """The layer stack against the cache (written in place): the final
-    hidden of the rows this rank runs, and those rows (`cache_rows`).
-    Weights on the card that a kernel does not take are padded first."""
-    shard = shard_of(params)
-    b = tokens.shape[0]
-    localize_kv_groups(cache, cfg, shard)
-    rows = cache_rows(cache, b, shard)
-    mesh_eager = _mesh_gate_fails(b, cfg.num_kv_heads)
-    if rows is not None:
-        pick = slice(*rows)
-        tokens = tokens[pick]
-        if positions.shape[0] == b:
-            positions = positions[pick]
-        if torch.is_tensor(write_slot) and write_slot.dim() == 1:
-            write_slot = write_slot[pick]
-        if mask.dim() == 3:
-            mask = mask[pick]
-    params = pad_for_kernels(params)
-    h = embed(params, tokens, cfg, positions)
-    cos_sin = model_rope(positions, cfg, h.dtype)
+def _decode_hidden(params, cache, tokens, pos, cfg, rq, sink_tokens):
+    """The layer stack against the cache (written in place) at `pos`: an
+    int (the S tokens from there) or per-row positions `[B]` (S = 1).
+    Returns the hidden before the final norm of the rows this rank runs,
+    and those rows (`cache_rows`). Weights on the card that a kernel does
+    not take are padded first."""
+    with prof.span("model.prep"):
+        b, s = tokens.shape
+        if torch.is_tensor(pos):
+            positions = pos[:, None]
+        else:
+            positions = pos + torch.arange(s, device=tokens.device)[None, :]
+        write_slot, mask = _ring_write_and_mask(pos, s, cache_len(cache), sink_tokens,
+                                                tokens.device)
+        shard = shard_of(params)
+        localize_kv_groups(cache, cfg, shard)
+        rows = cache_rows(cache, b, shard)
+        mesh_eager = _mesh_gate_fails(b, cfg.num_kv_heads)
+        if rows is not None:
+            pick = slice(*rows)
+            tokens = tokens[pick]
+            if positions.shape[0] == b:
+                positions = positions[pick]
+            if torch.is_tensor(write_slot) and write_slot.dim() == 1:
+                write_slot = write_slot[pick]
+            if mask.dim() == 3:
+                mask = mask[pick]
+        params = pad_for_kernels(params)
+        h = embed(params, tokens, cfg, positions)
+        cos_sin = model_rope(positions, cfg, h.dtype)
     for i in range(cfg.num_layers):
-        h = decoder_layer(
-            _layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask, cache, write_slot, i,
-            tp=shard, mesh_eager=mesh_eager,
-        )
-    return final_norm(params, h, cfg), rows
+        with prof.span("model.layer"):
+            h = decoder_layer(
+                _layer_params(params["layers"], i), h, cfg, rq, cos_sin, mask, cache, write_slot,
+                i, tp=shard, mesh_eager=mesh_eager,
+            )
+    return h, rows
 
 
 def _gather(x: torch.Tensor, params, rows, b: int) -> torch.Tensor:
@@ -924,12 +984,11 @@ def decode_hidden(
 ) -> torch.Tensor:
     """`decode_step` up to the final norm: hidden states `[B, S, d]`. The
     serving engine takes the lm_head of the rows it needs only."""
-    b, s = tokens.shape
-    pos = int(pos)
-    positions = pos + torch.arange(s, device=tokens.device)[None, :]
-    write_slot, mask = _ring_write_and_mask(pos, s, cache_len(cache), sink_tokens, tokens.device)
-    h, rows = _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq)
-    return _gather(h, params, rows, b)
+    with prof.span("model.step"):
+        h, rows = _decode_hidden(params, cache, tokens, int(pos), cfg, rq, sink_tokens)
+        with prof.span("model.head"):
+            h = final_norm(params, h, cfg)
+        return _gather(h, params, rows, tokens.shape[0])
 
 
 def decode_step(
@@ -943,14 +1002,14 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One prefill/decode step against the cache (fp or quantized), which is
     updated IN PLACE. Returns (logits [B, S, V], cache)."""
-    b, s = tokens.shape
-    pos = int(pos)
-    positions = pos + torch.arange(s, device=tokens.device)[None, :]
-    write_slot, mask = _ring_write_and_mask(pos, s, cache_len(cache), sink_tokens, tokens.device)
-    h, rows = _decode_hidden(params, cache, tokens, positions, write_slot, mask, cfg, rq)
-    return _gather(lm_head(params, h, cfg), params, rows, b), cache
+    with prof.span("model.step"):
+        h, rows = _decode_hidden(params, cache, tokens, int(pos), cfg, rq, sink_tokens)
+        with prof.span("model.head"):
+            logits = lm_head(params, final_norm(params, h, cfg), cfg)
+        return _gather(logits, params, rows, tokens.shape[0]), cache
 
 
+@prof.entry_point
 def decode_step_multi(
     params: Params,
     cache: Dict[str, torch.Tensor],
@@ -968,9 +1027,11 @@ def decode_step_multi(
     b, s = tokens.shape
     if s != 1 or tuple(pos.shape) != (b,):
         raise ValueError(f"multi-slot decode takes tokens [B, 1] and pos [B]; got {tuple(tokens.shape)}, {tuple(pos.shape)}")
-    write_slot, mask = _ring_write_and_mask(pos, 1, cache_len(cache), sink_tokens, tokens.device)
-    h, rows = _decode_hidden(params, cache, tokens, pos[:, None], write_slot, mask, cfg, rq)
-    return _gather(lm_head(params, h, cfg), params, rows, b), cache
+    with prof.span("model.step"):
+        h, rows = _decode_hidden(params, cache, tokens, pos, cfg, rq, sink_tokens)
+        with prof.span("model.head"):
+            logits = lm_head(params, final_norm(params, h, cfg), cfg)
+        return _gather(logits, params, rows, b), cache
 
 
 def sampling_logits(
@@ -1005,12 +1066,13 @@ def sample_logits(
     categorical draw by the Gumbel-max rule from `generator` (on the
     logits' device). temperature <= 0 is greedy. Draws are the generator's
     own, not JAX's random stream. Returns int64 tokens [B]."""
-    if temperature is None or temperature <= 0.0:
-        return logits.argmax(dim=-1)
-    scaled = sampling_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
-    return (scaled + gumbel).argmax(dim=-1)
+    with prof.span("model.sample"):
+        if temperature is None or temperature <= 0.0:
+            return logits.argmax(dim=-1)
+        scaled = sampling_logits(logits, temperature, top_k, top_p)
+        u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+        gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+        return (scaled + gumbel).argmax(dim=-1)
 
 
 def greedy_generate(

@@ -46,6 +46,7 @@ from ..ops.decode_attention import (
 )
 from ..ops.kvcache import CACHE_KEYS, kv4_codes, kv_quantize, true_div
 from ..ops.matmul import prepare_decode_params
+from ..utils import profiling as prof
 from . import transformer as _t
 from .configs import ModelConfig
 from .transformer import (
@@ -178,17 +179,27 @@ def _attn_block_windowed(p, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx,
 def _decode_step_windowed(params, cache, w_bufs, tokens, pos, widx, main_mask, cfg, rq, block_t):
     """One windowed decode step at per-row positions `pos` [B]: h through
     the layer stack; the main cache is only read. Logits of the rows run."""
-    tp = shard_of(params)
-    h = embed(params, tokens, cfg, pos[:, None])
-    cos_sin = model_rope(pos[:, None], cfg, h.dtype)
-    for i in range(cfg.num_layers):
-        lp = _layer_params(params["layers"], i)
-        x = _norm(lp["ln1"], h, cfg)
-        h = h + _attn_block_windowed(lp, x, cfg, rq, cos_sin, main_mask, cache, w_bufs, widx, i,
-                                     block_t, tp)
-        mlp_in = _norm(lp["ln2"], h, cfg)
-        h = h + _mlp_block(lp, mlp_in, cfg, rq, tp)
-    return lm_head(params, final_norm(params, h, cfg), cfg)
+    with prof.span("model.step"):
+        with prof.span("model.prep"):
+            tp = shard_of(params)
+            h = embed(params, tokens, cfg, pos[:, None])
+            cos_sin = model_rope(pos[:, None], cfg, h.dtype)
+        for i in range(cfg.num_layers):
+            with prof.span("model.layer"):
+                lp = _layer_params(params["layers"], i)
+                with prof.span("model.norm"):
+                    x = _norm(lp["ln1"], h, cfg)
+                with prof.span("model.attn"):
+                    attn_out = _attn_block_windowed(lp, x, cfg, rq, cos_sin, main_mask, cache,
+                                                    w_bufs, widx, i, block_t, tp)
+                h = h + attn_out
+                with prof.span("model.norm"):
+                    mlp_in = _norm(lp["ln2"], h, cfg)
+                with prof.span("model.mlp"):
+                    mlp_out = _mlp_block(lp, mlp_in, cfg, rq, tp)
+                h = h + mlp_out
+        with prof.span("model.head"):
+            return lm_head(params, final_norm(params, h, cfg), cfg)
 
 
 def _positions(pos0: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
@@ -253,6 +264,7 @@ def merge_window_into_cache(
     return cache
 
 
+@prof.entry_point
 def decode_window(
     params,
     cache: Dict[str, torch.Tensor],
@@ -275,35 +287,37 @@ def decode_window(
     window runs the rows and KV groups the cache holds on this rank
     (`transformer.cache_rows`, `localize_kv_groups`) and every rank draws
     every row's token from the gathered logits."""
-    params = prepare_decode_params(params)
     dev = cache["k_s"].device
     if tok0.device != dev:
         raise ValueError(f"tokens on {tok0.device}, cache on {dev}")
-    b_all = tok0.shape[0]
-    shard = shard_of(params)
-    localize_kv_groups(cache, cfg, shard)
-    rows = cache_rows(cache, b_all, shard)
-    pick = slice(None) if rows is None else slice(*rows)
-    b = cache["k_s"].shape[1]
-    L, g, hd = cfg.num_layers, cache["k_s"].shape[2], cfg.head_dim_
-    kw = n_steps
-    t = cache["k_s"].shape[3]
-    if kw >= t - sink_tokens:
-        # a window spanning the whole ring width would alias slots in the
-        # merge; callers chunk n_steps below the ring width instead
-        raise ValueError(f"decode_window n_steps={n_steps} must be < ring width {t - sink_tokens}")
-    block_t = decode_block_t(t)
-    posv = _positions(pos0, b_all, dev)[pick]
-    _, mask0 = _ring_write_and_mask(posv - 1, 1, t, sink_tokens, dev)
-    main_mask = _kernel_mask(mask0, b, t)
-    # pos0 == 0: nothing in the main cache is visible
-    main_mask = torch.where(posv[:, None] >= 1, main_mask, NEG)
-    w_bufs = (
-        torch.zeros((L, b, g, kw, hd), dtype=torch.int8, device=dev),
-        torch.ones((L, b, g, kw, 1), dtype=torch.float32, device=dev),
-        torch.zeros((L, b, g, kw, hd), dtype=torch.int8, device=dev),
-        torch.ones((L, b, g, kw, 1), dtype=torch.float32, device=dev),
-    )
+    with prof.span("model.prep"):  # the window's: its masks and buffers
+        params = prepare_decode_params(params)
+        b_all = tok0.shape[0]
+        shard = shard_of(params)
+        localize_kv_groups(cache, cfg, shard)
+        rows = cache_rows(cache, b_all, shard)
+        pick = slice(None) if rows is None else slice(*rows)
+        b = cache["k_s"].shape[1]
+        L, g, hd = cfg.num_layers, cache["k_s"].shape[2], cfg.head_dim_
+        kw = n_steps
+        t = cache["k_s"].shape[3]
+        if kw >= t - sink_tokens:
+            # a window spanning the whole ring width would alias slots in the
+            # merge; callers chunk n_steps below the ring width instead
+            raise ValueError(
+                f"decode_window n_steps={n_steps} must be < ring width {t - sink_tokens}")
+        block_t = decode_block_t(t)
+        posv = _positions(pos0, b_all, dev)[pick]
+        _, mask0 = _ring_write_and_mask(posv - 1, 1, t, sink_tokens, dev)
+        main_mask = _kernel_mask(mask0, b, t)
+        # pos0 == 0: nothing in the main cache is visible
+        main_mask = torch.where(posv[:, None] >= 1, main_mask, NEG)
+        w_bufs = (
+            torch.zeros((L, b, g, kw, hd), dtype=torch.int8, device=dev),
+            torch.ones((L, b, g, kw, 1), dtype=torch.float32, device=dev),
+            torch.zeros((L, b, g, kw, hd), dtype=torch.int8, device=dev),
+            torch.ones((L, b, g, kw, 1), dtype=torch.float32, device=dev),
+        )
     tok, pos, out = tok0.to(torch.long)[pick], posv, []
     for i in range(n_steps):
         logits = _decode_step_windowed(params, cache, w_bufs, tok, pos, i, main_mask, cfg, rq,

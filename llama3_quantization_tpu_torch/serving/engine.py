@@ -21,6 +21,13 @@ collect. Host->device copies go through pinned memory and device->host
 copies are waited on by event, so the per-window Python adds no device
 sync inside a window.
 
+The public methods that run the model are the port's entry points for its
+spans and counters (`utils/profiling.py`): recorded while a torch profiler
+runs, they time `engine.admit` (with `engine.prefill` and `engine.splice`),
+`engine.dispatch`, `engine.fetch` and `engine.collect`, and count prompt
+tokens against the prefill positions computed, decode steps, and the KV
+positions each step finds cached against the pool's.
+
 On a rank-local tree (`parallel.shard_params`) every rank runs the same
 host schedule (slots, requests, windows); the pool holds the rank's slots
 (B/dp) and KV groups (`parallel.shard_kv_cache`), prefills run every row
@@ -45,7 +52,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,6 +73,7 @@ from ..models.windowed import decode_window, windowed_ok
 from ..ops.collectives import shard_of
 from ..ops.matmul import get_backend, prepare_decode_params
 from ..quant.serving import fuse_for_decode
+from ..utils import profiling as prof
 
 
 @dataclasses.dataclass
@@ -181,8 +188,9 @@ class ServingEngine:
     @staticmethod
     def _fetch(pending) -> np.ndarray:
         host, done = pending
-        if done is not None:
-            done.synchronize()
+        with prof.span("engine.fetch"):
+            if done is not None:
+                done.synchronize()
         return host.numpy()
 
     def _batch_cache(self) -> Dict[str, torch.Tensor]:
@@ -225,17 +233,22 @@ class ServingEngine:
         through the lm_head, at a fixed M = max_slots."""
         bucket = self._bucket(max(len(p) for p, _, _ in batch))
         npad = self.max_slots
-        toks = np.zeros((npad, bucket), np.int64)
-        last = np.zeros(npad, np.int64)
-        for row, (prompt, _, _) in enumerate(batch):
-            toks[row, : len(prompt)] = np.asarray(prompt, np.int64)
-            last[row] = len(prompt) - 1
-        cache = self._batch_cache()
-        h = decode_hidden(self._params(), cache, self._to_device(toks), 0, self.cfg, self._rq,
-                          self._sink_tokens)
-        h_last = h[torch.arange(npad, device=self.device), self._to_device(last)]
-        logits = lm_head(self._params(), h_last[:, None], self.cfg)[:, 0]
-        return self._pick(logits), cache
+        if prof.ON:
+            prof.count("engine.prompt_tokens", sum(len(p) for p, _, _ in batch))
+            prof.count("engine.prefill_positions", npad * bucket)
+        with prof.span("engine.prefill"):
+            toks = np.zeros((npad, bucket), np.int64)
+            last = np.zeros(npad, np.int64)
+            for row, (prompt, _, _) in enumerate(batch):
+                toks[row, : len(prompt)] = np.asarray(prompt, np.int64)
+                last[row] = len(prompt) - 1
+            cache = self._batch_cache()
+            h = decode_hidden(self._params(), cache, self._to_device(toks), 0, self.cfg,
+                              self._rq, self._sink_tokens)
+            h_last = h[torch.arange(npad, device=self.device), self._to_device(last)]
+            with prof.span("model.head"):
+                logits = lm_head(self._params(), h_last[:, None], self.cfg)[:, 0]
+            return self._pick(logits), cache
 
     def _check_prompts(self, batch) -> None:
         for prompt, _, _ in batch:
@@ -261,6 +274,7 @@ class ServingEngine:
         """Claim a slot, prefill, return the request id."""
         return self.add_requests([(prompt_tokens, max_new_tokens, eos_id)])[0]
 
+    @prof.entry_point
     def add_requests(self, requests) -> List[int]:
         """Admit a batch of (prompt_tokens, max_new_tokens, eos_id) at once:
         one prefill at the fixed batch of `max_slots` rows and the largest
@@ -271,18 +285,20 @@ class ServingEngine:
         self._check_prompts(requests)
         if not requests:
             return []
-        nxts_dev, batch_cache = self._prefill(requests)
-        nxts = nxts_dev.cpu().numpy()
-        rids = []
-        for row, (prompt, max_new, eos_id) in enumerate(requests):
-            nxt = int(nxts[row])
-            req = self._claim(prompt, max_new, eos_id, [nxt])
-            self._splice(req.slot, batch_cache, row)
-            self.next_tok[req.slot] = nxt
-            if eos_id is not None and nxt == eos_id:
-                self._finish(req)
-            rids.append(req.rid)
-        return rids
+        with prof.span("engine.admit"):
+            nxts_dev, batch_cache = self._prefill(requests)
+            nxts = nxts_dev.cpu().numpy()
+            rids = []
+            with prof.span("engine.splice"):
+                for row, (prompt, max_new, eos_id) in enumerate(requests):
+                    nxt = int(nxts[row])
+                    req = self._claim(prompt, max_new, eos_id, [nxt])
+                    self._splice(req.slot, batch_cache, row)
+                    self.next_tok[req.slot] = nxt
+                    if eos_id is not None and nxt == eos_id:
+                        self._finish(req)
+                    rids.append(req.rid)
+            return rids
 
     def _pick(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy by default; seeded sampling when temperature > 0."""
@@ -314,27 +330,44 @@ class ServingEngine:
         ) >= req.max_new_tokens
 
     # ------------------------------------------------------------------
+    def _count_steps(self, k: int, active: List[int]) -> None:
+        """The counters of `k` decode steps dispatched over the live slots
+        `active`: the positions each step finds cached (`min(pos, max_len)`
+        a slot, from the host's `pos`) against the pool's."""
+        cached = np.minimum(self.pos[active][:, None] + np.arange(k), self.max_len)
+        prof.count("engine.decode_steps", k)
+        prof.count("engine.kv_used", int(cached.sum()))
+        prof.count("engine.kv_reserved", k * self.max_slots * self.max_len)
+
+    @prof.entry_point
     def step(self) -> Dict[int, int]:
         """Advance every active sequence one token; returns {rid: token}."""
         if not self._slot_req:
             return {}
-        tokens = self._to_device(self.next_tok[:, None])
-        pos = self._to_device(self.pos)
-        logits, _ = decode_step_multi(self._params(), self.cache, tokens, pos, self.cfg,
-                                      self._rq, self._sink_tokens)
-        nxt = self._pick(logits[:, 0, :]).cpu().numpy()
-        out: Dict[int, int] = {}
-        for slot, rid in list(self._slot_req.items()):
-            req = self.requests[rid]
-            tok = int(nxt[slot])
-            req.generated.append(tok)
-            self.pos[slot] += 1
-            self.next_tok[slot] = tok
-            out[rid] = tok
-            if self._is_final(req, tok):
-                self._finish(req)
-        return out
+        with prof.span("engine.dispatch"):
+            if prof.ON:
+                self._count_steps(1, list(self._slot_req))
+            tokens = self._to_device(self.next_tok[:, None])
+            pos = self._to_device(self.pos)
+            logits, _ = decode_step_multi(self._params(), self.cache, tokens, pos, self.cfg,
+                                          self._rq, self._sink_tokens)
+            nxt = self._pick(logits[:, 0, :])
+        with prof.span("engine.fetch"):
+            nxt = nxt.cpu().numpy()
+        with prof.span("engine.collect"):
+            out: Dict[int, int] = {}
+            for slot, rid in list(self._slot_req.items()):
+                req = self.requests[rid]
+                tok = int(nxt[slot])
+                req.generated.append(tok)
+                self.pos[slot] += 1
+                self.next_tok[slot] = tok
+                out[rid] = tok
+                if self._is_final(req, tok):
+                    self._finish(req)
+            return out
 
+    @prof.entry_point
     def step_n(self, k: int) -> Dict[int, List[int]]:
         """Advance every active sequence up to k tokens in one window.
         Finishes (eos / max_new_tokens) are processed at the window
@@ -343,10 +376,14 @@ class ServingEngine:
         dead steps wrote."""
         if not self._slot_req:
             return {}
-        tok0 = self._to_device(self.next_tok[:, None])
-        pos0 = self._to_device(self.pos)
-        toks = self._dispatch_window(k, tok0, pos0)
-        return self._collect_step_n(toks.cpu().numpy(), k)
+        with prof.span("engine.dispatch"):
+            tok0 = self._to_device(self.next_tok[:, None])
+            pos0 = self._to_device(self.pos)
+            toks = self._dispatch_window(k, tok0, pos0)
+        with prof.span("engine.fetch"):
+            toks = toks.cpu().numpy()
+        with prof.span("engine.collect"):
+            return self._collect_step_n(toks, k)
 
     def _collect_step_n(self, toks: np.ndarray, k: int) -> Dict[int, List[int]]:
         """Distribute a [k, B] token window to requests; finishes at the
@@ -372,6 +409,8 @@ class ServingEngine:
         windowed decode when every active slot's window fits the ring, else
         k `decode_step_multi` steps. Returns the device tokens [k, B]."""
         active = list(self._slot_req)
+        if prof.ON:
+            self._count_steps(k, active)
         fits_ring = k < self.max_len and all(self.pos[s] + k <= self.max_len for s in active)
         self.dispatches["steps"] += k
         params = self._params()
@@ -394,6 +433,7 @@ class ServingEngine:
             tok, pos = nxt[:, None], pos + 1
         return torch.stack(out)
 
+    @prof.entry_point
     def run_pipelined(self, step_tokens: int, max_windows: int = 10**6) -> None:
         """Continuous batching with the host ahead of the device: window i+1
         is enqueued from device-resident tokens before window i's tokens
@@ -409,11 +449,26 @@ class ServingEngine:
         clamps to the smallest instead, `:514-524`, is not read: nothing
         here calls for it), and the ring-headroom clamp shrinks windows
         near the ring end so the windowed path keeps fitting. `L3Q_SERVE_DEBUG=1`
-        prints the host seconds spent dispatching, waiting for results, and
-        collecting and admitting to stderr (`:462,576-581`)."""
-        dbg = os.environ.get("L3Q_SERVE_DEBUG") == "1"
-        t_disp = t_coll = t_adm = 0.0
-        k = step_tokens
+        records the loop (`utils/profiling.recording`) and prints to stderr
+        the host seconds of its spans: dispatching (`engine.dispatch`),
+        waiting for the windows' results (`engine.fetch`), and collecting
+        and admitting (`engine.collect`, `engine.admit`) (`:462,576-581`)."""
+        if os.environ.get("L3Q_SERVE_DEBUG") != "1":
+            self._pipeline(step_tokens, max_windows)
+            return
+        with prof.recording():
+            windows = self._pipeline(step_tokens, max_windows)
+        spans = prof.recorded()["spans"]
+
+        def seconds(name: str) -> float:  # the span's time outside every other engine span
+            return spans.get(name, {}).get(name, {}).get("total_s", 0.0)
+
+        print(f"run_pipelined: {windows} windows, dispatch {seconds('engine.dispatch'):.2f}s, "
+              f"result-sync {seconds('engine.fetch'):.2f}s, collect+admit "
+              f"{seconds('engine.collect') + seconds('engine.admit'):.2f}s", file=sys.stderr)
+
+    def _pipeline(self, k: int, max_windows: int) -> int:
+        """`run_pipelined`'s loop; returns the windows dispatched."""
         prev = None  # (pending host copy of the tokens, slotmap, k) of the last window
         self._admissions_async()
         dev_last = None  # [B, 1] device tokens chained from the last window
@@ -423,58 +478,54 @@ class ServingEngine:
             self._admissions_async()
             cur = None
             if self._slot_req:
-                t0 = time.time()
-                tok0 = (dev_last if dev_last is not None
-                        else torch.zeros((self.max_slots, 1), dtype=torch.long, device=self.device))
-                # newly admitted slots take their first tokens straight
-                # from the prefill's device result, never fetched
-                for nxts_dev, slotmap in self._scatter_next:
-                    rows = np.zeros(self.max_slots, np.int64)
-                    sel = np.zeros((self.max_slots, 1), bool)
-                    for s, (row, _rid) in slotmap.items():
-                        rows[s] = row
-                        sel[s] = True
-                    tok0 = torch.where(self._to_device(sel),
-                                       nxts_dev[self._to_device(rows)][:, None], tok0)
-                self._scatter_next = []
-                pos0 = self._to_device(self.pos)
-                # drain-tail clamp: no active request needs more than its
-                # remaining budget (eos only finishes earlier)
-                rem = [self.requests[rid].max_new_tokens - self.requests[rid].scheduled
-                       for rid in self._slot_req.values()]
-                target = min(k, max(1, max(rem) if rem else k))
-                # ring-headroom clamp: near the ring end, shrink the window so
-                # the windowed path keeps fitting; headroom <= 0 means a slot
-                # already lives past the ring (per-step path, keep k)
-                if windowed_ok(self.cfg, self.cache, self._rq, self._sink_tokens):
-                    headroom = int(self.max_len - max(self.pos[s] for s in self._slot_req))
-                    if headroom >= 1:
-                        target = min(target, headroom)
-                k_eff = max(c for c in self._window_sizes(k) if c <= target)
-                toks = self._dispatch_window(k_eff, tok0, pos0)
-                dev_last = toks[-1][:, None]
-                cur = (self._to_host(toks), dict(self._slot_req), k_eff)
-                self.pos += k_eff  # every row advances (dead rows are harmless:
-                #                    slot reuse splices over their writes)
-                for rid in self._slot_req.values():
-                    self.requests[rid].scheduled += k_eff
+                with prof.span("engine.dispatch"):
+                    tok0 = (dev_last if dev_last is not None
+                            else torch.zeros((self.max_slots, 1), dtype=torch.long,
+                                             device=self.device))
+                    # newly admitted slots take their first tokens straight
+                    # from the prefill's device result, never fetched
+                    for nxts_dev, slotmap in self._scatter_next:
+                        rows = np.zeros(self.max_slots, np.int64)
+                        sel = np.zeros((self.max_slots, 1), bool)
+                        for s, (row, _rid) in slotmap.items():
+                            rows[s] = row
+                            sel[s] = True
+                        tok0 = torch.where(self._to_device(sel),
+                                           nxts_dev[self._to_device(rows)][:, None], tok0)
+                    self._scatter_next = []
+                    pos0 = self._to_device(self.pos)
+                    # drain-tail clamp: no active request needs more than its
+                    # remaining budget (eos only finishes earlier)
+                    rem = [self.requests[rid].max_new_tokens - self.requests[rid].scheduled
+                           for rid in self._slot_req.values()]
+                    target = min(k, max(1, max(rem) if rem else k))
+                    # ring-headroom clamp: near the ring end, shrink the window so
+                    # the windowed path keeps fitting; headroom <= 0 means a slot
+                    # already lives past the ring (per-step path, keep k)
+                    if windowed_ok(self.cfg, self.cache, self._rq, self._sink_tokens):
+                        headroom = int(self.max_len - max(self.pos[s] for s in self._slot_req))
+                        if headroom >= 1:
+                            target = min(target, headroom)
+                    k_eff = max(c for c in self._window_sizes(k) if c <= target)
+                    toks = self._dispatch_window(k_eff, tok0, pos0)
+                    dev_last = toks[-1][:, None]
+                    cur = (self._to_host(toks), dict(self._slot_req), k_eff)
+                    self.pos += k_eff  # every row advances (dead rows are harmless:
+                    #                    slot reuse splices over their writes)
+                    for rid in self._slot_req.values():
+                        self.requests[rid].scheduled += k_eff
                 windows += 1
-                t_disp += time.time() - t0
             if prev is not None:
                 pending, slotmap, k_p = prev
-                t1 = time.time()
                 arr = self._fetch(pending)  # window i; the device runs i+1
-                t2 = time.time()
-                self._resolve_first_tokens()
-                self._collect_pipelined(arr, k_p, slotmap)
+                with prof.span("engine.collect"):
+                    self._resolve_first_tokens()
+                    self._collect_pipelined(arr, k_p, slotmap)
                 self._admissions_async()
-                t_coll += t2 - t1
-                t_adm += time.time() - t2
             prev = cur
-        self._resolve_first_tokens()
-        if dbg:
-            print(f"run_pipelined: {windows} windows, dispatch {t_disp:.2f}s, "
-                  f"result-sync {t_coll:.2f}s, collect+admit {t_adm:.2f}s", file=sys.stderr)
+        with prof.span("engine.collect"):
+            self._resolve_first_tokens()
+        return windows
 
     @staticmethod
     def _window_sizes(k: int) -> List[int]:
@@ -516,19 +567,23 @@ class ServingEngine:
         tok0 there and resolved into host bookkeeping at the next collect
         (`_resolve_first_tokens`)."""
         self._order_queue()
-        while self.free and self._queue:
-            batch = []
-            while self.free and len(batch) < len(self.free) and self._queue:
-                batch.append(self._queue.pop())
-            self._check_prompts(batch)
-            nxts_dev, batch_cache = self._prefill(batch)
-            slotmap: Dict[int, Tuple[int, int]] = {}
-            for row, (prompt, max_new, eos_id) in enumerate(batch):
-                req = self._claim(prompt, max_new, eos_id, [])
-                self._splice(req.slot, batch_cache, row)
-                slotmap[req.slot] = (row, req.rid)
-            self._first_pending.append((self._to_host(nxts_dev), slotmap))
-            self._scatter_next.append((nxts_dev, slotmap))
+        if not (self.free and self._queue):
+            return
+        with prof.span("engine.admit"):
+            while self.free and self._queue:
+                batch = []
+                while self.free and len(batch) < len(self.free) and self._queue:
+                    batch.append(self._queue.pop())
+                self._check_prompts(batch)
+                nxts_dev, batch_cache = self._prefill(batch)
+                slotmap: Dict[int, Tuple[int, int]] = {}
+                with prof.span("engine.splice"):
+                    for row, (prompt, max_new, eos_id) in enumerate(batch):
+                        req = self._claim(prompt, max_new, eos_id, [])
+                        self._splice(req.slot, batch_cache, row)
+                        slotmap[req.slot] = (row, req.rid)
+                self._first_pending.append((self._to_host(nxts_dev), slotmap))
+                self._scatter_next.append((nxts_dev, slotmap))
 
     def _resolve_first_tokens(self) -> None:
         """Fold the pending prefill first tokens into request bookkeeping
