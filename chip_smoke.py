@@ -21,6 +21,8 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --harness --harness-seed 1  # the same on other weights and documents
     python3 chip_smoke.py --archs         # only the kernel checks and phase 12 (OPT-125M,
                                           # Falcon-7B and Mixtral-8x7B at full width and depth)
+    python3 chip_smoke.py --moe           # only phase 12's Mixtral-8x7B, then its MoE dispatches
+                                          # (dense, routed) timed by the rows of a call
     python3 chip_smoke.py --seq2seq       # only the kernel checks and phase 13 (the T5 trunk
                                           # at T0-3B width and depth, its GPTQ, LM, CLI, profile)
     python3 chip_smoke.py --parallel      # only the kernel checks and phase 14 (parallelism on
@@ -165,10 +167,12 @@ Phases, in order; any failure exits non-zero:
      engine, windowed), Falcon-7B W4 g64 (the same forwards; decodes on B1
      with the eager attention, the only routes allowed `B5.eager` and
      `B6.eager`; the default fp engine), Mixtral-8x7B W4 g128 built layer
-     by layer (the dense forward against the plain versions with a witness
-     and a faulty control in the same run, the experts' picks that differ
-     counted; capacity 8.0 against dense, capacity 1.25 with its drops
-     counted; 32 greedy int8 steps; the int8 engine, never windowed). Each
+     by layer (the dense [1, 128] forward against the plain versions with
+     a witness and a faulty control in the same run, the experts' picks
+     that differ counted; capacity 8.0 against dense, capacity 1.25 with
+     its drops counted; the routed [1, 2048] forward, experts on B2 at ~512
+     rows, against the plain versions and bit for bit against the dense
+     dispatch; 32 greedy int8 steps; the int8 engine, never windowed). Each
      model's launches of B1, B2, B5, B6 and B7, its routes and its seconds
      are printed.
  13. the T5 trunk (`drive_seq2seq`, run after phase 12) at T0-3B's published
@@ -3506,98 +3510,98 @@ def arch_summary(name, counts, t0, card):
         f"routes off the kernels {json.dumps(routes)}; {time.time() - t0:.1f} s  [{card}]")
 
 
-def drive_archs(P, card):
-    """Phase 12, the other architectures, each at full width and depth,
-    RTN-quantized and freed before the next is built:
+def routed_b2_forward(P, params, cfg, counts, checks, gen):
+    """Mixtral's `forward_logits` at [1, 2048] on the plain versions' expert
+    picks: routed (each expert on its ~512 picks, B2, no B1) against the
+    plain versions with the eager attention, each row within ARCH_ROW_TOL,
+    and against the dense dispatch (every expert on all 2048 rows), bit for
+    bit: B2's rows do not depend on M, and both dispatches combine alike."""
+    import torch
+    from llama3_quantization_tpu_torch.models import transformer as TT
 
-    1. OPT-125M (`OPT_125M`, `init_params` seed 3, bf16, W4 g128 packed):
-       `forward_logits` at [1, 128] and [1, 2048] (B2, B7) against the plain
-       versions with the eager attention (ARCH_ROW_TOL a row); a 128-token
-       prefill and 32 greedy steps on the int8 cache (B1, B5) and on the fp
-       cache (B1, B6), decode against the teacher-forced forward < 0.15;
-       `decode_window` for 32 steps (B1, B5 with statistics: OPT windows,
-       JAX's gate); the default `ServingEngine(8, 512)` on the int8 cache,
-       the 16 requests, pipelined = sequential, windowed.
-    2. Falcon-7B (`FALCON_7B`, seed 4, W4 g64): the same forwards (B7 at 71
-       query heads over one K/V head); 32 greedy steps on the int8 and the
-       fp cache on B1 with the eager attention, the only routes allowed
-       `B5.eager` and `B6.eager` (rep 71 > 8; JAX's gate also sends D = 64
-       eager); the default engine (fp cache) on the 16 requests.
-    3. Mixtral-8x7B (`MIXTRAL_8X7B`, W4 g128 packed, built layer by layer,
-       seeds 100 + i): `forward_logits` [1, 128] dense on the kernels and
-       on the plain versions, the experts' picks that differ between them
-       counted (a near tie flips with any rounding, and a flip moves that
-       token's output: the free runs' distance is reported); then on the
-       plain route's picks (`routing_log(replay=...)`) the kernels, a sound
-       witness (the plain versions' sums reversed, B7) and a faulty control
-       (every down projection's last group of 128 left out,
-       `dropped_group_plain`) against the plain versions, within
-       ARCH_ROW_TOL but the control, which must read past it; under
-       `set_moe_capacity(8.0)` (nothing can drop) on the dense run's picks
-       within ARCH_ROW_TOL of the dense forward (the free run's distance
-       and its flipped picks reported), under 1.25 finite with the dropped
-       picks counted; 32 greedy int8 steps (B1 per expert, B5), decode
-       against the forward on the forward's picks; the int8 engine on the
-       16 requests (MoE never windows)."""
+    toks = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+
+    def forward():
+        return P.forward_logits(params, toks, cfg)
+
+    with plain_versions(P), routing_log() as route_p:
+        ref = run_counted(checks, "Mixtral-8x7B forward [1,2048], plain + eager (check)", forward,
+                          never=("B1", "B2", "B7"))
+    with routing_log(replay=route_p):
+        routed = run_counted(counts, "Mixtral-8x7B forward_logits [1,2048] routed", forward,
+                             must=("B2", "B7"), never=("B1",))
+    above, TT.MOE_ROUTED_ABOVE = TT.MOE_ROUTED_ABOVE, 1 << 30
+    try:
+        with routing_log(replay=route_p):
+            dense = run_counted(checks, "Mixtral-8x7B forward [1,2048] dense (check)", forward,
+                                must=("B2", "B7"), never=("B1",))
+    finally:
+        TT.MOE_ROUTED_ABOVE = above
+    r_p, r_d = logit_rows(routed, ref), logit_rows(routed, dense)
+    log(f"  Mixtral-8x7B forward [1, 2048] routed, on the plain route's picks: max over rows of "
+        f"max|d logit| / max|logit| vs plain + eager {r_p:.3e} (bound {ARCH_ROW_TOL:g}), vs "
+        f"dense {r_d:.3e} (bound 0)")
+    if not (r_p <= ARCH_ROW_TOL and r_d == 0.0):
+        raise AssertionError(f"Mixtral-8x7B [1, 2048] routed: {r_p} vs plain, {r_d} vs dense")
+
+
+def moe_dispatch_times(P, params, cfg, card, reps=20):
+    """The MoE's two no-drop dispatches on the full-depth model, by the rows
+    of a call, `MOE_ROUTED_ABOVE` forced either way: ms a cached decode step
+    at B = 1, 8 and 64 rows (int8 cache, 256 positions prefilled) and a
+    `forward_logits` at [1, S], S = 128, 192, 256, 512, 1024 and 2048; `reps`
+    calls back to back after 3 warm-ups, the card synced once after them
+    (host clock), dense and routed alternated, twice."""
+    import torch
+    from llama3_quantization_tpu_torch.models import transformer as TT
+
+    def per_call(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    cases = []
+    for b in (1, 8, 64):
+        cache = P.init_kv_cache(cfg, b, 512, quantized=8)
+        prompt = torch.randint(0, cfg.vocab_size, (b, 256), generator=gen, device="cuda")
+        P.decode_step(params, cache, prompt, 0, cfg)
+        tok = prompt[:, -1:]
+        cases.append((f"decode step B = {b}", lambda c=cache, t=tok: P.decode_step(
+            params, c, t, 256, cfg)))
+    for s in (128, 192, 256, 512, 1024, 2048):
+        toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device="cuda")
+        cases.append((f"forward [1, {s}]", lambda t=toks: P.forward_logits(params, t, cfg)))
+    above = TT.MOE_ROUTED_ABOVE
+    try:
+        for what, fn in cases:
+            times = {"dense": [], "routed": []}
+            for _ in range(2):
+                for form, forced in (("dense", 1 << 30), ("routed", 0)):
+                    TT.MOE_ROUTED_ABOVE = forced
+                    times[form].append(per_call(fn))
+            dense, routed = (", ".join(f"{t:.3f}" for t in times[f]) for f in times)
+            log(f"  MoE dispatch, Mixtral-8x7B {what}: dense {dense} ms, routed {routed} ms a "
+                f"call (dense / routed {sum(times['dense']) / sum(times['routed']):.3f})  "
+                f"[{card}]")
+    finally:
+        TT.MOE_ROUTED_ABOVE = above
+
+
+def drive_mixtral(P, card, gen, timing=False):
+    """Phase 12's Mixtral-8x7B (`drive_archs`, 3); with `timing` also the
+    MoE's two dispatches timed by rows (`moe_dispatch_times`). Returns its
+    launch counts by label."""
     import gc
 
     import torch
     from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 
-    t_phase = time.time()
-    paths = {}
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
-
-    # 1. OPT-125M
-    t0, counts, checks = time.time(), {}, {}
-    cfg = P.OPT_125M
-    params = P.quantize_model_rtn(
-        P.init_params(cfg, torch.Generator(device="cuda").manual_seed(3), dtype=torch.bfloat16),
-        cfg, P.QuantSpec(n_bits=4, group_size=GS), pack=True)
-    log(f"phase 12: OPT-125M W4 g{GS} packed, {cfg.num_layers} layers, built in "
-        f"{time.time() - t0:.2f} s")
-    prompt, _ = arch_forwards(P, params, cfg, "OPT-125M", counts, checks, (128, 2048), gen)
-    arch_decodes(P, params, cfg, "OPT-125M", counts, prompt,
-                 ((8, ("B1", "B5"), (), ()), (False, ("B1", "B6"), (), B5_KEYS)))
-    cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
-    lg, cache = P.decode_step(params, cache, prompt, 0, cfg)
-    toks, _ = run_counted(counts, "OPT-125M decode_window 32 steps (int8)",
-                          lambda: P.decode_window(params, cache, lg[:, -1].argmax(-1)[:, None],
-                                                  128, 32, cfg), must=("B1", "B5.stats"))
-    if not (P.windowed_ok(cfg, cache) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
-        raise AssertionError("OPT-125M: windowed decode refused or tokens out of range")
-    del cache
-    serve_and_compare(P, params, cfg, card, "OPT-125M serve int8", counts, PALLAS_MUST,
-                      windowed=True)
-    arch_summary("OPT-125M", counts, t0, card)
-    paths.update(counts)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # 2. Falcon-7B
-    t0, counts, checks = time.time(), {}, {}
-    cfg = P.FALCON_7B
-    params = P.quantize_model_rtn(
-        P.init_params(cfg, torch.Generator(device="cuda").manual_seed(4), dtype=torch.bfloat16),
-        cfg, P.QuantSpec(n_bits=4, group_size=64), pack=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"phase 12: Falcon-7B W4 g64 packed, {cfg.num_layers} layers, built in "
-        f"{time.time() - t0:.2f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
-    prompt, _ = arch_forwards(P, params, cfg, "Falcon-7B", counts, checks, (128, 2048), gen)
-    arch_decodes(P, params, cfg, "Falcon-7B", counts, prompt,
-                 ((8, ("B1",), ("B5.eager",), B5_KEYS + ("B6",)),
-                  (False, ("B1",), ("B6.eager",), B5_KEYS + ("B6",))))
-    serve_and_compare(P, params, cfg, card, "Falcon-7B serve fp", counts, ("B1", "B2"),
-                      quantized_cache=False, never=B5_KEYS + ("B6",), allow=("B6.eager",))
-    arch_summary("Falcon-7B", counts, t0, card)
-    paths.update(counts)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # 3. Mixtral-8x7B
     t0, counts, checks = time.time(), {}, {}
     cfg = P.MIXTRAL_8X7B
     params = build_layerwise(P, cfg, P.QuantSpec(n_bits=4, group_size=GS), 100)
@@ -3611,7 +3615,7 @@ def drive_archs(P, card):
 
     with routing_log() as route_k:
         dense = run_counted(counts, "Mixtral-8x7B forward_logits [1,128] dense", forward,
-                            must=("B2", "B7"))
+                            must=("B2", "B7"), never=("B1",))
     with plain_versions(P), routing_log() as route_p:
         ref = run_counted(checks, "Mixtral-8x7B forward, plain + eager (check)", forward,
                           never=("B1", "B2", "B7"))
@@ -3667,15 +3671,114 @@ def drive_archs(P, card):
     if not (r_cap <= ARCH_ROW_TOL and dropped8 == 0 and bool(tight.isfinite().all())):
         raise AssertionError(f"Mixtral-8x7B capacity: 8.0 reads {r_cap}, {dropped8} dropped")
     del dense, roomy, roomy_r, tight
+    routed_b2_forward(P, params, cfg, counts, checks, gen)
     arch_decodes(P, params, cfg, "Mixtral-8x7B", counts, toks,
                  ((8, ("B1", "B5"), (), ("B5.stats", "B6")),), moe_limit=None)
     serve_and_compare(P, params, cfg, card, "Mixtral-8x7B serve int8", counts,
                       ("B1", "B2", "B5"), never=("B5.stats",), windowed=False)
+    if timing:
+        moe_dispatch_times(P, params, cfg, card)
     arch_summary("Mixtral-8x7B", counts, t0, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def drive_archs(P, card):
+    """Phase 12, the other architectures, each at full width and depth,
+    RTN-quantized and freed before the next is built:
+
+    1. OPT-125M (`OPT_125M`, `init_params` seed 3, bf16, W4 g128 packed):
+       `forward_logits` at [1, 128] and [1, 2048] (B2, B7) against the plain
+       versions with the eager attention (ARCH_ROW_TOL a row); a 128-token
+       prefill and 32 greedy steps on the int8 cache (B1, B5) and on the fp
+       cache (B1, B6), decode against the teacher-forced forward < 0.15;
+       `decode_window` for 32 steps (B1, B5 with statistics: OPT windows,
+       JAX's gate); the default `ServingEngine(8, 512)` on the int8 cache,
+       the 16 requests, pipelined = sequential, windowed.
+    2. Falcon-7B (`FALCON_7B`, seed 4, W4 g64): the same forwards (B7 at 71
+       query heads over one K/V head); 32 greedy steps on the int8 and the
+       fp cache on B1 with the eager attention, the only routes allowed
+       `B5.eager` and `B6.eager` (rep 71 > 8; JAX's gate also sends D = 64
+       eager); the default engine (fp cache) on the 16 requests.
+    3. Mixtral-8x7B (`MIXTRAL_8X7B`, W4 g128 packed, built layer by layer,
+       seeds 100 + i; `drive_mixtral`): `forward_logits` [1, 128] dense
+       (every expert on B2, no B1) on the kernels and
+       on the plain versions, the experts' picks that differ between them
+       counted (a near tie flips with any rounding, and a flip moves that
+       token's output: the free runs' distance is reported); then on the
+       plain route's picks (`routing_log(replay=...)`) the kernels, a sound
+       witness (the plain versions' sums reversed, B7) and a faulty control
+       (every down projection's last group of 128 left out,
+       `dropped_group_plain`) against the plain versions, within
+       ARCH_ROW_TOL but the control, which must read past it; under
+       `set_moe_capacity(8.0)` (nothing can drop) on the dense run's picks
+       within ARCH_ROW_TOL of the dense forward (the free run's distance
+       and its flipped picks reported), under 1.25 finite with the dropped
+       picks counted; `routed_b2_forward` at [1, 2048]; 32 greedy int8
+       steps (B1 per expert, B5), decode
+       against the forward on the forward's picks; the int8 engine on the
+       16 requests (MoE never windows)."""
+    import gc
+
+    import torch
+
+    t_phase = time.time()
+    paths = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+
+    # 1. OPT-125M
+    t0, counts, checks = time.time(), {}, {}
+    cfg = P.OPT_125M
+    params = P.quantize_model_rtn(
+        P.init_params(cfg, torch.Generator(device="cuda").manual_seed(3), dtype=torch.bfloat16),
+        cfg, P.QuantSpec(n_bits=4, group_size=GS), pack=True)
+    log(f"phase 12: OPT-125M W4 g{GS} packed, {cfg.num_layers} layers, built in "
+        f"{time.time() - t0:.2f} s")
+    prompt, _ = arch_forwards(P, params, cfg, "OPT-125M", counts, checks, (128, 2048), gen)
+    arch_decodes(P, params, cfg, "OPT-125M", counts, prompt,
+                 ((8, ("B1", "B5"), (), ()), (False, ("B1", "B6"), (), B5_KEYS)))
+    cache = P.init_kv_cache(cfg, 1, 512, quantized=8)
+    lg, cache = P.decode_step(params, cache, prompt, 0, cfg)
+    toks, _ = run_counted(counts, "OPT-125M decode_window 32 steps (int8)",
+                          lambda: P.decode_window(params, cache, lg[:, -1].argmax(-1)[:, None],
+                                                  128, 32, cfg), must=("B1", "B5.stats"))
+    if not (P.windowed_ok(cfg, cache) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+        raise AssertionError("OPT-125M: windowed decode refused or tokens out of range")
+    del cache
+    serve_and_compare(P, params, cfg, card, "OPT-125M serve int8", counts, PALLAS_MUST,
+                      windowed=True)
+    arch_summary("OPT-125M", counts, t0, card)
     paths.update(counts)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 2. Falcon-7B
+    t0, counts, checks = time.time(), {}, {}
+    cfg = P.FALCON_7B
+    params = P.quantize_model_rtn(
+        P.init_params(cfg, torch.Generator(device="cuda").manual_seed(4), dtype=torch.bfloat16),
+        cfg, P.QuantSpec(n_bits=4, group_size=64), pack=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12: Falcon-7B W4 g64 packed, {cfg.num_layers} layers, built in "
+        f"{time.time() - t0:.2f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    prompt, _ = arch_forwards(P, params, cfg, "Falcon-7B", counts, checks, (128, 2048), gen)
+    arch_decodes(P, params, cfg, "Falcon-7B", counts, prompt,
+                 ((8, ("B1",), ("B5.eager",), B5_KEYS + ("B6",)),
+                  (False, ("B1",), ("B6.eager",), B5_KEYS + ("B6",))))
+    serve_and_compare(P, params, cfg, card, "Falcon-7B serve fp", counts, ("B1", "B2"),
+                      quantized_cache=False, never=B5_KEYS + ("B6",), allow=("B6.eager",))
+    arch_summary("Falcon-7B", counts, t0, card)
+    paths.update(counts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. Mixtral-8x7B
+    paths.update(drive_mixtral(P, card, gen))
     log(f"phase 12 (other architectures) in {time.time() - t_phase:.1f} s  [{card}]")
     return sum_counts(paths)
 
@@ -5538,6 +5641,9 @@ def main() -> int:
                     help="only build and check the kernels (phase 12's shapes among them), then "
                          "phase 12 (OPT-125M, Falcon-7B and Mixtral-8x7B at full width and "
                          "depth)")
+    ap.add_argument("--moe", action="store_true",
+                    help="only phase 12's Mixtral-8x7B and its MoE dispatches timed by rows "
+                         "(no kernel checks)")
     ap.add_argument("--seq2seq", action="store_true",
                     help="only build and check the kernels (T0-3B's shapes among them), then "
                          "phase 13 (the T5 trunk at T0-3B width and depth, its GPTQ, LM, CLI "
@@ -5610,6 +5716,15 @@ def main() -> int:
         params = build_rtn_params(P)
         decode_drift(P, params, P.LLAMA3_8B, card)
         decode_drift_b3(P, params, P.LLAMA3_8B, card)
+        return 0
+
+    if args.moe:
+        total = sum_counts(drive_mixtral(P, card, torch.Generator(device="cuda").manual_seed(
+            SEED + 16), timing=True))
+        log(f"launches: {json.dumps(total)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        }}), flush=True)
         return 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)

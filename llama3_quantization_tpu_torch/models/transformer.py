@@ -2,7 +2,8 @@
 `llama3_quantization_tpu/models/transformer.py`): Llama-3, OPT (learned
 positions, LayerNorm, biases, relu, tied head), Falcon (attention and MLP
 in parallel off one shared norm, gelu, multi-query attention) and Mixtral
-(sparse MoE MLP, dense or capacity dispatch, `set_moe_capacity`).
+(sparse MoE MLP: dense at 128 rows or fewer, routed above, or capacity
+dispatch under `set_moe_capacity`).
 
 Plain functions over the parameter tree of `models/params.py`. The layer
 stack is a Python loop over the stacked `[L, ...]` tensors (views, no
@@ -101,6 +102,7 @@ from ..ops.kvcache import (
     layer_view,
     true_div,
 )
+from ..ops._build import GEMV_MAX_M
 from ..ops.collectives import (
     Shard,
     copy_tp,
@@ -548,19 +550,14 @@ def _moe_topk(p: Params, x: torch.Tensor, cfg: ModelConfig):
 def _moe_routing_weights(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Dense `[B, S, E]` top-k renormalised routing weights, zero for the
     experts not picked (`transformer.py:612-620`)."""
-    return _routing_weights(*_moe_topk(p, h, cfg), cfg)
-
-
-def _routing_weights(topv: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The top-k picks `[..., k]` spread over a dense `[..., E]`, zero for
-    the experts not picked."""
+    topv, topi = _moe_topk(p, h, cfg)
     return torch.zeros((*topi.shape[:-1], cfg.num_experts), dtype=topv.dtype,
                        device=topv.device).scatter(-1, topi, topv)
 
 
-#: MoE compute mode (`transformer.py:623-635`): None = dense exact top-k
-#: (every expert runs on every token, the routing weights mask it in); a
-#: float = capacity dispatch with that capacity factor
+#: MoE compute mode (`transformer.py:623-635`): None = exact top-k with no
+#: drop (dense or routed by the rows of a call, `_moe_block`); a float =
+#: capacity dispatch with that capacity factor
 _MOE_CAPACITY: Optional[float] = None
 
 
@@ -641,11 +638,99 @@ def _lead(w) -> int:
     return (w.scale if isinstance(w, (QuantizedTensor, S4Weight)) else w).shape[0]
 
 
+def _combine_picks(rows: torch.Tensor, topv: torch.Tensor) -> torch.Tensor:
+    """`sum_j rows[:, j] * topv[:, j]` in fp32, in pick order, one product
+    and one add a pick: `rows [T, k, D]` holds each pick's expert output
+    (zero for an expert off this rank), `topv [T, k]` its weight. Both
+    no-drop dispatches combine here, so a row reads the same bits whichever
+    of them ran it."""
+    y = rows[:, 0] * topv[:, :1]
+    for j in range(1, rows.shape[1]):
+        y = y + rows[:, j] * topv[:, j : j + 1]
+    return y
+
+
+def _moe_dense(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig,
+               e0: int, n_local: int, tp: Optional[Shard] = None,
+               k_split: Optional[Shard] = None) -> torch.Tensor:
+    """Dense exact top-k MoE (`transformer.py:690-705`): each of the
+    `n_local` experts from `e0` on every token, each pick's output taken
+    from its expert's and combined by `_combine_picks`. Returns the rank's
+    fp32 share `[B, S, D]`."""
+    d, k = h.shape[-1], cfg.num_experts_per_tok
+    topv, topi = _moe_topk(p, h, cfg)
+    if prof.ON:
+        _count_moe(cfg, h.numel() // d * n_local, topi.reshape(-1), e0, n_local)
+    xh = copy_tp(h, tp)  # the experts' input; the router's is replicated
+    outs = torch.stack([_expert_ffn(_layer_params(p["experts"], i), xh, rq, k_split)
+                        for i in range(n_local)]).reshape(n_local, -1, d)  # [E, T, D]
+    picks = topi.reshape(-1, k) - e0
+    tokens = torch.arange(outs.shape[1], device=h.device)[:, None]
+    rows = outs[picks.clamp(0, n_local - 1), tokens]  # [T, k, D]
+    if n_local < cfg.num_experts:
+        rows = torch.where(((picks >= 0) & (picks < n_local))[..., None], rows, 0)
+    return _combine_picks(rows, topv.reshape(-1, k)).reshape(h.shape)
+
+
+def _moe_routed(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig,
+                e0: int, n_local: int, tp: Optional[Shard] = None,
+                k_split: Optional[Shard] = None) -> torch.Tensor:
+    """Routed dropless MoE: each of the `n_local` experts from `e0` runs
+    only on the rows that picked it, an expert with none gets no launch.
+    The T·k picks are sorted by expert (stable) and their rows gathered in
+    that order before each expert's bounds in the sorted picks are read
+    back: the one host sync (a `bincount` on the card would add one of its
+    own), so that after it each expert runs on a slice. Every expert takes
+    the kernel route of the call's T rows, as every other linear of the
+    layer does (B2 above `GEMV_MAX_M`, B1 at or below): a shorter slice is
+    padded past `GEMV_MAX_M` with copies of its last row, so a row's output
+    never depends on how many other rows picked its expert. Each expert's
+    output rows land at their picks' slots of a `[T·k, D]` buffer, combined
+    by `_combine_picks` (no atomics, the same bits every run, and as the
+    dense dispatch's). Returns the rank's fp32 share `[B, S, D]`."""
+    d, k = h.shape[-1], cfg.num_experts_per_tok
+    topv, topi = _moe_topk(p, h, cfg)
+    topv, picks = topv.reshape(-1, k), topi.reshape(-1)  # pick j of token t at t·k + j
+    by_expert, order = torch.sort(picks, stable=True)
+    x = copy_tp(h, tp).reshape(-1, d)
+    xs = x.index_select(0, order // k)  # every pick's row, by expert
+    rows = x.new_zeros(picks.numel(), d)
+    # expert e's picks are by_expert[bounds[e] : bounds[e + 1]]
+    ids = torch.arange(cfg.num_experts + 1, device=picks.device)
+    bounds = torch.searchsorted(by_expert, ids).tolist()
+    least = GEMV_MAX_M + 1 if x.shape[0] > GEMV_MAX_M else 1
+    computed = 0
+    for i in range(n_local):
+        lo, hi = bounds[e0 + i], bounds[e0 + i + 1]
+        if hi > lo:
+            xe = xs[lo:hi]
+            if hi - lo < least:
+                xe = torch.cat([xe, xe[-1:].expand(least - (hi - lo), d)])
+            out = _expert_ffn(_layer_params(p["experts"], i), xe, rq, k_split)
+            rows.index_copy_(0, order[lo:hi], out[: hi - lo].to(rows.dtype))
+            computed += xe.shape[0]
+    if prof.ON:
+        _count_moe(cfg, computed, picks, e0, n_local)
+    return _combine_picks(rows.view(-1, k, d), topv).reshape(h.shape)
+
+
+#: the rows of a call above which the MoE routes (`_moe_routed`) rather
+#: than run every expert on every row (`_moe_dense`). Routing cuts the
+#: experts' work k/E-fold but syncs the host once a layer, so the next
+#: layer's launches no longer overlap the card's work: on Mixtral-8x7B on
+#: one H100 (`chip_smoke.py --moe`) the two forms ran 8- and 64-row decode
+#: steps and a [1, 128] forward within their spread of each other, and the
+#: routed one a [1, 256] forward 1.37x faster, [1, 512] 1.84x, [1, 2048] 2.7x
+MOE_ROUTED_ABOVE = 128
+
+
 def _moe_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantConfig,
                tp: Optional[Shard] = None) -> torch.Tensor:
-    """Mixtral's sparse-MoE MLP (`transformer.py:690-705`): by default
-    dense, every expert on every token with the top-k routing weights
-    masked in; under `set_moe_capacity(f)` the capacity dispatch. A
+    """Mixtral's sparse-MoE MLP (`transformer.py:690-705`): the exact top-k
+    with no drop, dense at `MOE_ROUTED_ABOVE` rows or fewer (every expert
+    on every token, the top-k routing weights masked in: no host sync, the
+    plain form the parity tests hold against JAX) and routed above
+    (`_moe_routed`); under `set_moe_capacity(f)` the capacity dispatch. A
     rank-local tree holds every expert's feature shards (tensor parallel)
     or whole experts, its `E / tp` from `tp_rank` on (expert parallel); the
     rank's share is all-reduced over tp once, in fp32."""
@@ -657,14 +742,8 @@ def _moe_block(p: Params, h: torch.Tensor, cfg: ModelConfig, rq: RuntimeQuantCon
     if _MOE_CAPACITY is not None:
         y = _moe_capacity_block(p, h, cfg, rq, _MOE_CAPACITY, e0, n_local, tp, k_split)
     else:
-        topv, topi = _moe_topk(p, h, cfg)
-        if prof.ON:
-            _count_moe(cfg, h.numel() // h.shape[-1] * n_local, topi.reshape(-1), e0, n_local)
-        weights = _routing_weights(topv, topi, cfg)[..., e0 : e0 + n_local]
-        xh = copy_tp(h, tp)  # the experts' input; the router's is replicated
-        outs = torch.stack([_expert_ffn(_layer_params(p["experts"], i), xh, rq, k_split)
-                            for i in range(n_local)])  # [E, B, S, D]
-        y = torch.einsum("ebsd,bse->bsd", outs.float(), weights)
+        routed = h.numel() // h.shape[-1] > MOE_ROUTED_ABOVE
+        y = (_moe_routed if routed else _moe_dense)(p, h, cfg, rq, e0, n_local, tp, k_split)
     return reduce_tp(y, tp).to(h.dtype)
 
 

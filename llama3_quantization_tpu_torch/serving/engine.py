@@ -562,10 +562,13 @@ class ServingEngine:
             self._queue.sort(key=lambda r: r[1])  # pop() takes the longest
 
     def _admissions_async(self) -> None:
-        """Admit queued requests without any device sync: the prefill's
-        first tokens stay on the device, merged into the next window's
-        tok0 there and resolved into host bookkeeping at the next collect
-        (`_resolve_first_tokens`)."""
+        """Admit queued requests with no device sync of their own: the
+        prefill's first tokens stay on the device, merged into the next
+        window's tok0 there and resolved into host bookkeeping at the next
+        collect (`_resolve_first_tokens`). A MoE prefill above
+        `MOE_ROUTED_ABOVE` rows reads its experts' row counts back once a
+        layer (`_moe_routed`), so its admission waits for the window in
+        flight."""
         self._order_queue()
         if not (self.free and self._queue):
             return

@@ -783,6 +783,59 @@ def test_b10_variants_match_plain(cuda_device, variant, k, n):
                                rtol=0, atol=0)
 
 
+
+@pytest.mark.parametrize("short_rows", [None, 40], ids=["even", "one-short"])
+def test_moe_routed_matches_dense_at_mixtral_width(cuda_device, monkeypatch, short_rows):
+    """One Mixtral-8x7B MoE layer (D 4096, 8 experts top-2 at 14336, W4
+    g128 packed random codes, bf16) on M = 2048 rows: the routed dispatch
+    gives the dense one's bits (every expert on all 2048 rows, B2; B2's
+    rows do not depend on M and both combine in `_combine_picks`), the same
+    bits twice, every expert on B2, the call's route, even with
+    `short_rows` an expert of 40 rows (channel 0 at -8, the router's weight
+    there -4 on expert 7; 8 and never elsewhere), padded to 65. On the same
+    picks the first 1024 rows (routed, each expert on ~256) and the first
+    100 (dense, every expert on 100) give the full call's bits."""
+    from llama3_quantization_tpu_torch.models import transformer as TT
+
+    cfg = P.MIXTRAL_8X7B
+    d, f, e, m = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, 2048
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+
+    def experts(k, n):
+        data = torch.randint(0, 256, (e, k // 2, n), generator=gen, device=cuda_device,
+                             dtype=torch.uint8)
+        scale = torch.full((e, k // 128, n), 2.0 / k ** 0.5, device=cuda_device)
+        zero = torch.full((e, k // 128, n), 8.0, device=cuda_device)
+        return {"w": P.QuantizedTensor(data, scale, zero, bits=4, group_size=128, k=k, n=n,
+                                       packed=True)}
+
+    router = torch.randn((d, e), generator=gen, device=cuda_device) / d ** 0.5
+    x = torch.randn((1, m, d), generator=gen, device=cuda_device)
+    if short_rows:
+        router[0] = 0.0
+        router[0, e - 1] = -4.0
+        x[..., 0] = 8.0
+        x[0, :short_rows, 0] = -8.0
+    layer = {"router": {"w": router.to(torch.bfloat16)}, "experts": {
+        "gate": experts(d, f), "up": experts(d, f), "down": experts(f, d)}}
+    x = x.to(torch.bfloat16)
+    topv, topi = TT._moe_topk(layer, x, cfg)
+    picked = torch.bincount(topi.reshape(-1), minlength=e).tolist()
+    assert [n for n in picked if 0 < n <= 64] == ([short_rows] if short_rows else []), picked
+    dense = TT._moe_dense(layer, x, cfg, TT.NO_QUANT, 0, e)
+    before = launches.snapshot()
+    got = TT._moe_block(layer, x, cfg, TT.NO_QUANT)
+    after = launches.snapshot()
+    assert (after["B1"] - before["B1"], after["B2"] - before["B2"]) == (0, 3 * e)
+    torch.testing.assert_close(TT._moe_block(layer, x, cfg, TT.NO_QUANT), got, rtol=0, atol=0)
+    torch.testing.assert_close(got, dense.to(got.dtype), rtol=0, atol=0)
+    monkeypatch.setattr(TT, "_moe_topk", lambda p, h, c: (topv[:, : h.shape[1]],
+                                                          topi[:, : h.shape[1]]))
+    for n in (1024, 100):
+        torch.testing.assert_close(TT._moe_block(layer, x[:, :n], cfg, TT.NO_QUANT), got[:, :n],
+                                   rtol=0, atol=0)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

@@ -55,6 +55,7 @@ from llama3_quantization_tpu_torch.models import params as TP
 from llama3_quantization_tpu_torch.models import synthetic as TSY
 from llama3_quantization_tpu_torch.models import transformer as TT
 from llama3_quantization_tpu_torch.models import windowed as TW
+from llama3_quantization_tpu_torch.ops import fused_qmatmul as fq
 from llama3_quantization_tpu_torch.ops import matmul as mm
 from llama3_quantization_tpu_torch.quant import awq as TA
 from llama3_quantization_tpu_torch.quant import calibration as TC
@@ -181,6 +182,77 @@ def test_moe_routing_actually_sparse(setup):
     if unused:
         torch.testing.assert_close(zeroed(unused[0]), base, rtol=0, atol=1e-6)
     assert float((zeroed(min(used)) - base).abs().max()) > 1e-6
+
+
+# -------------------------------------- routed dispatch above 128 rows ----
+def _skewed(layer, case, to):
+    """`layer` with its router's channel 0 set for `case`: "every-expert"
+    leaves it; "one-idle" sets -8 on expert 3, so that no row whose channel
+    0 reads 8 picks it; "one-short" sets -4 on expert 3 and 0 elsewhere, so
+    that it takes exactly the rows whose channel 0 reads -8 (the first 40)
+    and none of those reading 8. `to` makes the package's array from
+    numpy."""
+    if case == "every-expert":
+        return layer
+    w = np.array(layer["router"]["w"])
+    if case == "one-short":
+        w[0] = 0.0
+    w[0, 3] = -8.0 if case == "one-idle" else -4.0
+    return {**layer, "router": {"w": to(w)}}
+
+
+@pytest.mark.parametrize("case", ["every-expert", "one-idle", "one-short"])
+@pytest.mark.parametrize("weights", ["fp", "w4"])
+def test_moe_routed_matches_dense_and_jax(setup, w4, monkeypatch, weights, case):
+    """[2, 320] rows (640 > MOE_ROUTED_ABOVE) take the routed dispatch
+    (`_moe_routed`): one expert call per expert with rows (an expert no
+    token picks gets none), each on the kernel route of the call's rows (a
+    slice of 64 or fewer, the short expert's 40, padded to 65, so W4
+    experts never take B1's plain version), the same bits twice; within
+    1e-5 of the dense form (each [1, 320] half, the switch set at 320
+    rows) and, under "xla", of JAX's dense block."""
+    jcfg, tcfg, jp, tp, _ = setup
+    jtree, ttree = (jp, tp) if weights == "fp" else w4
+    jl = _skewed(JC._layer_slice(jtree["layers"], 0), case, jnp.asarray)
+    tl = _skewed(TC._layer_slice(ttree["layers"], 0), case, torch.from_numpy)
+    h = np.random.default_rng(5).standard_normal((2, 320, jcfg.hidden_size)).astype(np.float32)
+    if case != "every-expert":
+        h[..., 0] = 8.0
+    if case == "one-short":
+        h[0, :40, 0] = -8.0
+    x = torch.from_numpy(h)
+    calls, gemv, ffn, b1 = [], [], TT._expert_ffn, fq.qmm_gemv_plain
+
+    def counted(e_params, xe, *args):
+        calls.append(xe.numel() // xe.shape[-1])
+        return ffn(e_params, xe, *args)
+
+    def gemv_counted(x2d, *args):
+        gemv.append(x2d.shape[0])
+        return b1(x2d, *args)
+
+    def dense():
+        with monkeypatch.context() as m:
+            m.setattr(TT, "MOE_ROUTED_ABOVE", 320)
+            return torch.cat([TT._moe_block(tl, x[i : i + 1], tcfg, TT.NO_QUANT)
+                              for i in range(2)])
+
+    monkeypatch.setattr(TT, "_expert_ffn", counted)
+    monkeypatch.setattr(fq, "qmm_gemv_plain", gemv_counted)
+    routed = TT._moe_block(tl, x, tcfg, TT.NO_QUANT)
+    picked = torch.bincount(TT._moe_topk(tl, x, tcfg)[1].reshape(-1), minlength=tcfg.num_experts)
+    assert calls == [max(n, 65) for n in picked.tolist() if n]
+    assert picked.sum() == 2 * 320 * 2 and gemv == []
+    assert picked[3] == 0 if case == "one-idle" else bool((picked > 0).all())
+    assert picked[3] == 40 or case != "one-short"
+    assert torch.equal(TT._moe_block(tl, x, tcfg, TT.NO_QUANT), routed)
+    calls.clear()
+    close_to_scale(routed, dense(), 1e-5)
+    assert calls == [320] * 2 * tcfg.num_experts and gemv == []
+    with mm.backend("xla"):
+        got, ref = TT._moe_block(tl, x, tcfg, TT.NO_QUANT), dense()
+    close_to_scale(got, ref, 1e-5)
+    close_to_scale(got, JT._moe_block(jl, jnp.asarray(h), jcfg, JT.NO_QUANT), 1e-5)
 
 
 def test_moe_quantization(setup):

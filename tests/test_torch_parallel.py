@@ -8,6 +8,7 @@ this file):
 - test_moe.py::test_moe_sharded -> test_moe_sharded_matches_jax
 - test_moe.py::test_moe_expert_parallel_sharding -> test_moe_expert_parallel_matches_jax
 - test_moe.py::test_moe_capacity_expert_parallel -> test_moe_capacity_expert_parallel_matches_jax
+- (the port's routed dispatch, no JAX test) -> test_moe_routed_sharded_matches_replica_and_jax
 - test_s4.py::test_s4_sharded_forward_matches_single_device -> test_s4_sharded_forward_matches_jax
 - test_s4.py::test_s4_sharded_generate_matches_single_device -> test_s4_sharded_generate_matches_jax
 - test_serving.py::test_recode_head_shards -> test_recode_head_shards_match_jax
@@ -108,6 +109,33 @@ def test_moe_expert_parallel_matches_jax(pool, mesh, moe):
     shapes = set(pool.run(R.shard_shapes, MOE, tree, 2, 4, ep=True))
     assert all(sh[1] == TINY_MIXTRAL.num_experts // 4 for sh in shapes), shapes
     out = same_on_ranks(pool.run(R.sharded_forward, MOE, tree, toks, 2, 4, ep=True))
+    np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("ep", [False, True], ids=["tp", "ep"])
+def test_moe_routed_sharded_matches_replica_and_jax(pool, mesh, moe, monkeypatch, ep):
+    """[2, 80] tokens on dp 2 x tp 4 with the MoE's switch set at 64 rows:
+    80 rows a rank, so each rank runs the routed dispatch (the replica's
+    160 rows run it too) on tp 4 feature shards of every expert,
+    or on its one whole expert (ep, expert `rank % 4`): it serves its own
+    experts' picks alone, and computes each such expert's picks, padded to
+    the 65 rows of the call's kernel route where 64 or fewer; within 2e-4
+    of one replica of the port and of JAX."""
+    params, tree, _ = moe
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(2), (2, 80), 0,
+                                         TINY_MIXTRAL.vocab_size))
+    ref = jax_sharded(params, toks, mesh, TINY_MIXTRAL, expert_parallel=ep)
+    monkeypatch.setattr(R.T, "MOE_ROUTED_ABOVE", 64)
+    one = R.T.forward_logits(R.tree_of(tree), torch.tensor(toks), R.cfg_of(MOE)).numpy()
+    got = [g for g in pool.run(R.sharded_moe_rows, MOE, tree, toks, 2, 4, ep=ep) if g is not None]
+    assert len(got) == 8
+    for rank, (_, computed, routed, per_call) in enumerate(got):
+        local = [rank % 4] if ep else range(TINY_MIXTRAL.num_experts)
+        assert len(per_call) == TINY_MIXTRAL.num_layers
+        assert routed == sum(n[e] for n in per_call for e in local) > 0
+        assert computed == sum(max(n[e], 65) for n in per_call for e in local if n[e])
+    out = same_on_ranks([o for o, _, _, _ in got])
+    np.testing.assert_allclose(out, one, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)
 
 

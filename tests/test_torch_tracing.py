@@ -10,7 +10,8 @@
   name their kind (`TRACE_SPANS`);
 - the counters equal hand counts: prompt tokens against `max_slots x
   bucket` prefill positions, decode steps, KV positions used against
-  reserved, and the MoE's rows under both dispatches;
+  reserved, and the MoE's rows under the dense, routed and capacity
+  dispatches;
 - self time is a span's duration less its children's (a fake clock);
 - a second profiled region starts from an empty recording.
 """
@@ -135,10 +136,21 @@ def test_engine_counters_equal_hand_counts():
     assert c["engine.kv_reserved"] == 4 * max_slots * max_len
 
 
-@pytest.mark.parametrize("capacity", [None, 1.0])
-def test_moe_counters_equal_hand_counts(monkeypatch, capacity):
+@pytest.mark.parametrize("capacity,seqlen", [
+    pytest.param(None, 8, id="None"),
+    pytest.param(1.0, 8, id="1.0"),
+    pytest.param(None, 256, id="routed"),
+    pytest.param(None, 40, id="routed-padded"),
+])
+def test_moe_counters_equal_hand_counts(monkeypatch, capacity, seqlen):
+    """With the switch set at 64 rows: T = 16, dense (every expert on every
+    token) and capacity dispatch; T = 512, routed, each expert on its own
+    picks alone (every expert has more than 64); T = 80, routed, each
+    expert's ~40 picks padded to the 65 rows of the call's kernel route,
+    computed but not routed."""
     cfg = tcfg.TINY_MIXTRAL
     e, k, n_layers = cfg.num_experts, cfg.num_experts_per_tok, cfg.num_layers
+    monkeypatch.setattr(TT, "MOE_ROUTED_ABOVE", 64)
     monkeypatch.setattr(TT, "_MOE_CAPACITY", None)
     TT.set_moe_capacity(capacity)
     picks = []
@@ -151,14 +163,21 @@ def test_moe_counters_equal_hand_counts(monkeypatch, capacity):
 
     monkeypatch.setattr(TT, "_moe_topk", recording_topk)
     params = _params(cfg)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, cfg.vocab_size, (2, seqlen),
+                           generator=torch.Generator().manual_seed(1))
     t = tokens.numel()
     with prof.recording():
         TT.forward_hidden(params, tokens, cfg)
     c = prof.recorded()["counts"]
     assert len(picks) == n_layers
     per_layer = [np.bincount(pk.reshape(-1).numpy(), minlength=e) for pk in picks]
-    if capacity is None:
+    if capacity is None and t > 64:
+        assert c["moe.rows_computed"] == sum(max(n, 65) for x in per_layer for n in x if n)
+        assert c["moe.rows_routed"] == t * k * n_layers
+        assert c["moe.tokens_per_expert"] == sum(per_layer).tolist()
+        padded = sum(0 < n <= 64 for x in per_layer for n in x)
+        assert (padded == 0) if t > 256 else (padded > 0)
+    elif capacity is None:
         assert c["moe.rows_computed"] == t * e * n_layers
         assert c["moe.rows_routed"] == t * k * n_layers
         assert c["moe.tokens_per_expert"] == sum(per_layer).tolist()

@@ -39,6 +39,7 @@ from llama3_quantization_tpu_torch.parallel import (
 )
 from llama3_quantization_tpu_torch.parallel.mesh import in_mesh, mesh_shape, named_mesh
 from llama3_quantization_tpu_torch.quant.quantizer import QuantSpec
+from llama3_quantization_tpu_torch.utils import profiling
 
 
 def cfg_of(spec):
@@ -97,6 +98,29 @@ def sharded_forward(rank, world, cfg_spec, tree, toks, dp, tp, ep=False, capacit
     with switches(backend, capacity):
         sharded = shard_params(tree_of(tree), mesh, cfg, expert_parallel=ep)
         return make_sharded_forward(cfg, mesh)(sharded, torch.from_numpy(toks)).float().numpy()
+
+
+def sharded_moe_rows(rank, world, cfg_spec, tree, toks, dp, tp, ep=False, routed_above=64):
+    """`sharded_forward` under the recorder, the MoE's switch set at
+    `routed_above` rows: (logits, the rank's MoE rows computed, the picks
+    they serve, each MoE call's picks by expert `[E]`)."""
+    per_call, topk, above = [], T._moe_topk, T.MOE_ROUTED_ABOVE
+
+    def recording_topk(p, x, cfg):
+        out = topk(p, x, cfg)
+        per_call.append(torch.bincount(out[1].reshape(-1), minlength=cfg.num_experts).tolist())
+        return out
+
+    T._moe_topk, T.MOE_ROUTED_ABOVE = recording_topk, routed_above
+    try:
+        with profiling.recording():
+            out = sharded_forward(rank, world, cfg_spec, tree, toks, dp, tp, ep=ep)
+            counts = profiling.recorded()["counts"]
+    finally:
+        T._moe_topk, T.MOE_ROUTED_ABOVE = topk, above
+    if out is None:
+        return None
+    return out, int(counts["moe.rows_computed"]), int(counts["moe.rows_routed"]), per_call
 
 
 def shard_shapes(rank, world, cfg_spec, tree, dp, tp, ep=False):
